@@ -1,0 +1,140 @@
+"""The port's GPT-2 module and weight bridge against the JAX model
+(PyTorch/CUDA port).
+
+Weights come from a flax init of the smoke model
+(``tools/serve_bench.SMOKE_MODEL``: vocab 211, d 32, 2 layers, 2 heads,
+max_len 64), handed to the port as nested dicts of numpy arrays; logits
+of the port's ``forward_full`` must match the JAX engine's at atol 1e-5.
+"""
+
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorflow_examples_tpu.models import transformer as jax_transformer
+from tensorflow_examples_tpu.serving import engine as jax_engine
+from tensorflow_examples_torch.models import convert, transformer
+from tensorflow_examples_torch.serving import engine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tools"))
+
+import serve_bench  # noqa: E402 — needs the tools path above
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these tests run beside timing-sensitive
+    serving tests in other workers and must not starve them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def smoke_cfgs():
+    jax_cfg = jax_transformer.TransformerConfig(**serve_bench.SMOKE_MODEL)
+    keys = ("vocab_size", "max_len", "num_layers", "num_heads", "d_model")
+    return jax_cfg, transformer.TransformerConfig(**{k: getattr(jax_cfg, k) for k in keys})
+
+
+@pytest.fixture(scope="module")
+def flax_params():
+    jax_cfg, _ = smoke_cfgs()
+    params = jax_transformer.Transformer(jax_cfg).init(
+        {"params": jax.random.PRNGKey(1)}, jnp.zeros((1, 8), jnp.int32)
+    )["params"]
+    return jax.tree.map(np.asarray, params)
+
+
+def test_param_count_gpt2_124m_on_meta():
+    model = transformer.GPT2(transformer.gpt2_124m(), device="meta")
+    assert sum(p.numel() for p in model.parameters()) == 124_439_808
+
+
+def test_state_dict_paths_and_layouts_are_the_jax_tree(flax_params):
+    _, cfg = smoke_cfgs()
+    ours = {k.replace(".", "/"): tuple(t.shape)
+            for k, t in transformer.GPT2(cfg, device="meta").state_dict().items()}
+    theirs = {k: v.shape for k, v in convert.flatten_tree(flax_params).items()}
+    assert ours == theirs
+    assert ours["h_0/attn/qkv/kernel"] == (32, 3, 2, 16)
+    assert ours["h_0/attn/proj/kernel"] == (2, 16, 32)
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_forward_full_matches_jax_engine(flax_params, impl):
+    """Logits and the per-layer K/V a prefill writes, through the weight
+    bridge; ``flash`` runs the JAX Pallas kernel in interpret mode and the
+    port's kernel wrapper (its plain version on the CPU)."""
+    jax_cfg, cfg = smoke_cfgs()
+    model = convert.model_from_params(cfg, flax_params)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 48))
+    j_logits, j_ks, j_vs = jax_engine.forward_full(
+        jax_cfg, jax.tree.map(jnp.asarray, flax_params), jnp.asarray(tokens, jnp.int32),
+        impl=impl,
+    )
+    with torch.no_grad():
+        logits, ks, vs = engine.forward_full(model, torch.from_numpy(tokens), impl=impl)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(ks.numpy(), np.asarray(j_ks), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(vs.numpy(), np.asarray(j_vs), atol=1e-5, rtol=1e-5)
+
+
+def test_module_forward_matches_flax_apply(flax_params):
+    jax_cfg, cfg = smoke_cfgs()
+    model = convert.model_from_params(cfg, flax_params)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 30))
+    ref = jax_transformer.Transformer(jax_cfg).apply(
+        {"params": flax_params}, jnp.asarray(tokens, jnp.int32)
+    )
+    with torch.no_grad():
+        ours = model(torch.from_numpy(tokens))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_npz_round_trip(flax_params, tmp_path):
+    _, cfg = smoke_cfgs()
+    path = tmp_path / "params.npz"
+    convert.save_npz(str(path), flax_params)
+    flat = convert.load_npz(str(path))
+    assert all("/" in k for k in flat)
+    a = convert.model_from_params(cfg, flax_params).state_dict()
+    b = convert.model_from_params(cfg, flat).state_dict()
+    for k in a:
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+
+
+def test_bridge_names_missing_and_misshapen_paths(flax_params):
+    _, cfg = smoke_cfgs()
+    flat = convert.flatten_tree(flax_params)
+    flat.pop("h_1/ln_2/scale")
+    with pytest.raises(ValueError, match="h_1/ln_2/scale"):
+        convert.model_from_params(cfg, flat)
+    flat = convert.flatten_tree(flax_params)
+    flat["wpe/embedding"] = flat["wpe/embedding"][:10]
+    with pytest.raises(ValueError, match="wpe/embedding"):
+        convert.model_from_params(cfg, flat)
+
+
+def test_random_init_follows_the_reference_scheme():
+    cfg = transformer.TransformerConfig(vocab_size=4000, max_len=512, num_layers=4,
+                                        num_heads=4, d_model=128)
+    m = transformer.GPT2(cfg, seed=3)
+    std = lambda t: float(t.detach().std())
+    assert std(m.wte.embedding) == pytest.approx(0.02, rel=0.02)
+    assert std(m.wpe.embedding) == pytest.approx(0.01, rel=0.02)
+    assert std(m.h_0.mlp_fc.kernel) == pytest.approx(0.02, rel=0.02)
+    for t in (m.h_2.attn.proj.kernel, m.h_2.mlp_proj.kernel):
+        assert std(t) == pytest.approx(0.02 / (2 * cfg.num_layers) ** 0.5, rel=0.05)
+    assert float(m.h_1.attn.qkv.bias.detach().abs().max()) == 0.0
+    assert torch.equal(m.ln_f.scale, torch.ones(cfg.d_model))
+    again = transformer.GPT2(cfg, seed=3)
+    other = transformer.GPT2(cfg, seed=4)
+    assert torch.equal(m.h_3.attn.qkv.kernel, again.h_3.attn.qkv.kernel)
+    assert not torch.equal(m.h_3.attn.qkv.kernel, other.h_3.attn.qkv.kernel)

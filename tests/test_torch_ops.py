@@ -1,0 +1,235 @@
+"""The port's attention ops against the JAX package's (PyTorch/CUDA port).
+
+Inputs come from numpy seeds and go through both packages on the CPU:
+the JAX Pallas kernels in interpret mode (as tests/test_kernels.py runs
+them) and their XLA references, against the port's plain versions —
+which is what the port's kernel wrappers run for CPU tensors. The CUDA
+kernels themselves are compared with the plain versions on the card by
+tests/test_torch_cuda.py and by chip_smoke.py. Tolerances are the
+JAX suite's: atol 2e-5 for f32 flash-decode, 2e-2 for bf16, 2e-6 for
+paged decode.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorflow_examples_tpu.core import precision as jax_precision
+from tensorflow_examples_tpu.ops import decode as jax_decode
+from tensorflow_examples_tpu.ops import paged_decode as jax_paged
+from tensorflow_examples_torch.core import precision
+from tensorflow_examples_torch.ops import _build, decode, paged_decode
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these tests run beside timing-sensitive
+    serving tests in other workers and must not starve them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rand(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.array(x)).to(dtype)
+
+
+class TestFlashDecodeParity:
+    @pytest.mark.parametrize(
+        "q_len,length",
+        [(1, 1), (1, 13), (1, 512), (7, 200), (128, 128), (96, 300)],
+    )
+    def test_matches_jax_kernel_and_reference(self, q_len, length):
+        rng = np.random.default_rng(q_len * 1000 + length)
+        q = _rand(rng, (2, 3, q_len, 64))
+        k, v = _rand(rng, (2, 3, 512, 64)), _rand(rng, (2, 3, 512, 64))
+        ours = decode.flash_decode_attention(_t(q), _t(k), _t(v), length).numpy()
+        kernel = jax_decode.flash_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), length
+        )
+        ref = jax_decode.decode_attention_reference(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), length
+        )
+        np.testing.assert_allclose(ours, np.asarray(kernel), atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(ours, np.asarray(ref), atol=2e-5, rtol=2e-5)
+
+    def test_garbage_cache_tail_ignored(self):
+        rng = np.random.default_rng(3)
+        q = _t(_rand(rng, (1, 2, 1, 64)))
+        k, v = _t(_rand(rng, (1, 2, 256, 64))), _t(_rand(rng, (1, 2, 256, 64)))
+        out = decode.flash_decode_attention(q, k, v, 100)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, 100:] = 1e4
+        v2[:, :, 100:] = -1e4
+        np.testing.assert_array_equal(
+            out.numpy(), decode.flash_decode_attention(q, k2, v2, 100).numpy()
+        )
+
+    @pytest.mark.parametrize("q_len,max_len,length", [(1, 256, 300), (36, 516, 400)])
+    def test_overlong_length_and_partial_blocks(self, q_len, max_len, length):
+        """length > max_len clamps to the full cache; a max_len with no
+        block divisor masks its padded tail (JAX kernel in interpret mode
+        with block_q=32 for the odd case, as tests/test_kernels.py)."""
+        rng = np.random.default_rng(max_len)
+        q = _rand(rng, (1, 2, q_len, 64))
+        k, v = _rand(rng, (1, 2, max_len, 64)), _rand(rng, (1, 2, max_len, 64))
+        ours = decode.flash_decode_attention(_t(q), _t(k), _t(v), length).numpy()
+        kw = {"block_q": 32, "block_kv": 256} if q_len > 1 else {}
+        kernel = jax_decode.flash_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), length, **kw
+        )
+        np.testing.assert_allclose(ours, np.asarray(kernel), atol=2e-5, rtol=2e-5)
+
+    def test_bf16_cache(self):
+        rng = np.random.default_rng(12)
+        q = _rand(rng, (1, 2, 1, 64))
+        k, v = _rand(rng, (1, 2, 128, 64)), _rand(rng, (1, 2, 128, 64))
+        ours = decode.flash_decode_attention(
+            _t(q, torch.bfloat16), _t(k, torch.bfloat16), _t(v, torch.bfloat16), 64
+        )
+        assert ours.dtype == torch.bfloat16
+        kernel = jax_decode.flash_decode_attention(
+            jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+            jnp.asarray(v, jnp.bfloat16), 64,
+        )
+        np.testing.assert_allclose(
+            ours.float().numpy(), np.asarray(kernel.astype(jnp.float32)),
+            atol=2e-2, rtol=2e-2,
+        )
+
+
+class TestPagedDecodeParity:
+    BS, NB, H, D = 8, 9, 2, 16
+
+    def _pool(self, seed):
+        rng = np.random.default_rng(seed)
+        shape = (self.NB, self.H, self.BS, self.D)
+        return _rand(rng, shape), _rand(rng, shape)
+
+    def _both(self, q, k, v, lengths, tables, **scales):
+        j = dict(q=jnp.asarray(q), k_blocks=jnp.asarray(k), v_blocks=jnp.asarray(v),
+                 lengths=jnp.asarray(lengths, jnp.int32),
+                 block_tables=jnp.asarray(tables, jnp.int32),
+                 **{n: jnp.asarray(s) for n, s in scales.items()})
+        kernel = np.asarray(jax_paged.paged_decode_attention(**j))
+        ref = np.asarray(jax_paged.paged_decode_reference(**j))
+        kv_dtype = torch.int8 if scales else torch.float32
+        ours = paged_decode.paged_decode_attention(
+            _t(q), _t(k, kv_dtype), _t(v, kv_dtype),
+            _t(lengths, torch.int32), _t(tables, torch.int32),
+            **{n: _t(s) for n, s in scales.items()},
+        ).numpy()
+        return ours, kernel, ref
+
+    @pytest.mark.parametrize("lengths,tables", [
+        ([1, 8], [[3, 0], [5, 0]]),                                   # single block, length 1
+        ([13, 21, 30], [[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 8, 2]]),  # ragged last block
+        ([7, 19], [[3, 0, 0], [1, 2, 4]]),
+    ])
+    def test_matches_jax_kernel_and_reference(self, lengths, tables):
+        rng = np.random.default_rng(sum(lengths))
+        q = _rand(rng, (len(lengths), self.H, self.D))
+        k, v = self._pool(len(lengths))
+        ours, kernel, ref = self._both(q, k, v, lengths, tables)
+        np.testing.assert_allclose(ours, kernel, atol=2e-6, rtol=2e-6)
+        np.testing.assert_allclose(ours, ref, atol=2e-6, rtol=2e-6)
+
+    def test_empty_slot_is_finite(self):
+        """A parked slot (length 0) comes out finite; its output is
+        discarded, so only the populated slot is compared."""
+        rng = np.random.default_rng(5)
+        q = _rand(rng, (2, self.H, self.D))
+        k, v = self._pool(5)
+        ours, kernel, _ = self._both(q, k, v, [0, 5], [[0, 0], [4, 0]])
+        assert np.isfinite(ours).all()
+        np.testing.assert_allclose(ours[1], kernel[1], atol=2e-6, rtol=2e-6)
+
+    def test_null_padded_tables_never_leak(self):
+        rng = np.random.default_rng(7)
+        q = _t(_rand(rng, (1, self.H, self.D)))
+        k, v = (_t(x) for x in self._pool(7))
+        lengths, tables = _t([10], torch.int32), _t([[2, 6, 0, 0]], torch.int32)
+        base = paged_decode.paged_decode_attention(q, k, v, lengths, tables)
+        k[5] += 100.0  # block 5 is unreferenced
+        v[5] += 100.0
+        again = paged_decode.paged_decode_attention(q, k, v, lengths, tables)
+        np.testing.assert_array_equal(base.numpy(), again.numpy())
+
+    def test_int8_scales(self):
+        rng = np.random.default_rng(3)
+        q = _rand(rng, (3, self.H, self.D))
+        k, v = self._pool(3)
+        qk, ks = (np.asarray(x) for x in jax_precision.quantize_int8_rows(jnp.asarray(k)))
+        qv, vs = (np.asarray(x) for x in jax_precision.quantize_int8_rows(jnp.asarray(v)))
+        ours, kernel, ref = self._both(
+            q, qk, qv, [5, 16, 27], [[1, 0, 0, 0], [2, 3, 0, 0], [4, 5, 6, 7]],
+            k_scale=ks, v_scale=vs,
+        )
+        np.testing.assert_allclose(ours, kernel, atol=2e-6, rtol=2e-6)
+        np.testing.assert_allclose(ours, ref, atol=2e-6, rtol=2e-6)
+
+    def test_scale_pairing_enforced(self):
+        k, v = (_t(x) for x in self._pool(0))
+        with pytest.raises(ValueError, match="both k_scale and v_scale"):
+            paged_decode.paged_decode_attention(
+                torch.zeros(1, self.H, self.D), k, v, _t([1], torch.int32),
+                _t([[0, 0]], torch.int32), k_scale=torch.ones(self.NB, self.H, self.BS),
+            )
+
+
+def test_int8_row_quantization_matches_jax():
+    rng = np.random.default_rng(0)
+    x = _rand(rng, (4, 3, 16)) * 3
+    x[0, 0] = 0.0  # an all-zero row gets scale 1
+    jq, js = jax_precision.quantize_int8_rows(jnp.asarray(x))
+    tq, ts = precision.quantize_int8_rows(_t(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        precision.dequantize_int8_rows(tq, ts).numpy(),
+        np.asarray(jax_precision.dequantize_int8_rows(jq, js)),
+    )
+
+
+class TestWrappers:
+    def test_cpu_tensors_take_the_plain_version_and_count_nothing(self):
+        rng = np.random.default_rng(1)
+        q, k, v = (_t(_rand(rng, (1, 2, 16, 64))) for _ in range(3))
+        before = decode.flash_decode_attention.launches
+        out = decode.flash_decode_attention(q, k, v, 16)
+        np.testing.assert_array_equal(
+            out.numpy(), decode.decode_attention_reference(q, k, v, 16).numpy()
+        )
+        assert decode.flash_decode_attention.launches == before
+
+    def test_non_cpu_tensor_never_falls_back(self):
+        """A tensor that is not on the CPU goes to the kernel path, which
+        refuses what it cannot launch instead of running the plain
+        version (meta stands in for a device here)."""
+        q = torch.empty(1, 2, 16, 64, device="meta")
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            decode.flash_decode_attention(q, q, q, 16)
+        with pytest.raises(ValueError, match="head_dim"):
+            p = torch.empty(2, 2, 16, device="meta")
+            paged_decode.paged_decode_attention(
+                p, torch.empty(3, 2, 8, 16, device="meta"),
+                torch.empty(3, 2, 8, 16, device="meta"),
+                torch.empty(2, dtype=torch.int32, device="meta"),
+                torch.empty(2, 1, dtype=torch.int32, device="meta"),
+            )
+
+    def test_kernel_modules_import_and_build_nothing_without_nvcc(self, monkeypatch):
+        """Importing the kernel modules builds nothing; a build with no
+        nvcc around fails loudly with a reason."""
+        assert _build.library_path("decode").name.startswith("libdecode-")
+        assert not _build._libs
+        monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+        monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.nvcc()
