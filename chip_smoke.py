@@ -8,21 +8,35 @@ without a result line otherwise. Phases, each of which passes or exits
 non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: both CUDA kernels from ``tensorflow_examples_torch/ops/csrc``;
+2. build: every CUDA source in ``tensorflow_examples_torch/ops/csrc``
+   (one ``nvcc`` each, all at once);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (flash-decode: B=1, H=12, D=64,
-   q_len=length in {16, 100, 512, 1024}, f32 and bf16, plus a q_len=1 step into
-   a longer cache; paged-decode: S=8, H=12, BS=16, nb=64 with ragged
-   lengths, fp32 and int8), with kernel, plain and bound times, and
-   ``scaled_dot_product_attention`` timed as a yardstick only;
-4. serving: GPT-2 124M at full width, random weights from seed 0, f32,
+   its path's shapes, with kernel, plain and bound times, and
+   ``scaled_dot_product_attention`` timed as a yardstick only
+   (flash-decode: B=1, H=12, D=64, q_len=length in {16, 100, 512, 1024},
+   f32 and bf16, plus a q_len=1 step into a longer cache; paged-decode:
+   S=8, H=12, BS=16, nb=64 with ragged lengths, fp32 and int8; the three
+   training flash kernels at the GPT-2 step's shape, B=16, H=12, S=1024,
+   D=64, causal, bf16 and f32, plus seq_q < seq_kv, a length that is not
+   a tile multiple, a key bias with masked keys and a nonzero lse
+   cotangent);
+4. training: GPT-2 124M at full width on synthetic bigram data through
+   ``Trainer.fit`` (bf16 compute, dropout 0.1, batch 16 x 1024, 20 steps,
+   warmup cut to 5 steps so the loss can move), after the step's loss
+   and every gradient at step 0 with the flash kernels are held to the
+   plain attention path (f32, dropout 0); step time, tokens/s, MFU, the
+   loss falling, launches per step (and twice the forward launches under
+   remat at step 0), and one profiled step's device time
+   split into flash kernels, matmuls, the rest and idle (cross-entropy
+   and the optimizer update timed on their own);
+5. serving: GPT-2 124M at full width, random weights from seed 0, f32,
    through ``ContinuousBatcher`` + ``ServingFrontend`` over real HTTP in
    three engine configurations (dense pool with ``attention="flash"``;
    paged pool, block 16, ``attention="paged_flash"``; the same with int8
    KV), 8 concurrent greedy requests each, every stream checked against
    the cacheless ``reference_generate`` on the card and the kernels'
    launch counters read around the served requests;
-5. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -42,6 +56,19 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # f32 outside the tenso
 NEAR_TIE = 1e-4                # top-2 logit gap below which a greedy flip is a tie
 FLASH_SOURCE = "tensorflow_examples_torch/ops/csrc/decode.cu"
 PAGED_SOURCE = "tensorflow_examples_torch/ops/csrc/paged_decode.cu"
+ATTN_SOURCE = "tensorflow_examples_torch/ops/csrc/flash_attention.cu"
+BF16_DENSE_PEAK = 989.4e12     # H100 SXM bf16 tensor cores, dense: the MFU denominator
+TRAIN_STEPS = 20
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+TRAIN_ATTN = (16, 12, 1024)    # the GPT-2 step's attention: batch, heads, sequence
+# Flash edge cases (label, seq_q, seq_kv, causal, key bias, nonzero dlse), at batch 2.
+FLASH_EDGES = (
+    ("seq_q<seq_kv", 300, 1000, True, None, False),
+    ("uneven", 777, 777, True, None, False),
+    ("key_bias -1e9", 256, 256, False, -1e9, False),
+    ("key_bias NEG_INF", 200, 320, True, "NEG_INF", False),
+    ("dlse", 512, 512, True, None, True),
+)
 
 
 def fail(msg: str) -> None:
@@ -242,7 +269,302 @@ def phase_kernels(torch, decode, paged, precision) -> dict:
     return rows
 
 
+def flash_train_times(seq_q, seq_kv, bh, d, causal, dtype_name, itemsize, kind):
+    """(bytes_ms, ops_ms) of one training flash kernel: each input read
+    once and each output written once; the products over the visible
+    (query, key) pairs: 2 for the forward (q.k, p.v), 4 for dK/dV
+    (q.k, dO.v, p.dO, ds.q), 3 for dQ (q.k, dO.v, ds.k), 2*D operations
+    each."""
+    off = seq_kv - seq_q
+    pairs = sum(max(0, min(seq_kv, r + off + 1)) for r in range(seq_q)) if causal else seq_q * seq_kv
+    pairs *= bh
+    q_bytes, kv_bytes, rows = bh * seq_q * d * itemsize, bh * seq_kv * d * itemsize, bh * seq_q * 4
+    if kind == "fwd":
+        nbytes, products = 2 * q_bytes + 2 * kv_bytes + rows, 2  # q, k, v in; o, lse out
+    elif kind == "dkv":
+        nbytes, products = 2 * q_bytes + 4 * kv_bytes + 3 * rows, 4  # q, dO, k, v, lse, delta, dlse; dk, dv
+    else:
+        nbytes, products = 3 * q_bytes + 2 * kv_bytes + 3 * rows, 3  # q, dO, k, v, rows; dq
+    ops = 2 * d * products * pairs
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+
+
+def allclose_err(torch, a, b, atol, rtol):
+    """(max |a - b|, whether |a - b| <= atol + rtol |b| everywhere)."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    ok = bool(torch.isfinite(a).all()) and bool((diff <= atol + rtol * b.abs()).all())
+    return float(diff.max()), ok
+
+
+def phase_flash_kernels(torch, attention) -> dict:
+    """The three training flash kernels against their plain versions."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    rows = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    def check(label, seq_q, seq_kv, causal, dtype, bias=None, with_dlse=False, timed=False):
+        b, h, d = (TRAIN_ATTN[0], TRAIN_ATTN[1], 64) if timed else (2, TRAIN_ATTN[1], 64)
+        dname = str(dtype).replace("torch.", "")
+        q, do = randn(b * h, seq_q, d, dtype=dtype), randn(b * h, seq_q, d, dtype=dtype)
+        k, v = randn(b * h, seq_kv, d, dtype=dtype), randn(b * h, seq_kv, d, dtype=dtype)
+        kb = None
+        if bias is not None:
+            kb = torch.zeros(b, seq_kv, device=dev)
+            kb[: b // 2, seq_kv // 3:] = bias  # half the batch rows mask 2/3 of their keys
+        dlse = randn(b * h, seq_q) if with_dlse else torch.zeros(b * h, seq_q, device=dev)
+        kw = dict(heads=h, causal=causal, sm_scale=d ** -0.5)
+        o, lse = attention.flash_fwd(q, k, v, kb, **kw)
+        o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, kb, **kw)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        args = (q, k, v, do, lse_ref, delta, dlse, kb)
+        dk, dv = attention.flash_bwd_dkv(*args, **kw)
+        dq = attention.flash_bwd_dq(*args, **kw)
+        dk_ref, dv_ref = attention.flash_bwd_dkv_plain(*args, **kw)
+        dq_ref = attention.flash_bwd_dq_plain(*args, **kw)
+        torch.cuda.synchronize()
+        fwd_tol = 2e-5 if dtype == torch.float32 else 2e-2
+        errs = {"fwd": allclose_err(torch, o, o_ref, fwd_tol, fwd_tol)}
+        lse_err = allclose_err(torch, lse, lse_ref, 1e-4, 1e-5)
+        if dtype == torch.float32:  # the JAX suite's gradient tolerance
+            errs["dkv"] = max(allclose_err(torch, dk, dk_ref, 5e-4, 5e-4),
+                              allclose_err(torch, dv, dv_ref, 5e-4, 5e-4), key=lambda e: e[0])
+            errs["dq"] = allclose_err(torch, dq, dq_ref, 5e-4, 5e-4)
+        else:  # bf16 outputs: within 2e-2 of the plain version's largest gradient
+            for kind, pairs_ in (("dkv", ((dk, dk_ref), (dv, dv_ref))), ("dq", ((dq, dq_ref),))):
+                worst = (0.0, True)
+                for a, r in pairs_:
+                    scale = float(r.float().abs().max())
+                    e = allclose_err(torch, a, r, 2e-2 * scale, 0.0)
+                    worst = (max(worst[0], e[0]), worst[1] and e[1])
+                errs[kind] = worst
+        bad = [k for k, (_, ok) in errs.items() if not ok] + ([] if lse_err[1] else ["lse"])
+        log(f"flash[{label}] {dname} B={b} H={h} seq_q={seq_q} seq_kv={seq_kv} causal={causal} "
+            f"bias={bias} dlse={with_dlse}: max_abs_err fwd {errs['fwd'][0]:.3e} lse "
+            f"{lse_err[0]:.3e} dkv {errs['dkv'][0]:.3e} dq {errs['dq'][0]:.3e}")
+        if bad:
+            fail(f"flash[{label}] {dname}: {bad} outside tolerance (fwd {fwd_tol}, f32 grads "
+                 f"5e-4, bf16 grads 2e-2 of max)")
+        if not timed:
+            return errs
+        calls = {
+            "fwd": (lambda: attention.flash_fwd(q, k, v, **kw),
+                    lambda: attention.flash_fwd_plain(q, k, v, None, **kw)),
+            "dkv": (lambda: attention.flash_bwd_dkv(*args, **kw),
+                    lambda: attention.flash_bwd_dkv_plain(*args, **kw)),
+            "dq": (lambda: attention.flash_bwd_dq(*args, **kw),
+                   lambda: attention.flash_bwd_dq_plain(*args, **kw)),
+        }
+        q4, k4, v4 = (t.reshape(b, h, -1, d) for t in (q, k, v))
+        sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                          is_causal=causal))
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+        do4 = do.reshape(b, h, -1, d)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            torch.autograd.grad(out, (qg, kg, vg), do4)
+
+        sdpa_both = cuda_ms(torch, sdpa_fwd_bwd, iters=10)
+        for kind, (kernel, plain) in calls.items():
+            ms = cuda_ms(torch, kernel)
+            plain_ms = cuda_ms(torch, plain, iters=5, warmup=1)
+            t_bytes, t_ops = flash_train_times(seq_q, seq_kv, b * h, d, causal, dname,
+                                               q.element_size(), kind)
+            bound_ms, by = bound(t_bytes, t_ops)
+            log(f"flash_{kind} {dname} B={b} H={h} S={seq_q} D={d} causal: kernel_ms {ms:.4f} "
+                f"plain_ms {plain_ms:.4f} bytes_ms {t_bytes:.5f} ops_ms {t_ops:.5f} bound_ms "
+                f"{bound_ms:.5f} ({by}); library sdpa fwd_ms {sdpa_fwd:.4f} fwd+bwd_ms "
+                f"{sdpa_both:.4f}")
+            rows.setdefault(f"{dname}/{kind}", dict(
+                shape=f"B={b} H={h} S={seq_q} D={d} causal {dname}", ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by,
+                library_ms=sdpa_fwd if kind == "fwd" else None, sdpa_fwd_bwd_ms=sdpa_both,
+            ))
+        return errs
+
+    # Worst max |kernel - plain| per kernel and dtype over every case; the
+    # timed row carries the bf16 training shape's own error.
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        train_errs = check("train", TRAIN_ATTN[2], TRAIN_ATTN[2], True, dtype, timed=True)
+        edges = [check(label, sq, skv, causal, dtype, with_dlse=dlse,
+                       bias=attention.NEG_INF if bias == "NEG_INF" else bias)
+                 for label, sq, skv, causal, bias, dlse in FLASH_EDGES]
+        for errs in (train_errs, *edges):
+            for kind, (err, _) in errs.items():
+                worst[f"{dname}/{kind}"] = max(worst.get(f"{dname}/{kind}", 0.0), err)
+        for kind, (err, _) in train_errs.items():
+            rows[f"{dname}/{kind}"]["max_abs_err"] = err
+    out = {}
+    for kind, name in (("fwd", "flash_fwd"), ("dkv", "flash_bwd_dkv"), ("dq", "flash_bwd_dq")):
+        row = dict(rows[f"bfloat16/{kind}"])
+        row["float32"] = rows[f"float32/{kind}"]
+        row["worst_abs_err_all_cases"] = {"bfloat16": worst[f"bfloat16/{kind}"],
+                                          "float32": worst[f"float32/{kind}"]}
+        out[name] = row
+    return out
+
+
 # ---------------------------------------------------------------- phase 4
+
+
+def device_split(torch, fn) -> dict:
+    """torch.profiler around ``fn`` (which ends synchronized): host wall,
+    summed kernel time, and kernel time by kind (the port's flash
+    kernels, matmuls, everything else); idle = wall - kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    launches = 0
+    top = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3
+        name = e.key.lower()
+        kind = ("flash" if "flash_" in name else
+                "matmul" if any(t in name for t in ("gemm", "cutlass", "xmma", "cublas", "sm90_"))
+                else "other")
+        split[kind] += ms
+        launches += e.count
+        top[e.key[:70]] = ms
+    busy = sum(split.values())
+    return {"wall_ms": wall_ms, "device_ms": busy, "idle_ms": wall_ms - busy,
+            "busy_share": busy / wall_ms, **{f"{k}_ms": v for k, v in split.items()},
+            "kernel_launches": launches,
+            "top": sorted(top.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def phase_training(torch, counters, smi: str) -> dict:
+    from tensorflow_examples_torch.core import rng
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.ops.cross_entropy import cross_entropy_reference
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    base = gpt2.Gpt2Config(train_steps=TRAIN_STEPS, warmup_steps=5, log_every=1, eval_every=0)
+    t0 = time.perf_counter()
+    train_ds, _ = gpt2.datasets(base)
+    log(f"train data: {train_ds.size} synthetic bigram windows of {base.seq_len + 1} tokens "
+        f"in {time.perf_counter() - t0:.3f} s")
+    batch0 = next(train_iterator(train_ds, base.global_batch_size, seed=base.seed))
+
+    # Step 0 with the flash kernels against the plain attention path: the
+    # same weights (init seed) and batch, f32, dropout 0; and the flash
+    # step under remat, which must launch the forward kernel twice a layer.
+    step0 = {}
+    for label, impl, remat in (("flash", "flash", False), ("xla", "xla", False),
+                               ("flash+remat", "flash", True)):
+        cfg = base.replace(precision="f32", dropout=0.0, attention=impl, remat=remat)
+        trainer = Trainer(gpt2.make_task(cfg), cfg)
+        leaves = {k: p.detach().requires_grad_() for k, p in trainer.state.params.items()}
+        for c in counters.values():
+            c.launches = 0
+        loss, _, _ = trainer.task.loss_fn(
+            trainer.policy.cast_compute(leaves), {}, trainer.put_batch(batch0),
+            rng=rng.step_rng(rng.PRNGKey(cfg.seed + 1), 0), train=True)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        step0[label] = (float(loss.detach()), dict(zip(leaves, grads)),
+                        {k: counters[k].launches for k in TRAIN_KERNELS})
+        del trainer, leaves, loss, grads
+        torch.cuda.empty_cache()
+
+    def compare(a, b):
+        (loss_a, g_a, _), (loss_b, g_b, _) = step0[a], step0[b]
+        rel = abs(loss_a - loss_b) / abs(loss_b)
+        name, worst = max(
+            ((k, float((g_a[k] - g_b[k]).abs().max()) / max(float(g_b[k].abs().max()), 1e-30))
+             for k in g_b), key=lambda kv: kv[1])
+        log(f"train step 0, f32, dropout 0: loss {a} {loss_a:.7f} {b} {loss_b:.7f} (rel "
+            f"{rel:.2e}, limit 1e-5); worst grad {name}: max|diff| / max|grad| {worst:.2e} "
+            f"(limit 1e-3) over {len(g_b)} tensors; launches {a}: {step0[a][2]}")
+        if not (np.isfinite(loss_a) and rel <= 1e-5 and worst <= 1e-3):
+            fail(f"train step 0: the {a} step disagrees with the {b} step")
+
+    compare("flash", "xla")
+    compare("flash+remat", "flash")
+    layers = base.num_layers
+    if step0["flash"][2] != {"flash_fwd": layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}:
+        fail(f"train step 0: flash launches {step0['flash'][2]}, expected {layers} of each")
+    if step0["flash+remat"][2]["flash_fwd"] != 2 * layers:
+        fail(f"train step 0 under remat: flash launches {step0['flash+remat'][2]}, "
+             f"expected {2 * layers} forward")
+    del step0
+    torch.cuda.empty_cache()
+
+    # The slice: GPT-2 124M, bf16, dropout 0.1, batch 16 x 1024, through fit.
+    trainer = Trainer(gpt2.make_task(base), base)
+    it = train_iterator(train_ds, base.global_batch_size, seed=base.seed)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(it, num_steps=TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: losses not finite and falling over {len(hist)} steps: {losses}")
+    if any(h["bad_step"] for h in hist):
+        fail("train: the bad-step guard skipped a step")
+    for name in TRAIN_KERNELS:
+        if launches[name] != base.num_layers * TRAIN_STEPS:
+            fail(f"train: {name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
+                 f"expected {base.num_layers} per step")
+    step_s = float(np.median([h["step_time_s"] for h in hist[1:]]))
+    tokens = base.global_batch_size * base.seq_len
+    flops = 6 * trainer.n_params * tokens
+    summary = dict(
+        steps=TRAIN_STEPS, wall_s=wall, step_ms_p50=step_s * 1e3,
+        first_step_ms=hist[0]["step_time_s"] * 1e3, tokens_per_s=tokens / step_s,
+        mfu_6nd=flops / step_s / BF16_DENSE_PEAK, card=smi, loss_first=losses[0],
+        loss_last=losses[-1], losses=losses,
+        launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+    )
+    log(f"train: {json.dumps(summary)}")
+
+    batch = trainer.put_batch(next(it))
+
+    def one_step():
+        trainer.state, _ = trainer._train_step(trainer.state, batch)
+
+    one_step()
+    prof = device_split(torch, one_step)
+    logits = torch.randn(tokens, base.vocab_size, device="cuda").to(torch.bfloat16).requires_grad_()
+    labels = torch.randint(0, base.vocab_size, (tokens,), device="cuda")
+
+    def ce():
+        torch.autograd.grad(cross_entropy_reference(logits, labels).mean(), (logits,))
+
+    grads = {k: torch.full_like(p, 1e-3) for k, p in trainer.state.params.items()}
+    prof["cross_entropy_fwd_bwd_ms"] = cuda_ms(torch, ce, iters=5)
+    prof["optimizer_update_ms"] = cuda_ms(torch, lambda: trainer.state.apply_gradients(grads),
+                                          iters=5)
+    log(f"profile[train step] (ms; cross-entropy and the optimizer update timed on their own "
+        f"at the step's shapes): {json.dumps(prof)}")
+    summary["profile"] = prof
+    del trainer, logits, grads
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------- phase 5
 
 
 def post(url: str, body: dict, timeout: float = 300.0) -> dict:
@@ -405,20 +727,26 @@ def phase_serving(torch, model, model_cfg, counters) -> list[dict]:
 def main() -> int:
     import torch
 
-    phase_device(torch)
+    smi = phase_device(torch)
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tensorflow_examples_torch")):
         fail("run from a checkout: tensorflow_examples_torch/ is not beside this script")
     sys.path.insert(0, here)
     from tensorflow_examples_torch.core import precision
     from tensorflow_examples_torch.models import transformer
-    from tensorflow_examples_torch.ops import _build, decode, paged_decode
+    from tensorflow_examples_torch.ops import _build, attention, decode, paged_decode
 
     phase_build(_build)
     rows = phase_kernels(torch, decode, paged_decode, precision)
+    rows.update(phase_flash_kernels(torch, attention))
 
     counters = {"flash_decode": decode.flash_decode_attention,
-                "paged_decode": paged_decode.paged_decode_attention}
+                "paged_decode": paged_decode.paged_decode_attention,
+                "flash_fwd": attention.flash_fwd,
+                "flash_bwd_dkv": attention.flash_bwd_dkv,
+                "flash_bwd_dq": attention.flash_bwd_dq}
+    training = phase_training(torch, counters, smi)
+
     model_cfg = transformer.gpt2_124m()
     t0 = time.perf_counter()
     model = transformer.GPT2(model_cfg, seed=0).to("cuda")
@@ -427,17 +755,25 @@ def main() -> int:
     summaries = phase_serving(torch, model, model_cfg, counters)
 
     kernels = []
-    for name, source, replaces in (
-        ("flash_decode", FLASH_SOURCE, "tensorflow_examples_tpu/ops/decode.py:78"),
-        ("paged_decode", PAGED_SOURCE, "tensorflow_examples_tpu/ops/paged_decode.py:61"),
+    for name, source, replaces, launches in (
+        ("flash_decode", FLASH_SOURCE, "tensorflow_examples_tpu/ops/decode.py:78",
+         sum(s["launches"]["flash_decode"] for s in summaries)),
+        ("paged_decode", PAGED_SOURCE, "tensorflow_examples_tpu/ops/paged_decode.py:61",
+         sum(s["launches"]["paged_decode"] for s in summaries)),
+        ("flash_fwd", ATTN_SOURCE, "tensorflow_examples_tpu/ops/attention.py:82",
+         training["launches"]["flash_fwd"]),
+        ("flash_bwd_dkv", ATTN_SOURCE, "tensorflow_examples_tpu/ops/attention.py:199",
+         training["launches"]["flash_bwd_dkv"]),
+        ("flash_bwd_dq", ATTN_SOURCE, "tensorflow_examples_tpu/ops/attention.py:269",
+         training["launches"]["flash_bwd_dq"]),
     ):
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(s["launches"][name] for s in summaries),
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": row["shape"],
+            "launches": launches, **{k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+            **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "worst_abs_err_all_cases")
+               if k in row},
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-"""Device policy and KV-cache int8 quantization."""
+"""Device policy, precision policy and KV int8 rows, and jax-compatible random numbers."""

@@ -1,0 +1,114 @@
+"""Counter-based random numbers, bit-compatible with ``jax.random``.
+
+The port of the pieces of ``jax.random`` the JAX package's sampling and
+training step use: the threefry2x32 hash, ``PRNGKey``, ``fold_in``,
+``random_bits`` (in the *partitionable* counter layout, jax's default
+since 0.5), ``uniform`` (mantissa-bit construction), ``gumbel``
+(``mode="low"``) and ``categorical`` as ``argmax(gumbel + logits)``. A
+key is a numpy ``uint32[2]``; integer arithmetic runs in numpy, whose
+``uint32`` wraps exactly like the hash needs.
+
+Keys, bits and uniforms equal jax's bit for bit. Gumbel noise applies
+two float32 ``log``s, and XLA's CPU ``log`` is not correctly rounded
+while torch's is: about a fifth of gumbel values differ from jax's by
+one ulp. A categorical draw therefore differs from jax's only where two
+candidates are within an ulp of each other.
+
+``step_rng(root, step)`` is ``core/rng.py`` of the JAX package: the key
+of training step ``step`` under root key ``root``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = np.uint32(0x1BD11BDA)
+_F32_TINY = np.finfo(np.float32).tiny
+
+
+def _rotl(x: np.ndarray, d: int) -> np.ndarray:
+    return (x << np.uint32(d)) | (x >> np.uint32(32 - d))
+
+
+def threefry2x32(key: np.ndarray, x0: np.ndarray, x1: np.ndarray):
+    """The Threefry-2x32 block cipher (20 rounds) of counter words
+    ``(x0, x1)`` under ``key`` = (k0, k1); returns the two output words,
+    each shaped like ``x0``."""
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = np.asarray(x0, np.uint32) + ks[0]
+    x1 = np.asarray(x1, np.uint32) + ks[1]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> np.ndarray:  # noqa: N802 — jax's name
+    """``jax.random.PRNGKey(seed)`` for a seed that fits int32 (jax's
+    default, 32-bit mode): the key words are (0, seed mod 2**32)."""
+    seed = int(seed)
+    if not -(2**31) <= seed < 2**31:
+        raise OverflowError(f"seed {seed} does not fit int32")
+    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in``: hash the counter pair (0, data) under
+    ``key``; ``data`` is taken mod 2**32 like jax's uint32 cast."""
+    y0, y1 = threefry2x32(key, np.zeros(1, np.uint32),
+                          np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.array([y0[0], y1[0]], np.uint32)
+
+
+def step_rng(root_key: np.ndarray, step: int) -> np.ndarray:
+    """Per-step key: ``fold_in(root_key, step)``."""
+    return fold_in(root_key, step)
+
+
+def random_bits(key: np.ndarray, shape) -> np.ndarray:
+    """32 random bits per element in jax's partitionable layout: element
+    ``i`` (row-major) hashes the 64-bit counter ``i`` split into
+    (hi, lo) words, and its bits are the xor of the two output words."""
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    idx = np.arange(n, dtype=np.uint64)
+    y0, y1 = threefry2x32(key, (idx >> np.uint64(32)).astype(np.uint32),
+                          (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    return (y0 ^ y1).reshape(shape)
+
+
+def uniform(key: np.ndarray, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> np.ndarray:
+    """float32 uniforms on [minval, maxval): the top 23 random bits fill
+    the mantissa of a float in [1, 2), minus 1, then scaled and clamped
+    at ``minval`` as jax does. XLA fuses the scale-and-shift into one
+    fused multiply-add (one rounding); it is computed in float64 here,
+    where the product of two float32s is exact."""
+    bits = random_bits(key, shape)
+    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
+    floats = floats - np.float32(1.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    scaled = floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)
+    return np.maximum(lo, scaled.astype(np.float32))
+
+
+def gumbel(key: np.ndarray, shape) -> torch.Tensor:
+    """Standard Gumbel noise, ``-log(-log(u))`` with ``u`` uniform on
+    [tiny, 1) (jax's ``mode="low"``), as a float32 CPU tensor."""
+    u = torch.from_numpy(uniform(key, shape, minval=_F32_TINY, maxval=1.0))
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: np.ndarray, logits: torch.Tensor) -> int:
+    """One draw from ``softmax(logits)`` over the last axis of a 1-D
+    ``logits``: ``argmax(gumbel + logits)`` (the Gumbel-max trick, as
+    ``jax.random.categorical``). Computed on the CPU in float32."""
+    logits = logits.detach().float().cpu()
+    return int(torch.argmax(gumbel(key, logits.shape) + logits))

@@ -1,1 +1,1 @@
-"""GPT-2 model and the weight bridge from the JAX param tree."""
+"""GPT-2 model and the weight bridge to and from the JAX param tree."""

@@ -1,11 +1,14 @@
-"""The weight bridge: the JAX GPT-2 param tree into the port's module.
+"""The weight bridge between the JAX GPT-2 param tree and the port.
 
 The reference's params are a nested dict (``wte/embedding``,
 ``h_0/attn/qkv/kernel``, ...). Handed over as nested dicts of numpy
 arrays, or as an ``.npz`` of the flattened tree with ``/``-joined keys,
 they load into :class:`~tensorflow_examples_torch.models.transformer.GPT2`
 unchanged: the module's ``state_dict`` keys are the same paths with
-``.`` for ``/``, in the same layouts. The port never sees a jax array.
+``.`` for ``/``, in the same layouts. :func:`to_param_tree` is the other
+direction: a module, or a trainer's ``{name: tensor}`` params, back to
+the nested numpy tree the JAX package loads. The port never sees a jax
+array.
 """
 
 from __future__ import annotations
@@ -65,3 +68,19 @@ def model_from_params(cfg: TransformerConfig, params: Mapping, *,
     """A :class:`GPT2` on ``device`` holding ``params`` (no random init)."""
     model = GPT2(cfg, device="meta").to_empty(device=device)
     return load_params(model, params)
+
+
+def to_param_tree(params) -> dict:
+    """A :class:`GPT2` (or a ``{"a.b.c": tensor}`` dict such as
+    ``TrainState.params``) -> the reference's nested tree of f32 numpy
+    arrays (``{"a": {"b": {"c": array}}}``)."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    tree: dict = {}
+    for name, t in params.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach().float().cpu().numpy()
+    return tree

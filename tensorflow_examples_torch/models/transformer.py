@@ -1,9 +1,9 @@
 """GPT-2 decoder-only transformer as a PyTorch module.
 
-The port of ``tensorflow_examples_tpu/models/transformer.py`` for the
-serving path. Parameter names and layouts are the reference's, so a
-``state_dict`` key is the flax param path with ``.`` for ``/``
-(``models/convert.py`` relies on that):
+The port of ``tensorflow_examples_tpu/models/transformer.py``. Parameter
+names and layouts are the reference's, so a ``state_dict`` key is the
+flax param path with ``.`` for ``/`` (``models/convert.py`` relies on
+that):
 
 * ``wte.embedding`` [V, d], ``wpe.embedding`` [max_len, d];
 * ``h_i.ln_1`` / ``h_i.ln_2`` / ``ln_f``: ``scale`` and ``bias`` [d];
@@ -15,17 +15,37 @@ serving path. Parameter names and layouts are the reference's, so a
 Random init follows the reference: normal(0.02) for kernels and
 ``wte``, normal(0.01) for ``wpe``, std 0.02 / sqrt(2 L) for the residual
 projections (``attn.proj`` and ``mlp_proj``), zero biases, unit
-LayerNorm scales, drawn from an explicit ``torch.Generator``. The math
-(LayerNorm eps 1e-5, tanh-approximate gelu) is the serving engine's;
-``forward`` is the cacheless full forward.
+LayerNorm scales, drawn from an explicit ``torch.Generator``.
+
+The layer math (``_embed``, ``_layer_norm``, ``_qkv``, ``_attn_out``,
+``_block_mlp``) lives here and the serving engine imports it. Math is
+the reference's: pre-LN blocks, LayerNorm eps 1e-5 with its statistics
+in f32 whatever the compute dtype (as flax's), tanh-approximate gelu,
+logits in the compute dtype from the tied ``wte``. ``GPT2.forward`` is
+the training forward: causal self-attention through the flash kernels
+(``attention="flash"``) or the plain reference (``"xla"``); under
+``train=True`` dropout at the reference's three sites (embeddings,
+attention output, MLP output) with masks drawn from explicit generators
+keyed by a per-step key (not flax's bits); ``remat`` recomputes each
+block in the backward (``torch.utils.checkpoint``). Parameters run in
+whatever dtype they hold: the precision policy
+(``core/precision.py``) hands the module compute-dtype copies.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from tensorflow_examples_torch.core import rng as rng_mod
+from tensorflow_examples_torch.ops.attention import attention_reference, flash_attention
+
+ATTENTION_IMPLS = ("flash", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +56,9 @@ class TransformerConfig:
     num_heads: int = 12
     d_model: int = 768
     d_ff: int = 0  # 0 -> 4 * d_model
+    dropout: float = 0.1
+    attention: str = "flash"  # flash (the flash kernels) | xla (plain)
+    remat: bool = False  # recompute each block in the backward
 
     @property
     def head_dim(self) -> int:
@@ -102,6 +125,84 @@ class Block(nn.Module):
         self.mlp_proj = Dense((ff, d), (d,), out_std, generator, device)
 
 
+# ------------------------------------------------------------ layer math
+#
+# Plain functions over the GPT2 module's parameters (the reference's
+# names), shared by the training forward here and the serving engine.
+
+
+def _embed(model: "GPT2", tokens, positions):
+    return model.wte.embedding[tokens] + model.wpe.embedding[positions]
+
+
+def _layer_norm(x, ln, eps=1e-5):
+    """flax ``LayerNorm``: mean and variance in f32 whatever ``x``'s
+    dtype, the affine map in f32, the result in ``x``'s dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * ln.scale.float() + ln.bias.float()
+    return y.to(x.dtype)
+
+
+def _block_mlp(x, blk):
+    h = F.gelu(x @ blk.mlp_fc.kernel + blk.mlp_fc.bias, approximate="tanh")
+    return h @ blk.mlp_proj.kernel + blk.mlp_proj.bias
+
+
+def _qkv(x, attn):
+    """[..., d] -> q, k, v each [..., H, hd]."""
+    w = attn.qkv.kernel  # [d, 3, H, hd]
+    y = (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    y = y + attn.qkv.bias
+    return y[..., 0, :, :], y[..., 1, :, :], y[..., 2, :, :]
+
+
+def _attn_out(att, attn):
+    """[..., H, hd] attention output -> [..., d] residual contribution."""
+    w = attn.proj.kernel  # [H, hd, d]
+    return att.reshape(*att.shape[:-2], -1) @ w.reshape(-1, w.shape[-1]) + attn.proj.bias
+
+
+def _self_attend(q, k, v, impl: str):
+    """Causal self-attention of [B, S, H, hd] operands."""
+    swap = lambda t: t.transpose(1, 2)  # [B,S,H,D] <-> [B,H,S,D]
+    if impl == "flash":
+        out = flash_attention(swap(q), swap(k), swap(v), causal=True)
+    else:
+        out = attention_reference(swap(q), swap(k), swap(v), causal=True)
+    return swap(out)
+
+
+class Dropout:
+    """The reference's dropout (``nn.Dropout``: keep with probability
+    1 - rate, scale kept values by 1 / (1 - rate)) at numbered sites.
+    Site ``i``'s mask comes from a generator seeded by
+    ``fold_in(key, i)``, so a recomputed block (remat) draws the same
+    mask and a step's masks are a pure function of its key. ``rate`` 0
+    or no key: the identity."""
+
+    def __init__(self, rate: float, key: np.ndarray | None):
+        self.rate = float(rate) if key is not None else 0.0
+        self.key = key
+
+    def __call__(self, x: torch.Tensor, site: int) -> torch.Tensor:
+        if self.rate <= 0.0:
+            return x
+        word = rng_mod.fold_in(self.key, site)
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed((int(word[0]) << 31) ^ int(word[1]))
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
+                                                                    device=x.device))
+
+
+def _block(x, blk, impl: str, drop: Dropout, layer: int):
+    q, k, v = _qkv(_layer_norm(x, blk.ln_1), blk.attn)
+    x = x + drop(_attn_out(_self_attend(q, k, v, impl), blk.attn), 2 * layer + 1)
+    return x + drop(_block_mlp(_layer_norm(x, blk.ln_2), blk), 2 * layer + 2)
+
+
 class GPT2(nn.Module):
     """GPT-2 causal LM; ``forward(tokens [B, L])`` returns logits
     [B, L, vocab]. ``seed`` draws the random init from a CPU
@@ -122,7 +223,49 @@ class GPT2(nn.Module):
     def block(self, i: int) -> Block:
         return getattr(self, f"h_{i}")
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        from tensorflow_examples_torch.serving.engine import forward_full
+    def forward(self, tokens: torch.Tensor, *, train: bool = False,
+                dropout_key: np.ndarray | None = None) -> torch.Tensor:
+        return forward(self.cfg, self, tokens, train=train, dropout_key=dropout_key)
 
-        return forward_full(self, tokens)[0]
+
+class ParamView:
+    """Attribute access over a flat ``{"h_0.attn.qkv.kernel": tensor}``
+    dict (a :class:`GPT2`'s parameter names), so the layer math runs on
+    any set of tensors: the precision policy's compute-dtype copies, or
+    a trainer's parameters. Tensors are held, not copied, so a block
+    recomputed under remat reads the very tensors the graph was built
+    from."""
+
+    def __init__(self, params, prefix: str = ""):
+        self._params = params
+        self._prefix = prefix
+
+    def __getattr__(self, name):
+        key = self._prefix + name
+        if key in self._params:
+            return self._params[key]
+        if not any(k.startswith(key + ".") for k in self._params):
+            raise AttributeError(f"no parameter under {key!r}")
+        return ParamView(self._params, key + ".")
+
+    def block(self, i: int) -> "ParamView":
+        return getattr(self, f"h_{i}")
+
+
+def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *, train: bool = False,
+            dropout_key: np.ndarray | None = None) -> torch.Tensor:
+    """The training forward: logits [B, L, vocab] of ``tokens`` [B, L] in
+    the parameters' dtype. ``params`` is a :class:`GPT2` or a
+    :class:`ParamView`. ``train`` turns dropout on, with masks from
+    ``dropout_key`` (a ``core/rng`` key; none: no dropout)."""
+    if cfg.attention not in ATTENTION_IMPLS:
+        raise ValueError(f"attention={cfg.attention!r} not in {ATTENTION_IMPLS}")
+    drop = Dropout(cfg.dropout if train else 0.0, dropout_key)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = drop(_embed(params, tokens, positions[None]), 0)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in range(cfg.num_layers):
+        args = (x, params.block(layer), cfg.attention, drop, layer)
+        x = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
+    x = _layer_norm(x, params.ln_f)
+    return x @ params.wte.embedding.T

@@ -1,1 +1,1 @@
-"""Attention references and the hand-written CUDA kernels that replace the TPU kernels."""
+"""Attention, losses and cross-entropy, and the hand-written CUDA kernels that replace the TPU kernels."""

@@ -28,6 +28,11 @@ from tensorflow_examples_torch.serving.engine import (
 from tensorflow_examples_torch.serving.frontend import ServingFrontend
 
 
+# The model's widths; its training knobs (dropout, attention, remat) do not
+# apply to serving, whose attention is ServeConfig.attention.
+MODEL_FIELDS = ("vocab_size", "max_len", "num_layers", "num_heads", "d_model", "d_ff")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     weights = p.add_mutually_exclusive_group()
@@ -35,8 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     weights.add_argument("--init_seed", type=int, default=0,
                          help="random-init seed when no --params_npz is given")
     model_defaults = transformer.gpt2_124m()
-    for f in dataclasses.fields(transformer.TransformerConfig):
-        p.add_argument(f"--{f.name}", type=int, default=getattr(model_defaults, f.name))
+    for name in MODEL_FIELDS:
+        p.add_argument(f"--{name}", type=int, default=getattr(model_defaults, name))
     serve_defaults = ServeConfig()
     for f in dataclasses.fields(ServeConfig):
         default = getattr(serve_defaults, f.name)
@@ -56,9 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    model_cfg = transformer.TransformerConfig(**{
-        f.name: getattr(args, f.name) for f in dataclasses.fields(transformer.TransformerConfig)
-    })
+    model_cfg = transformer.TransformerConfig(**{name: getattr(args, name) for name in MODEL_FIELDS})
     serve_cfg = ServeConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(ServeConfig)})
     if args.params_npz:
         params = convert.load_npz(args.params_npz)

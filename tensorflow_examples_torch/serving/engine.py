@@ -24,11 +24,12 @@ compiled step and takes them back; here K/V writes happen in place
 (``index_put_``) on the pool's tensors.
 
 Sampling: greedy is ``argmax``, token-identical to the reference.
-Temperature/top-k sampling is Gumbel-max over the filtered logits with
-noise from a CPU ``torch.Generator`` seeded by a pure function of
-(request seed, absolute position), so a request's tokens do not depend
-on the batch it rode in. It cannot reproduce ``jax.random``'s threefry
-bits: sampled streams differ from the JAX engine's.
+Temperature/top-k sampling is the reference's: ``jax.random.categorical``
+over the filtered logits under the key ``fold_in(PRNGKey(seed),
+absolute position)``, through the port's bit-compatible threefry
+(``core/rng.py``), so a request's tokens do not depend on the batch it
+rode in and equal the JAX engine's (up to one-ulp ``log`` differences in
+the Gumbel noise, which matter only at a near-tie).
 """
 
 from __future__ import annotations
@@ -38,15 +39,23 @@ from typing import Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from tensorflow_examples_torch.core import rng
 from tensorflow_examples_torch.core.device import resolve_device
 from tensorflow_examples_torch.core.precision import (
     dequantize_int8_rows,
     quantize_int8_rows,
 )
 from tensorflow_examples_torch.models.convert import model_from_params
-from tensorflow_examples_torch.models.transformer import GPT2, TransformerConfig
+from tensorflow_examples_torch.models.transformer import (
+    GPT2,
+    TransformerConfig,
+    _attn_out,
+    _block_mlp,
+    _embed,
+    _layer_norm,
+    _qkv,
+)
 from tensorflow_examples_torch.ops.attention import NEG_INF, attention_reference
 from tensorflow_examples_torch.ops.decode import HEAD_DIM, flash_decode_attention
 from tensorflow_examples_torch.ops.paged_decode import paged_decode_attention
@@ -80,34 +89,8 @@ class ServeConfig:
 
 # --------------------------------------------------------------- forward
 #
-# Plain functions over the GPT2 module's parameters (same names as the
-# reference's param tree). f32 like the reference; LayerNorm eps 1e-5,
-# tanh-approximate gelu.
-
-
-def _layer_norm(x, ln, eps=1e-5):
-    mean = x.mean(-1, keepdim=True)
-    var = (x - mean).square().mean(-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps) * ln.scale + ln.bias
-
-
-def _block_mlp(x, blk):
-    h = F.gelu(x @ blk.mlp_fc.kernel + blk.mlp_fc.bias, approximate="tanh")
-    return h @ blk.mlp_proj.kernel + blk.mlp_proj.bias
-
-
-def _qkv(x, attn):
-    """[..., d] -> q, k, v each [..., H, hd]."""
-    w = attn.qkv.kernel  # [d, 3, H, hd]
-    y = (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
-    y = y + attn.qkv.bias
-    return y[..., 0, :, :], y[..., 1, :, :], y[..., 2, :, :]
-
-
-def _attn_out(att, attn):
-    """[..., H, hd] attention output -> [..., d] residual contribution."""
-    w = attn.proj.kernel  # [H, hd, d]
-    return att.reshape(*att.shape[:-2], -1) @ w.reshape(-1, w.shape[-1]) + attn.proj.bias
+# The layer math is the model's (``models/transformer.py``); f32 like the
+# reference.
 
 
 def _prefill_attend(q, k, v, *, impl: str):
@@ -118,10 +101,6 @@ def _prefill_attend(q, k, v, *, impl: str):
     else:
         out = attention_reference(swap(q), swap(k), swap(v), causal=True)
     return out.transpose(1, 2)
-
-
-def _embed(model: GPT2, tokens, positions):
-    return model.wte.embedding[tokens] + model.wpe.embedding[positions]
 
 
 def forward_full(model: GPT2, tokens: torch.Tensor, *, impl: str = "xla"):
@@ -326,29 +305,26 @@ def _extend_forward(model: GPT2, kv, ctx_table, tail_ids, tokens, ctx_len: int,
 # -------------------------------------------------------------- sampling
 
 
-def sample_seed(seed: int, position: int) -> int:
-    """The per-token generator seed: a pure function of (request seed,
+def request_key(seed: int, position: int) -> np.ndarray:
+    """The per-token sampling key: a pure function of (request seed,
     absolute position), so batched serving and the unbatched reference
-    draw the same noise. Seeds are < 2**31 (the frontend caps them)."""
-    return (int(seed) << 32) + int(position)
+    draw the same noise; the JAX engine's ``request_key``."""
+    return rng.fold_in(rng.PRNGKey(seed), position)
 
 
 def _sample_row(logits: torch.Tensor, temp: float, top_k: int, seed: int,
-                position: int) -> torch.Tensor:
-    """One row's next token as a 0-d tensor on the logits' device: argmax
-    at temperature 0, else Gumbel-max over the temperature-scaled logits
-    with everything below the top-k-th value masked (``top_k > 0``)."""
-    logits = logits.float()
+                position: int) -> int:
+    """One row's next token: argmax at temperature 0, else a categorical
+    draw over the temperature-scaled logits with everything below the
+    top-k-th value masked (``top_k > 0``). The sampled branch runs on the
+    CPU in float32, the reference's ``_sample_row`` step for step."""
     if temp == 0.0:
-        return logits.argmax()
-    scaled = logits / temp
+        return int(logits.float().argmax())
+    scaled = logits.detach().float().cpu() / temp
     if top_k > 0:
         kth = torch.sort(scaled).values[max(scaled.shape[0] - top_k, 0)]
         scaled = torch.where(scaled < kth, NEG_INF, scaled)
-    gen = torch.Generator().manual_seed(sample_seed(seed, position))
-    u = torch.rand(scaled.shape[0], generator=gen).clamp_(min=1e-20)
-    gumbel = -torch.log(-torch.log(u))
-    return (scaled + gumbel.to(scaled.device)).argmax()
+    return rng.categorical(request_key(seed, position), scaled)
 
 
 def top_logprobs(logits: np.ndarray, top_n: int) -> list[dict]:

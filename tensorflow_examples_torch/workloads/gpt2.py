@@ -1,0 +1,100 @@
+"""GPT-2 124M causal-LM workload: the port of the non-pipeline path of
+``tensorflow_examples_tpu/workloads/gpt2.py`` (no MoE, no vocab-parallel
+head).
+
+``Gpt2Config`` keeps the reference's recipe (AdamW b2 0.95, warmup-cosine
+from 6e-4, weight decay 0.1, clip 1.0, bf16 compute, dropout 0.1, batch
+16 x 1024) with one difference: ``fused_ce`` defaults to False here,
+where the reference defaults to True, because the fused cross-entropy
+kernels are not ported yet (``ops/cross_entropy.py``); ``True`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+
+import torch
+
+from tensorflow_examples_torch.data.sources import load_lm_tokens
+from tensorflow_examples_torch.models import transformer
+from tensorflow_examples_torch.ops.cross_entropy import cross_entropy_per_example
+from tensorflow_examples_torch.ops.losses import weighted_mean
+from tensorflow_examples_torch.train import optimizers
+from tensorflow_examples_torch.train.config import TrainConfig
+from tensorflow_examples_torch.train.task import Task
+
+
+@dataclasses.dataclass
+class Gpt2Config(TrainConfig):
+    vocab_size: int = 50257
+    seq_len: int = 1024
+    num_layers: int = 12
+    num_heads: int = 12
+    d_model: int = 768
+    dropout: float = 0.1
+    attention: str = "flash"  # flash | xla
+    fused_ce: bool = False  # True in the JAX package; its kernels are not ported yet
+
+    global_batch_size: int = 16
+    train_steps: int = 20000
+    warmup_steps: int = 2000
+    learning_rate: float = 6e-4
+    weight_decay: float = 0.1
+    grad_clip_norm: float = 1.0
+    eval_every: int = 2000
+    log_every: int = 50
+
+
+def model_config(cfg: Gpt2Config) -> transformer.TransformerConfig:
+    return transformer.TransformerConfig(
+        vocab_size=cfg.vocab_size, max_len=cfg.seq_len, num_layers=cfg.num_layers,
+        num_heads=cfg.num_heads, d_model=cfg.d_model, dropout=cfg.dropout,
+        attention=cfg.attention, remat=cfg.remat,
+    )
+
+
+def make_task(cfg: Gpt2Config) -> Task:
+    mcfg = model_config(cfg)
+
+    def init_fn(seed: int, device: torch.device):
+        model = transformer.GPT2(mcfg, seed=seed, device=device)
+        return {"params": {k: p.detach() for k, p in model.named_parameters()}}
+
+    def token_nll(params, batch, *, rng, train):
+        inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        logits = transformer.forward(mcfg, transformer.ParamView(params), inputs,
+                                     train=train, dropout_key=rng if train else None)
+        nll = cross_entropy_per_example(logits.reshape(-1, logits.shape[-1]),
+                                        labels.reshape(-1), fused=cfg.fused_ce)
+        return nll.reshape(labels.shape)
+
+    def loss_fn(params, model_state, batch, *, rng, train):
+        return token_nll(params, batch, rng=rng, train=train).mean(), {}, model_state
+
+    def eval_fn(params, model_state, batch):
+        per_example = token_nll(params, batch, rng=None, train=False).mean(dim=-1)
+        mask = batch.get("mask")
+        weight = mask.float().sum() if mask is not None else torch.tensor(
+            float(per_example.shape[0]), device=per_example.device)
+        return {"nll": weighted_mean(per_example, mask), "weight": weight}
+
+    return Task(name="gpt2_124m", init_fn=init_fn, loss_fn=loss_fn,
+                make_optimizer=optimizers.adamw_cosine, eval_fn=eval_fn)
+
+
+def datasets(cfg: Gpt2Config):
+    """(train, eval) token windows: files under ``data_dir`` or the
+    seeded synthetic bigram streams. A ``data_dir`` without a ``val``
+    split evaluates on synthetic data, with a warning, as the reference
+    does."""
+    has_val = bool(cfg.data_dir) and any(
+        os.path.exists(os.path.join(cfg.data_dir, "val" + ext)) for ext in (".bin", ".npy", ".txt")
+    )
+    if cfg.data_dir and not has_val:
+        logging.getLogger(__name__).warning(
+            "--data_dir=%s has no val.{bin,npy,txt}; eval runs on SYNTHETIC data", cfg.data_dir)
+    kw = dict(seq_len=cfg.seq_len, vocab_size=cfg.vocab_size)
+    return (load_lm_tokens(cfg.data_dir, "train", **kw),
+            load_lm_tokens(cfg.data_dir if has_val else "", "val", **kw))

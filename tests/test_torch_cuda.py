@@ -8,7 +8,8 @@ it; ``tests/conftest.py`` does import jax, hence on the card:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerances are the JAX suite's for the same kernels: atol 2e-5 for f32
-flash-decode, 2e-2 for bf16, 2e-6 for paged decode (fp32 and int8).
+flash-decode and flash forward, 2e-2 for bf16, 5e-4 for f32 flash
+gradients, 2e-6 for paged decode (fp32 and int8).
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from tensorflow_examples_torch.core import precision
-from tensorflow_examples_torch.ops import decode, paged_decode
+from tensorflow_examples_torch.ops import attention, decode, paged_decode
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +71,85 @@ def test_kernels_refuse_what_they_cannot_launch(dev):
     q = torch.zeros(1, 2, 4, 64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         decode.flash_decode_attention(q, q.transpose(2, 3).contiguous().transpose(2, 3), q, 4)
+
+
+# ------------------------------------------------- flash attention (training)
+
+FLASH_CASES = [  # (seq_q, seq_kv, causal, key bias)
+    (128, 128, True, None),
+    (128, 128, False, None),
+    (100, 260, True, None),        # seq_q < seq_kv, neither a tile multiple
+    (77, 77, True, None),
+    (96, 160, False, -1e9),        # masked keys through the bias
+    (64, 192, True, attention.NEG_INF),
+]
+
+
+def _flash_inputs(dev, dtype, seq_q, seq_kv, bias, seed=0):
+    rng = np.random.default_rng(seed)
+    b, h = 2, 3
+    q = _randn(rng, (b * h, seq_q, 64), dev, dtype)
+    k, v, do = (_randn(rng, (b * h, n, 64), dev, dtype) for n in (seq_kv, seq_kv, seq_q))
+    kb = None
+    if bias is not None:
+        kb = torch.zeros(b, seq_kv, device=dev)
+        kb[0, seq_kv // 3:] = bias
+    dlse = _randn(rng, (b * h, seq_q), dev)
+    return h, q, k, v, do, kb, dlse
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("seq_q,seq_kv,causal,bias", FLASH_CASES)
+def test_flash_kernels_match_plain(dev, dtype, atol, seq_q, seq_kv, causal, bias):
+    h, q, k, v, do, kb, dlse = _flash_inputs(dev, dtype, seq_q, seq_kv, bias)
+    kw = dict(heads=h, causal=causal)
+    counts = [f.launches for f in (attention.flash_fwd, attention.flash_bwd_dkv,
+                                   attention.flash_bwd_dq)]
+    o, lse = attention.flash_fwd(q, k, v, kb, **kw)
+    o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, kb, sm_scale=64 ** -0.5, **kw)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=atol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, dlse, kb)
+    dk, dv = attention.flash_bwd_dkv(*args, **kw)
+    dq = attention.flash_bwd_dq(*args, **kw)
+    ref = (*attention.flash_bwd_dkv_plain(*args, sm_scale=64 ** -0.5, **kw),
+           attention.flash_bwd_dq_plain(*args, sm_scale=64 ** -0.5, **kw))
+    grad_tol = 5e-4 if dtype == torch.float32 else 5e-2
+    for name, a, b in zip(("dk", "dv", "dq"), (dk, dv, dq), ref):
+        scale = max(float(b.float().abs().max()), 1.0)
+        torch.testing.assert_close(a.float() / scale, b.float() / scale, atol=grad_tol,
+                                   rtol=grad_tol, msg=name)
+    assert [f.launches for f in (attention.flash_fwd, attention.flash_bwd_dkv,
+                                 attention.flash_bwd_dq)] == [c + 1 for c in counts]
+
+
+def test_flash_attention_grads_match_autograd_reference(dev):
+    rng = np.random.default_rng(3)
+    q, k, v = (_randn(rng, (2, 3, 200, 64), dev).requires_grad_() for _ in range(3))
+    g = [torch.autograd.grad((f(q, k, v) ** 2).sum(), (q, k, v))
+         for f in (attention.flash_attention, attention.attention_reference)]
+    for a, b in zip(*g):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+
+
+def test_flash_row_with_no_visible_key_is_zero(dev):
+    """Below the public check (causal needs seq_q <= seq_kv): rows that
+    see no key write 0 and lse ~ -1e30, never NaN."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (2, 80, 64), dev)
+    k, v = _randn(rng, (2, 30, 64), dev), _randn(rng, (2, 30, 64), dev)
+    o, lse = attention.flash_fwd(q, k, v, causal=True)
+    assert torch.isfinite(o).all() and float(o[:, :50].abs().max()) == 0.0
+    assert float(lse[:, :50].max()) <= -1e29
+    o_ref, _ = attention.flash_fwd_plain(q, k, v, None, heads=1, causal=True, sm_scale=0.125)
+    torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_kernels_refuse_what_they_cannot_launch(dev):
+    q = torch.zeros(2, 16, 32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.flash_fwd(q, q, q)
+    q = torch.zeros(3, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="multiple of heads"):
+        attention.flash_fwd(q, q, q, heads=2)

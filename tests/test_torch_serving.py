@@ -427,10 +427,10 @@ def test_port_imports_no_jax():
     for root, _, files in os.walk(os.path.join(REPO, "tensorflow_examples_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
-    banned = ("jax", "flax", "tensorflow_examples_tpu")
+    banned = ("jax", "flax", "optax", "absl", "tensorflow_examples_tpu")
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)
            if m.split(".")[0] in banned]
-    assert not bad, f"the port must not import JAX or the JAX package: {bad}"
+    assert not bad, f"the port must not import JAX, its libraries or the JAX package: {bad}"
 
 
 def test_engine_defaults_to_cuda_and_never_falls_back(monkeypatch):
