@@ -19,16 +19,30 @@ non-zero:
    training flash kernels at the GPT-2 step's shape, B=16, H=12, S=1024,
    D=64, causal, bf16 and f32, plus seq_q < seq_kv, a length that is not
    a tile multiple, a key bias with masked keys and a nonzero lse
-   cotangent);
+   cotangent; the fused cross-entropy forward and backward at the
+   step's logits, N=16384 x V=50257, bf16 and f32, plus V 4099 and 1000,
+   N=1, labels -1 and V, a row of all -1e30 and a non-unit cotangent,
+   with ``torch.nn.functional.cross_entropy`` timed as a yardstick only);
 4. training: GPT-2 124M at full width on synthetic bigram data through
    ``Trainer.fit`` (bf16 compute, dropout 0.1, batch 16 x 1024, 20 steps,
-   warmup cut to 5 steps so the loss can move), after the step's loss
-   and every gradient at step 0 with the flash kernels are held to the
-   plain attention path (f32, dropout 0); step time, tokens/s, MFU, the
-   loss falling, launches per step (and twice the forward launches under
-   remat at step 0), and one profiled step's device time
-   split into flash kernels, matmuls, the rest and idle (cross-entropy
-   and the optimizer update timed on their own);
+   warmup cut to 5 steps so the loss can move, the fused cross-entropy
+   kernels at ``fused_ce=True``, checkpoints every 10 steps into a
+   temporary workdir), after the step's loss and every gradient at step
+   0 with the flash kernels are held to the plain attention path and
+   with the fused cross-entropy to the plain one (f32, dropout 0); step
+   time, tokens/s, MFU, peak memory, the loss falling, launches per step
+   (and twice the forward launches under remat at step 0), and one
+   profiled step's device time split into flash kernels, matmuls, the
+   rest and idle (cross-entropy and the optimizer update timed on their
+   own);
+4a. resume: a fresh ``Trainer`` restores the step-10 checkpoint and trains
+   to 20; its losses at steps 11-20 against the uninterrupted run's, the
+   checkpoint's bytes, the restore wall time and the training run's two
+   saves (host copy and threaded write, from their spans);
+4b. generate: the step-20 checkpoint restored through
+   ``tensorflow_examples_torch.generate``, 32 greedy tokens from a
+   64-token prompt in f32 with ``attention="flash"`` (flash-decode, 12
+   launches a call) and ``"xla"``, the two streams held to each other;
 5. serving: GPT-2 124M at full width, random weights from seed 0, f32,
    through ``ContinuousBatcher`` + ``ServingFrontend`` over real HTTP in
    three engine configurations (dense pool with ``attention="flash"``;
@@ -46,6 +60,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -57,9 +72,15 @@ NEAR_TIE = 1e-4                # top-2 logit gap below which a greedy flip is a 
 FLASH_SOURCE = "tensorflow_examples_torch/ops/csrc/decode.cu"
 PAGED_SOURCE = "tensorflow_examples_torch/ops/csrc/paged_decode.cu"
 ATTN_SOURCE = "tensorflow_examples_torch/ops/csrc/flash_attention.cu"
+CE_SOURCE = "tensorflow_examples_torch/ops/csrc/cross_entropy.cu"
 BF16_DENSE_PEAK = 989.4e12     # H100 SXM bf16 tensor cores, dense: the MFU denominator
 TRAIN_STEPS = 20
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ce_fwd", "ce_bwd")
+PLAIN_CE_PEAK_GIB = 25.1       # the same 20-step run at fused_ce=False, as PERF.md records it
+CE_SHAPE = (16384, 50257)      # the step's logits: batch 16 x 1024 tokens, GPT-2 vocab
+# Cross-entropy edge cases (label, N, V), each with labels -1 and V, a row
+# of all -1e30 and a non-unit cotangent where N allows.
+CE_EDGES = (("V=4099", 64, 4099), ("V=1000", 64, 1000), ("N=1", 1, 50257))
 TRAIN_ATTN = (16, 12, 1024)    # the GPT-2 step's attention: batch, heads, sequence
 # Flash edge cases (label, seq_q, seq_kv, causal, key bias, nonzero dlse), at batch 2.
 FLASH_EDGES = (
@@ -297,6 +318,11 @@ def allclose_err(torch, a, b, atol, rtol):
     return float(diff.max()), ok
 
 
+def worst_of(*errs):
+    """The largest error of several (error, ok) checks, ok only if all are."""
+    return max(e for e, _ in errs), all(ok for _, ok in errs)
+
+
 def phase_flash_kernels(torch, attention) -> dict:
     """The three training flash kernels against their plain versions."""
     import torch.nn.functional as F
@@ -332,8 +358,8 @@ def phase_flash_kernels(torch, attention) -> dict:
         errs = {"fwd": allclose_err(torch, o, o_ref, fwd_tol, fwd_tol)}
         lse_err = allclose_err(torch, lse, lse_ref, 1e-4, 1e-5)
         if dtype == torch.float32:  # the JAX suite's gradient tolerance
-            errs["dkv"] = max(allclose_err(torch, dk, dk_ref, 5e-4, 5e-4),
-                              allclose_err(torch, dv, dv_ref, 5e-4, 5e-4), key=lambda e: e[0])
+            errs["dkv"] = worst_of(allclose_err(torch, dk, dk_ref, 5e-4, 5e-4),
+                                   allclose_err(torch, dv, dv_ref, 5e-4, 5e-4))
             errs["dq"] = allclose_err(torch, dq, dq_ref, 5e-4, 5e-4)
         else:  # bf16 outputs: within 2e-2 of the plain version's largest gradient
             for kind, pairs_ in (("dkv", ((dk, dk_ref), (dv, dv_ref))), ("dq", ((dq, dq_ref),))):
@@ -412,6 +438,101 @@ def phase_flash_kernels(torch, attention) -> dict:
     return out
 
 
+def ce_times(n, vocab, itemsize, kind):
+    """(bytes_ms, ops_ms) of one cross-entropy kernel: logits read once
+    (int64 labels and the f32 row values too), the outputs written once;
+    three f32 operations an element (forward: max, exp, add; backward:
+    subtract, exp, multiply) outside the tensor cores."""
+    rows = n * (8 + 4 + 4)  # labels in, and nll + lse out / lse + g in
+    nbytes = n * vocab * itemsize * (1 if kind == "fwd" else 2) + rows
+    return nbytes / HBM_BYTES_PER_S * 1e3, 3 * n * vocab / PEAK_OPS_PER_S["float32"] * 1e3
+
+
+def phase_ce_kernels(torch, ce) -> dict:
+    """The fused cross-entropy kernels against their plain versions."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    rows, worst = {}, {}
+
+    def check(label, n, vocab, dtype, timed=False):
+        dname = str(dtype).replace("torch.", "")
+        logits = (torch.randn(n, vocab, generator=gen) * 3).to(dev, dtype)
+        labels = torch.randint(0, vocab, (n,), generator=gen).to(dev)
+        labels[0] = -1
+        if n > 2:
+            labels[1] = vocab
+            logits[2] = -1e30
+        g = (torch.rand(n, generator=gen) + 0.5).to(dev)  # a non-unit cotangent
+        nll, lse = ce.ce_fwd(logits, labels)
+        nll_ref, lse_ref = ce.ce_fwd_plain(logits, labels)
+        d = ce.ce_bwd(logits, labels, lse_ref, g)
+        d_ref = ce.ce_bwd_plain(logits, labels, lse_ref, g)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        errs = {"fwd": worst_of(allclose_err(torch, nll, nll_ref, tol, 1e-5),
+                                allclose_err(torch, lse, lse_ref, tol, 1e-5))}
+        if dtype == torch.float32:  # the JAX suite's gradient tolerance
+            errs["bwd"] = allclose_err(torch, d, d_ref, 1e-6, 1e-5)
+        else:  # bf16 dlogits: both round one f32 value, so within one bf16 ulp of each
+            errs["bwd"] = allclose_err(torch, d, d_ref, 1e-7, 8e-3)
+        log(f"ce[{label}] {dname} N={n} V={vocab} labels -1/V, -1e30 row, non-unit g: "
+            f"max_abs_err nll/lse {errs['fwd'][0]:.3e} dlogits {errs['bwd'][0]:.3e}")
+        bad = [k for k, (_, ok) in errs.items() if not ok]
+        if bad:
+            fail(f"ce[{label}] {dname}: {bad} outside tolerance (nll/lse {tol}, dlogits f32 "
+                 f"1e-6 + 1e-5 rel, bf16 1e-7 + 8e-3 rel)")
+        for kind, (err, _) in errs.items():
+            worst[f"{dname}/{kind}"] = max(worst.get(f"{dname}/{kind}", 0.0), err)
+        if not timed:
+            return
+        del d, d_ref, nll_ref
+        torch.cuda.empty_cache()
+        lib_fwd = cuda_ms(torch, lambda: F.cross_entropy(logits, labels.clamp(0, vocab - 1),
+                                                         reduction="none"), iters=5)
+        xg = logits.detach().clone().requires_grad_()
+        safe = labels.clamp(0, vocab - 1)
+
+        def lib_both():
+            torch.autograd.grad(F.cross_entropy(xg, safe, reduction="none"), (xg,), g)
+
+        lib_fwd_bwd = cuda_ms(torch, lib_both, iters=5)
+        del xg
+        for kind, kernel, plain in (
+            ("fwd", lambda: ce.ce_fwd(logits, labels), lambda: ce.ce_fwd_plain(logits, labels)),
+            ("bwd", lambda: ce.ce_bwd(logits, labels, lse_ref, g),
+             lambda: ce.ce_bwd_plain(logits, labels, lse_ref, g)),
+        ):
+            ms = cuda_ms(torch, kernel)
+            plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+            torch.cuda.empty_cache()
+            t_bytes, t_ops = ce_times(n, vocab, logits.element_size(), kind)
+            bound_ms, by = bound(t_bytes, t_ops)
+            log(f"ce_{kind} {dname} N={n} V={vocab}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                f"bytes_ms {t_bytes:.5f} ops_ms {t_ops:.5f} bound_ms {bound_ms:.5f} ({by}); "
+                f"library F.cross_entropy fwd_ms {lib_fwd:.4f} fwd+bwd_ms {lib_fwd_bwd:.4f}")
+            rows[f"{dname}/{kind}"] = dict(
+                shape=f"N={n} V={vocab} {dname}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=lib_fwd if kind == "fwd" else None,
+                library_fwd_bwd_ms=lib_fwd_bwd, max_abs_err=errs[kind][0])
+        del logits
+        torch.cuda.empty_cache()
+
+    for dtype in (torch.bfloat16, torch.float32):
+        check("train", *CE_SHAPE, dtype, timed=True)
+        for label, n, vocab in CE_EDGES:
+            check(label, n, vocab, dtype)
+    out = {}
+    for kind, name in (("fwd", "ce_fwd"), ("bwd", "ce_bwd")):
+        row = dict(rows[f"bfloat16/{kind}"])
+        row["float32"] = rows[f"float32/{kind}"]
+        row["worst_abs_err_all_cases"] = {"bfloat16": worst[f"bfloat16/{kind}"],
+                                          "float32": worst[f"float32/{kind}"]}
+        out[name] = row
+    return out
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -449,27 +570,33 @@ def device_split(torch, fn) -> dict:
             "top": sorted(top.items(), key=lambda kv: -kv[1])[:8]}
 
 
-def phase_training(torch, counters, smi: str) -> dict:
+def phase_training(torch, counters, smi: str, workdir: str) -> dict:
     from tensorflow_examples_torch.core import rng
     from tensorflow_examples_torch.data.memory import train_iterator
-    from tensorflow_examples_torch.ops.cross_entropy import cross_entropy_reference
+    from tensorflow_examples_torch.ops import cross_entropy as ce
     from tensorflow_examples_torch.train.loop import Trainer
     from tensorflow_examples_torch.workloads import gpt2
 
-    base = gpt2.Gpt2Config(train_steps=TRAIN_STEPS, warmup_steps=5, log_every=1, eval_every=0)
+    base = gpt2.Gpt2Config(train_steps=TRAIN_STEPS, warmup_steps=5, log_every=1, eval_every=0,
+                           telemetry_sinks="jsonl")
+    if not base.fused_ce:
+        fail("Gpt2Config().fused_ce is not True: the slice trains at the JAX default")
     t0 = time.perf_counter()
     train_ds, _ = gpt2.datasets(base)
     log(f"train data: {train_ds.size} synthetic bigram windows of {base.seq_len + 1} tokens "
         f"in {time.perf_counter() - t0:.3f} s")
     batch0 = next(train_iterator(train_ds, base.global_batch_size, seed=base.seed))
 
-    # Step 0 with the flash kernels against the plain attention path: the
-    # same weights (init seed) and batch, f32, dropout 0; and the flash
-    # step under remat, which must launch the forward kernel twice a layer.
+    # Step 0 with the flash kernels against the plain attention path, and
+    # with the fused cross-entropy against the plain one: the same weights
+    # (init seed) and batch, f32, dropout 0; and the flash step under
+    # remat, which must launch the forward kernel twice a layer.
     step0 = {}
-    for label, impl, remat in (("flash", "flash", False), ("xla", "xla", False),
-                               ("flash+remat", "flash", True)):
-        cfg = base.replace(precision="f32", dropout=0.0, attention=impl, remat=remat)
+    for label, impl, remat, fused in (("flash", "flash", False, True), ("xla", "xla", False, True),
+                                      ("flash+remat", "flash", True, True),
+                                      ("plain_ce", "flash", False, False)):
+        cfg = base.replace(precision="f32", dropout=0.0, attention=impl, remat=remat,
+                           fused_ce=fused)
         trainer = Trainer(gpt2.make_task(cfg), cfg)
         leaves = {k: p.detach().requires_grad_() for k, p in trainer.state.params.items()}
         for c in counters.values():
@@ -497,23 +624,31 @@ def phase_training(torch, counters, smi: str) -> dict:
 
     compare("flash", "xla")
     compare("flash+remat", "flash")
+    compare("flash", "plain_ce")
     layers = base.num_layers
-    if step0["flash"][2] != {"flash_fwd": layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}:
-        fail(f"train step 0: flash launches {step0['flash'][2]}, expected {layers} of each")
+    want = {"flash_fwd": layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers,
+            "ce_fwd": 1, "ce_bwd": 1}
+    if step0["flash"][2] != want:
+        fail(f"train step 0: launches {step0['flash'][2]}, expected {want}")
     if step0["flash+remat"][2]["flash_fwd"] != 2 * layers:
         fail(f"train step 0 under remat: flash launches {step0['flash+remat'][2]}, "
              f"expected {2 * layers} forward")
+    if step0["plain_ce"][2]["ce_fwd"] or step0["plain_ce"][2]["ce_bwd"]:
+        fail(f"train step 0 with fused_ce=False launched the CE kernels: {step0['plain_ce'][2]}")
     del step0
     torch.cuda.empty_cache()
 
-    # The slice: GPT-2 124M, bf16, dropout 0.1, batch 16 x 1024, through fit.
-    trainer = Trainer(gpt2.make_task(base), base)
-    it = train_iterator(train_ds, base.global_batch_size, seed=base.seed)
+    # The slice: GPT-2 124M at the JAX defaults (bf16, dropout 0.1, batch
+    # 16 x 1024, fused_ce=True) through fit, checkpointing every 10 steps.
+    cfg = base.replace(workdir=workdir, checkpoint_every=10)
+    trainer = Trainer(gpt2.make_task(cfg), cfg)
+    data = lambda start: train_iterator(train_ds, cfg.global_batch_size, seed=cfg.seed,
+                                        start_step=start)
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    trainer.fit(it, num_steps=TRAIN_STEPS)
+    trainer.fit(data, num_steps=TRAIN_STEPS)
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     hist = trainer.history
@@ -523,22 +658,34 @@ def phase_training(torch, counters, smi: str) -> dict:
     if any(h["bad_step"] for h in hist):
         fail("train: the bad-step guard skipped a step")
     for name in TRAIN_KERNELS:
-        if launches[name] != base.num_layers * TRAIN_STEPS:
+        per_step = base.num_layers if name.startswith("flash") else 1
+        if launches[name] != per_step * TRAIN_STEPS:
             fail(f"train: {name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
-                 f"expected {base.num_layers} per step")
+                 f"expected {per_step} per step")
     step_s = float(np.median([h["step_time_s"] for h in hist[1:]]))
     tokens = base.global_batch_size * base.seq_len
     flops = 6 * trainer.n_params * tokens
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     summary = dict(
         steps=TRAIN_STEPS, wall_s=wall, step_ms_p50=step_s * 1e3,
         first_step_ms=hist[0]["step_time_s"] * 1e3, tokens_per_s=tokens / step_s,
         mfu_6nd=flops / step_s / BF16_DENSE_PEAK, card=smi, loss_first=losses[0],
         loss_last=losses[-1], losses=losses,
         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+        peak_mem_gib=peak_gib, peak_mem_gib_plain_ce_recorded=PLAIN_CE_PEAK_GIB, launches=launches,
     )
     log(f"train: {json.dumps(summary)}")
+    log(f"train: peak memory {peak_gib:.2f} GiB with the fused cross-entropy against the "
+        f"{PLAIN_CE_PEAK_GIB} GiB recorded with the plain one")
+    lines = [json.loads(x) for x in open(os.path.join(workdir, "telemetry", "metrics.jsonl"))]
+    kinds = [x["kind"] for x in lines]
+    if kinds.count("window") != TRAIN_STEPS or kinds[-1] != "final" or \
+            lines[-1]["exit_reason"] != "complete":
+        fail(f"train: telemetry lines {kinds}")
+    log(f"train: telemetry {len(lines)} lines ({kinds.count('window')} window, memory, final); "
+        f"last window derived {json.dumps(lines[-2]['derived'])}")
 
+    it = data(TRAIN_STEPS)
     batch = trainer.put_batch(next(it))
 
     def one_step():
@@ -549,18 +696,125 @@ def phase_training(torch, counters, smi: str) -> dict:
     logits = torch.randn(tokens, base.vocab_size, device="cuda").to(torch.bfloat16).requires_grad_()
     labels = torch.randint(0, base.vocab_size, (tokens,), device="cuda")
 
-    def ce():
-        torch.autograd.grad(cross_entropy_reference(logits, labels).mean(), (logits,))
+    def ce_step(fused):
+        def run():
+            loss = ce.cross_entropy_per_example(logits, labels, fused=fused).mean()
+            torch.autograd.grad(loss, (logits,))
+        return run
 
     grads = {k: torch.full_like(p, 1e-3) for k, p in trainer.state.params.items()}
-    prof["cross_entropy_fwd_bwd_ms"] = cuda_ms(torch, ce, iters=5)
+    prof["cross_entropy_fwd_bwd_ms"] = cuda_ms(torch, ce_step(True), iters=5)
+    prof["cross_entropy_plain_fwd_bwd_ms"] = cuda_ms(torch, ce_step(False), iters=5)
     prof["optimizer_update_ms"] = cuda_ms(torch, lambda: trainer.state.apply_gradients(grads),
                                           iters=5)
-    log(f"profile[train step] (ms; cross-entropy and the optimizer update timed on their own "
-        f"at the step's shapes): {json.dumps(prof)}")
+    log(f"profile[train step] (ms; the fused and the plain cross-entropy and the optimizer "
+        f"update timed on their own at the step's shapes): {json.dumps(prof)}")
     summary["profile"] = prof
     del trainer, logits, grads
     torch.cuda.empty_cache()
+    return summary
+
+
+def phase_resume(torch, smi: str, workdir: str, training: dict) -> None:
+    """A fresh Trainer restores the step-10 checkpoint of the training
+    run (copied into a workdir of its own) and trains to step 20. The
+    save times are the training run's own saves: the host copy the step
+    waits for (span ``checkpoint_save``) and the write on the thread
+    (span ``checkpoint_write``)."""
+    import shutil
+
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.telemetry.spans import default_tracer
+    from tensorflow_examples_torch.train.checkpoint import STATE_NAME, CheckpointManager
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    src = CheckpointManager(workdir)
+    if src.all_steps() != [10, 20]:
+        fail(f"resume: checkpoints {src.all_steps()} under the training workdir, expected [10, 20]")
+    spans = {}
+    for ev in default_tracer().chrome_trace()["traceEvents"]:
+        if ev["name"] in ("checkpoint_save", "checkpoint_write"):
+            spans.setdefault(ev["name"], {})[ev["args"]["step"]] = ev["dur"] / 1e6
+    if any(sorted(spans.get(k, {})) != [10, 20] for k in ("checkpoint_save", "checkpoint_write")):
+        fail(f"resume: checkpoint spans {spans}, expected a save and a write at steps 10 and 20")
+    copy_s = [spans["checkpoint_save"][k] for k in (10, 20)]
+    write_s = [spans["checkpoint_write"][k] for k in (10, 20)]
+    ckpt_bytes = os.path.getsize(os.path.join(src.step_dir(10), STATE_NAME))
+    resumed_dir = workdir + "-resumed"
+    shutil.copytree(src.step_dir(10), os.path.join(resumed_dir, "checkpoints", "10"))
+    cfg = gpt2.Gpt2Config(train_steps=TRAIN_STEPS, warmup_steps=5, log_every=1, eval_every=0,
+                          telemetry_sinks="", workdir=resumed_dir, checkpoint_every=10)
+    train_ds, _ = gpt2.datasets(cfg)
+    trainer = Trainer(gpt2.make_task(cfg), cfg)
+    t0 = time.perf_counter()
+    restored = CheckpointManager(resumed_dir).restore_latest(trainer.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if restored is None or restored[1] != 10:
+        fail(f"resume: restored {restored and restored[1]}, expected step 10")
+    del restored
+    trainer.fit(lambda start: train_iterator(train_ds, cfg.global_batch_size, seed=cfg.seed,
+                                             start_step=start), num_steps=TRAIN_STEPS)
+    ours = [h["loss"] for h in trainer.history]
+    theirs = training["losses"][10:]
+    if [h["step"] for h in trainer.history] != list(range(11, TRAIN_STEPS + 1)):
+        fail(f"resume: stepped {[h['step'] for h in trainer.history]}, expected 11..20")
+    rel = [abs(a - b) / abs(b) for a, b in zip(ours, theirs)]
+    summary = dict(resumed_from=10, steps=len(ours), worst_rel_loss_diff=max(rel),
+                   identical_steps=sum(a == b for a, b in zip(ours, theirs)),
+                   checkpoint_bytes=ckpt_bytes, save_host_copy_s=copy_s, save_write_s=write_s,
+                   restore_s=restore_s, card=smi)
+    log(f"resume: {json.dumps(summary)}")
+    if not max(rel) <= 1e-3:
+        fail(f"resume: losses at steps 11-20 differ from the uninterrupted run's by "
+             f"{max(rel):.3e} relative (limit 1e-3): {ours} vs {theirs}")
+    del trainer
+    torch.cuda.empty_cache()
+    training["resume"] = summary
+
+
+def phase_generate(torch, counters, workdir: str) -> dict:
+    """Greedy decoding from the step-20 checkpoint, flash against xla."""
+    from tensorflow_examples_torch import generate
+    from tensorflow_examples_torch.models import transformer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    cfg = gpt2.Gpt2Config(workdir=workdir, precision="f32", dropout=0.0)
+    prompt = [int(t) for t in np.random.default_rng(3).integers(0, cfg.vocab_size, 64)]
+    streams, launches, walls = {}, {}, {}
+    for impl in ("flash", "xla"):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        toks, step = generate.generate_from_workdir(cfg.replace(attention=impl), prompt,
+                                                    num_tokens=32, temperature=0.0, top_k=0)
+        walls[impl] = time.perf_counter() - t0
+        launches[impl] = counters["flash_decode"].launches
+        if step != TRAIN_STEPS or toks[:64] != prompt or len(toks) != 96 or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"generate[{impl}]: step {step}, malformed stream {toks}")
+        streams[impl] = toks[64:]
+    if launches["flash"] != 12 * 32 or launches["xla"]:
+        fail(f"generate: flash-decode launches {launches}, expected 384 under flash, 0 under xla")
+    verdict = "exact"
+    for i, (a, b) in enumerate(zip(streams["flash"], streams["xla"])):
+        if a != b:
+            model, _ = generate.restore_model(gpt2.model_config(cfg), workdir)
+            ids = torch.tensor([prompt + streams["xla"][:i]], device="cuda")
+            logits = transformer.forward(gpt2.model_config(cfg.replace(attention="xla")), model,
+                                         ids)[0, -1]
+            top2 = torch.topk(logits.float(), 2).values
+            gap = float(top2[0] - top2[1])
+            verdict = ("tie", i, gap) if gap < NEAR_TIE else ("mismatch", i, gap)
+            break
+    summary = dict(checkpoint_step=TRAIN_STEPS, prompt_len=64, new_tokens=32, verdict=verdict,
+                   flash_decode_launches=launches["flash"], wall_s=walls,
+                   stream=streams["flash"][:8])
+    log(f"generate: {json.dumps(summary)}")
+    if verdict != "exact" and verdict[0] != "tie":
+        fail(f"generate: the flash stream differs from the xla stream at token {verdict[1]} "
+             f"(top-2 gap {verdict[2]})")
     return summary
 
 
@@ -734,18 +988,25 @@ def main() -> int:
     sys.path.insert(0, here)
     from tensorflow_examples_torch.core import precision
     from tensorflow_examples_torch.models import transformer
-    from tensorflow_examples_torch.ops import _build, attention, decode, paged_decode
+    from tensorflow_examples_torch.ops import _build, attention, cross_entropy, decode, paged_decode
 
     phase_build(_build)
     rows = phase_kernels(torch, decode, paged_decode, precision)
     rows.update(phase_flash_kernels(torch, attention))
+    rows.update(phase_ce_kernels(torch, cross_entropy))
 
     counters = {"flash_decode": decode.flash_decode_attention,
                 "paged_decode": paged_decode.paged_decode_attention,
                 "flash_fwd": attention.flash_fwd,
                 "flash_bwd_dkv": attention.flash_bwd_dkv,
-                "flash_bwd_dq": attention.flash_bwd_dq}
-    training = phase_training(torch, counters, smi)
+                "flash_bwd_dq": attention.flash_bwd_dq,
+                "ce_fwd": cross_entropy.ce_fwd,
+                "ce_bwd": cross_entropy.ce_bwd}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        workdir = os.path.join(tmp, "run")
+        training = phase_training(torch, counters, smi, workdir)
+        phase_resume(torch, smi, workdir, training)
+        phase_generate(torch, counters, workdir)
 
     model_cfg = transformer.gpt2_124m()
     t0 = time.perf_counter()
@@ -766,14 +1027,18 @@ def main() -> int:
          training["launches"]["flash_bwd_dkv"]),
         ("flash_bwd_dq", ATTN_SOURCE, "tensorflow_examples_tpu/ops/attention.py:269",
          training["launches"]["flash_bwd_dq"]),
+        ("ce_fwd", CE_SOURCE, "tensorflow_examples_tpu/ops/cross_entropy.py:49",
+         training["launches"]["ce_fwd"]),
+        ("ce_bwd", CE_SOURCE, "tensorflow_examples_tpu/ops/cross_entropy.py:83",
+         training["launches"]["ce_bwd"]),
     ):
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
-            **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "worst_abs_err_all_cases")
-               if k in row},
+            **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "library_fwd_bwd_ms",
+                                   "worst_abs_err_all_cases") if k in row},
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ while torch's is: about a fifth of gumbel values differ from jax's by
 one ulp. A categorical draw therefore differs from jax's only where two
 candidates are within an ulp of each other.
 
-``step_rng(root, step)`` is ``core/rng.py`` of the JAX package: the key
-of training step ``step`` under root key ``root``.
+``split`` is ``jax.random.split`` in the partitionable layout: key ``i``
+of ``n`` is the hash of the counter (0, i), so it equals
+``fold_in(key, i)``. ``step_rng(root, step)`` is ``core/rng.py`` of the
+JAX package: the key of training step ``step`` under root key ``root``.
 """
 
 from __future__ import annotations
@@ -67,6 +69,15 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     return np.array([y0[0], y1[0]], np.uint32)
 
 
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)``: ``uint32[num, 2]``, key ``i`` the
+    hash of the 64-bit counter ``i`` split into (hi, lo) words."""
+    idx = np.arange(int(num), dtype=np.uint64)
+    y0, y1 = threefry2x32(key, (idx >> np.uint64(32)).astype(np.uint32),
+                          (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    return np.stack([y0, y1], axis=1)
+
+
 def step_rng(root_key: np.ndarray, step: int) -> np.ndarray:
     """Per-step key: ``fold_in(root_key, step)``."""
     return fold_in(root_key, step)
@@ -106,9 +117,12 @@ def gumbel(key: np.ndarray, shape) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def categorical(key: np.ndarray, logits: torch.Tensor) -> int:
-    """One draw from ``softmax(logits)`` over the last axis of a 1-D
-    ``logits``: ``argmax(gumbel + logits)`` (the Gumbel-max trick, as
-    ``jax.random.categorical``). Computed on the CPU in float32."""
+def categorical(key: np.ndarray, logits: torch.Tensor) -> int | torch.Tensor:
+    """Draws from ``softmax(logits)`` over the last axis:
+    ``argmax(gumbel + logits)`` with one Gumbel draw of ``logits``' whole
+    shape (the Gumbel-max trick, as ``jax.random.categorical(key, logits,
+    axis=-1)``). Computed on the CPU in float32; an int for a 1-D
+    ``logits``, else an int64 tensor of its leading shape."""
     logits = logits.detach().float().cpu()
-    return int(torch.argmax(gumbel(key, logits.shape) + logits))
+    draw = torch.argmax(gumbel(key, logits.shape) + logits, dim=-1)
+    return int(draw) if logits.dim() == 1 else draw

@@ -30,6 +30,18 @@ keyed by a per-step key (not flax's bits); ``remat`` recomputes each
 block in the backward (``torch.utils.checkpoint``). Parameters run in
 whatever dtype they hold: the precision policy
 (``core/precision.py``) hands the module compute-dtype copies.
+
+Decoding (the reference's ``sample_tokens``, ``init_cache`` and
+``generate``): :class:`KVCache` holds each layer's keys and values at
+[B, H, max_len, D] and the next write position; :func:`decode_step`
+appends q_len tokens and attends over the cache through the
+flash-decode kernel (``attention="flash"``, ``ops/decode.py``) or the
+plain masked reference (``"xla"``), as the reference's
+``_decode_attend``. The cache is updated in place, where the reference
+threads a new one through each call. :func:`generate` prefills the
+prompt in one call, then takes one token per call; its keys come from
+``core/rng.split`` as jax's, so greedy and sampled streams follow the
+reference's.
 """
 
 from __future__ import annotations
@@ -43,7 +55,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tensorflow_examples_torch.core import rng as rng_mod
-from tensorflow_examples_torch.ops.attention import attention_reference, flash_attention
+from tensorflow_examples_torch.ops.attention import NEG_INF, attention_reference, flash_attention
+from tensorflow_examples_torch.ops.decode import decode_attention_reference, flash_decode_attention
 
 ATTENTION_IMPLS = ("flash", "xla")
 
@@ -269,3 +282,93 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *, train: bool
         x = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
     x = _layer_norm(x, params.ln_f)
     return x @ params.wte.embedding.T
+
+
+# ---------------------------------------------------------------- decoding
+
+
+def sample_tokens(logits: torch.Tensor, key: np.ndarray | None, *, temperature: float = 1.0,
+                  top_k: int = 0) -> torch.Tensor:
+    """Next-token ids [...] from ``logits`` [..., vocab]: greedy at
+    ``temperature == 0``, else a categorical draw under ``key`` after
+    dividing by the temperature and, with ``top_k > 0``, keeping the k
+    largest logits."""
+    logits = logits.float()
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / temperature
+    if top_k:
+        kth = torch.sort(logits, dim=-1).values[..., -top_k][..., None]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    return torch.as_tensor(rng_mod.categorical(key, logits)).to(logits.device)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-layer keys and values [B, H, max_len, D] and the next write
+    position (the reference's ``cache`` collection)."""
+    k: list[torch.Tensor]
+    v: list[torch.Tensor]
+    index: int = 0
+
+
+def init_cache(cfg: TransformerConfig, batch_size: int, *, dtype=torch.float32,
+               device=None) -> KVCache:
+    """An empty cache of zeros in ``dtype``."""
+    shape = (batch_size, cfg.num_heads, cfg.max_len, cfg.head_dim)
+    zeros = lambda: [torch.zeros(shape, dtype=dtype, device=device)
+                     for _ in range(cfg.num_layers)]
+    return KVCache(zeros(), zeros())
+
+
+def _decode_attend(cfg: TransformerConfig, q, k, v, cache: KVCache, layer: int):
+    """Write the new k/v [B, q_len, H, D] into the cache at its index and
+    attend q over the populated prefix; returns [B, q_len, H, D]."""
+    i0, q_len = cache.index, q.shape[1]
+    swap = lambda t: t.transpose(1, 2)  # [B,S,H,D] <-> [B,H,S,D]
+    ck, cv = cache.k[layer], cache.v[layer]
+    ck[:, :, i0:i0 + q_len] = swap(k).to(ck.dtype)
+    cv[:, :, i0:i0 + q_len] = swap(v).to(cv.dtype)
+    attend = flash_decode_attention if cfg.attention == "flash" else decode_attention_reference
+    out = attend(swap(q).contiguous(), ck, cv, i0 + q_len, sm_scale=cfg.head_dim ** -0.5)
+    return swap(out)
+
+
+@torch.no_grad()
+def decode_step(cfg: TransformerConfig, params, tokens: torch.Tensor,
+                cache: KVCache) -> torch.Tensor:
+    """Logits [B, q_len, vocab] of ``tokens`` [B, q_len] at positions
+    ``cache.index ...``; appends their keys and values to ``cache``."""
+    if cfg.attention not in ATTENTION_IMPLS:
+        raise ValueError(f"attention={cfg.attention!r} not in {ATTENTION_IMPLS}")
+    positions = cache.index + torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed(params, tokens, positions[None])
+    for layer in range(cfg.num_layers):
+        blk = params.block(layer)
+        q, k, v = _qkv(_layer_norm(x, blk.ln_1), blk.attn)
+        x = x + _attn_out(_decode_attend(cfg, q, k, v, cache, layer), blk.attn)
+        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk)
+    cache.index += tokens.shape[1]
+    return _layer_norm(x, params.ln_f) @ params.wte.embedding.T
+
+
+@torch.no_grad()
+def generate(cfg: TransformerConfig, params, prompt: torch.Tensor, *, num_tokens: int,
+             key: np.ndarray, temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
+    """``num_tokens`` continuations of ``prompt`` [B, L] (greedy at
+    temperature 0): one prefill call, then one call per token. Returns
+    [B, L + num_tokens] on the prompt's device."""
+    b, prompt_len = prompt.shape
+    if prompt_len + num_tokens > cfg.max_len:
+        raise ValueError(f"prompt ({prompt_len}) + num_tokens ({num_tokens}) exceeds "
+                         f"max_len ({cfg.max_len})")
+    # The cache's dtype follows the token-embedding table, as the reference's.
+    cache = init_cache(cfg, b, dtype=params.wte.embedding.dtype, device=prompt.device)
+    sample = lambda logits, k: sample_tokens(logits, k, temperature=temperature, top_k=top_k)
+    logits = decode_step(cfg, params, prompt, cache)
+    key, sub = rng_mod.split(key)
+    out = [sample(logits[:, -1], sub)]
+    keys = rng_mod.split(key, num_tokens - 1) if num_tokens > 1 else []
+    for k in keys:
+        out.append(sample(decode_step(cfg, params, out[-1][:, None], cache)[:, -1], k))
+    return torch.cat([prompt, torch.stack(out, dim=1).to(prompt.dtype)], dim=1)

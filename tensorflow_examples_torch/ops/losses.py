@@ -7,10 +7,15 @@ import torch
 
 
 def select_label(values: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """``values[..., C]`` at ``labels[...]``. The reference avoids a
-    gather for XLA's SPMD partitioner (its mask-and-reduce picks the same
-    element); eagerly a gather is exact and reads one value per row."""
-    return torch.gather(values, -1, labels.long()[..., None])[..., 0]
+    """``values[..., C]`` at ``labels[...]``, and 0 where a label lies
+    outside ``[0, C)``, as the reference's mask-and-reduce gives (it
+    matches no column there). Eagerly a gather of the clamped index,
+    zeroed where out of range, is exact and reads one value per row; its
+    gradient reaches no column for such a row, as the reference's does."""
+    labels = labels.long()
+    inside = (labels >= 0) & (labels < values.shape[-1])
+    picked = torch.gather(values, -1, labels.clamp(0, values.shape[-1] - 1)[..., None])[..., 0]
+    return torch.where(inside, picked, torch.zeros((), dtype=values.dtype, device=values.device))
 
 
 def weighted_mean(values: torch.Tensor, weights: torch.Tensor | None) -> torch.Tensor:

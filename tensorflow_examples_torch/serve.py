@@ -3,9 +3,11 @@
     python -m tensorflow_examples_torch.serve --init_seed 0 --port 8000 \\
         --kv_block_size 16 --attention paged_flash
 
-Weights come from ``--params_npz`` (the JAX param tree flattened with
-``/``-joined keys, ``models/convert.py``) or, without it, a random init
-from ``--init_seed``. The model defaults to GPT-2 124M. Runs on ``cuda``
+Weights come from ``--workdir`` (the params of the newest intact
+checkpoint a training run wrote there, ``train/checkpoint.py``), from
+``--params_npz`` (the JAX param tree flattened with ``/``-joined keys,
+``models/convert.py``) or, without either, a random init from
+``--init_seed``. The width flags must be the checkpoint's. The model defaults to GPT-2 124M. Runs on ``cuda``
 unless ``--device cpu``; serves ``POST /generate``, ``GET /health`` and
 ``GET /metrics`` until SIGINT or SIGTERM.
 """
@@ -18,6 +20,7 @@ import logging
 import signal
 import threading
 
+from tensorflow_examples_torch.generate import restore_model
 from tensorflow_examples_torch.models import convert, transformer
 from tensorflow_examples_torch.serving.batcher import ContinuousBatcher
 from tensorflow_examples_torch.serving.engine import (
@@ -36,6 +39,7 @@ MODEL_FIELDS = ("vocab_size", "max_len", "num_layers", "num_heads", "d_model", "
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     weights = p.add_mutually_exclusive_group()
+    weights.add_argument("--workdir", help="training run whose latest checkpoint to serve")
     weights.add_argument("--params_npz", help="flattened JAX param tree (.npz)")
     weights.add_argument("--init_seed", type=int, default=0,
                          help="random-init seed when no --params_npz is given")
@@ -63,7 +67,10 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     model_cfg = transformer.TransformerConfig(**{name: getattr(args, name) for name in MODEL_FIELDS})
     serve_cfg = ServeConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(ServeConfig)})
-    if args.params_npz:
+    if args.workdir:
+        params, step = restore_model(model_cfg, args.workdir, "cpu")
+        logging.info("serving the checkpoint of step %d from %s", step, args.workdir)
+    elif args.params_npz:
         params = convert.load_npz(args.params_npz)
     else:
         params = transformer.GPT2(model_cfg, seed=args.init_seed)

@@ -1,0 +1,83 @@
+"""The JSONL line schema of the trainer's telemetry: the port's copy of
+the parts of ``tensorflow_examples_tpu/telemetry/schema.py`` that cover
+the kinds the port's trainer writes (``window``, ``eval``, ``final``,
+``memory``). Its lines are schema version 5 lines of the reference, so
+the reference's ``validate_line`` accepts them too.
+
+Line shape::
+
+    {"schema_version": 5, "kind": "window" | "eval" | "final" | "memory",
+     "host": 0, "step": <int >= 0>, "time_unix": <float>,
+     "session_start_unix": <float>,          # constant per fit
+     "metrics": {"train/loss": ...},          # numeric or null
+     "counters": {"train/steps_total": ...},  # non-negative ints (fit deltas)
+     "gauges": {...}, "derived": {...},       # numeric or null
+     "exit_reason": "complete" | "preempt" | "error:<Type>",  # final only
+     "memory": {"params_bytes": ..., ...}}    # required on memory lines
+"""
+
+from __future__ import annotations
+
+import numbers
+from typing import Any
+
+SCHEMA_VERSION = 5
+KINDS = ("window", "eval", "final", "memory")
+_REQUIRED = ("schema_version", "kind", "host", "step", "time_unix", "session_start_unix",
+             "metrics", "counters", "gauges", "derived")
+
+
+def _is_number(v: Any) -> bool:
+    return isinstance(v, numbers.Real) and not isinstance(v, bool)
+
+
+def _is_count(v: Any) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool) and v >= 0
+
+
+def _check_numeric_map(obj: dict, section: str, problems: list[str]) -> None:
+    sec = obj.get(section)
+    if not isinstance(sec, dict):
+        problems.append(f"{section} is not an object")
+        return
+    for k, v in sec.items():
+        if not isinstance(k, str):
+            problems.append(f"{section} key {k!r} is not a string")
+        if v is not None and not _is_number(v):
+            problems.append(f"{section}[{k!r}] = {v!r} is not numeric")
+
+
+def validate_line(obj: Any) -> list[str]:
+    """The schema violations of one line (empty: valid)."""
+    if not isinstance(obj, dict):
+        return [f"line is {type(obj).__name__}, not an object"]
+    problems = [f"missing required field {k!r}" for k in _REQUIRED if k not in obj]
+    if problems:
+        return problems
+    if obj["schema_version"] != SCHEMA_VERSION:
+        problems.append(f"schema_version {obj['schema_version']!r} != {SCHEMA_VERSION}")
+    if obj["kind"] not in KINDS:
+        problems.append(f"kind {obj['kind']!r} not in {KINDS}")
+    for key in ("host", "step"):
+        if not _is_count(obj[key]):
+            problems.append(f"{key} {obj[key]!r} is not a non-negative int")
+    for key in ("time_unix", "session_start_unix"):
+        if not _is_number(obj[key]):
+            problems.append(f"{key} {obj[key]!r} is not a number")
+    for section in ("metrics", "gauges", "derived"):
+        _check_numeric_map(obj, section, problems)
+    if not isinstance(obj["counters"], dict):
+        problems.append("counters is not an object")
+    else:
+        problems += [f"counters[{k!r}] = {v!r} is not a non-negative int"
+                     for k, v in obj["counters"].items() if not _is_count(v)]
+    if obj["kind"] == "final" and not isinstance(obj.get("exit_reason"), str):
+        problems.append("final line is missing a string exit_reason")
+    if obj["kind"] != "final" and "exit_reason" in obj:
+        problems.append("exit_reason on a non-final line")
+    if "memory" in obj:
+        _check_numeric_map(obj, "memory", problems)
+    elif obj["kind"] == "memory":
+        problems.append("memory line is missing the memory object")
+    return problems
+

@@ -5,8 +5,14 @@
 Every field of the workload's config dataclass is a flag of the same
 name (the counterpart of the reference's ``define_flags_from_config``);
 booleans take true/false. Runs on ``cuda`` unless ``--device cpu``.
-Without ``--data_dir`` the data are the seeded synthetic streams. Prints
-the final metrics as one JSON line.
+Without ``--data_dir`` the data are the seeded synthetic streams. With
+``--workdir`` the run checkpoints there every ``--checkpoint_every``
+steps and at the end, resumes from the latest checkpoint (unless
+``--resume false``), writes ``telemetry/metrics.jsonl`` and
+``telemetry/trace.json``, and exits 0 after checkpointing on SIGTERM.
+Prints the final metrics, the final eval's included, as one JSON line.
+``python -m tensorflow_examples_torch.train.eval`` evaluates the latest
+checkpoint of a workdir.
 """
 
 from __future__ import annotations
@@ -46,11 +52,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+def parse_config(argv=None, description: str | None = None):
+    """(args, the workload module, its config) from the command line."""
+    parser = build_parser()
+    if description:
+        parser.description = description
+    args = parser.parse_args(argv)
     module, config_cls = WORKLOADS[args.workload]
     cfg = config_cls(**{f.name: getattr(args, f.name) for f in dataclasses.fields(config_cls)})
+    return parser, args, module, cfg
+
+
+def main(argv=None) -> int:
+    _, args, module, cfg = parse_config(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     train_ds, eval_ds = module.datasets(cfg)
     trainer = Trainer(module.make_task(cfg), cfg)
     eval_bs = cfg.eval_batch_size or cfg.global_batch_size
@@ -59,7 +74,6 @@ def main(argv=None) -> int:
                                      start_step=start),
         eval_iter_fn=lambda: eval_batches(eval_ds, eval_bs),
     )
-    metrics.update({f"eval_{k}": v for k, v in trainer.evaluate(eval_batches(eval_ds, eval_bs)).items()})
     print(json.dumps({"workload": args.workload, "device": str(trainer.device),
                       "steps": trainer.state.step, **metrics}))
     return 0

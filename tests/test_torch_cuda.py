@@ -9,7 +9,10 @@ it; ``tests/conftest.py`` does import jax, hence on the card:
 
 Tolerances are the JAX suite's for the same kernels: atol 2e-5 for f32
 flash-decode and flash forward, 2e-2 for bf16, 5e-4 for f32 flash
-gradients, 2e-6 for paged decode (fp32 and int8).
+gradients, 2e-6 for paged decode (fp32 and int8); for the fused
+cross-entropy kernels 1e-5 (f32) and 2e-2 (bf16) on the NLL and lse,
+and on dlogits 1e-6 (f32) or one bf16 ulp, 8e-3 relative, of each
+value (bf16).
 """
 
 import numpy as np
@@ -17,7 +20,7 @@ import pytest
 import torch
 
 from tensorflow_examples_torch.core import precision
-from tensorflow_examples_torch.ops import attention, decode, paged_decode
+from tensorflow_examples_torch.ops import attention, cross_entropy, decode, paged_decode
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +156,66 @@ def test_flash_kernels_refuse_what_they_cannot_launch(dev):
     q = torch.zeros(3, 16, 64, device=dev)
     with pytest.raises(ValueError, match="multiple of heads"):
         attention.flash_fwd(q, q, q, heads=2)
+
+
+# ------------------------------------------------------ fused cross-entropy
+
+CE_CASES = [  # (n, vocab)
+    (64, 1000),
+    (32, 4099),      # odd vocab: every other bf16 row starts 2-byte aligned
+    (1, 50257),
+    (16, 50257),
+]
+
+
+def _ce_inputs(dev, dtype, n, vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    logits = _randn(rng, (n, vocab), dev, dtype) * 3
+    labels = torch.from_numpy(rng.integers(0, vocab, n)).to(dev)
+    labels[0] = -1
+    if n > 2:
+        labels[1] = vocab
+        logits[2] = attention.NEG_INF  # a row of all -1e30
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    return logits, labels, g
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,vocab", CE_CASES)
+def test_ce_kernels_match_plain(dev, dtype, atol, n, vocab):
+    logits, labels, g = _ce_inputs(dev, dtype, n, vocab)
+    before = (cross_entropy.ce_fwd.launches, cross_entropy.ce_bwd.launches)
+    nll, lse = cross_entropy.ce_fwd(logits, labels)
+    nll_ref, lse_ref = cross_entropy.ce_fwd_plain(logits, labels)
+    torch.testing.assert_close(nll, nll_ref, atol=atol, rtol=1e-5)
+    torch.testing.assert_close(lse, lse_ref, atol=atol, rtol=1e-5)
+    d = cross_entropy.ce_bwd(logits, labels, lse_ref, g)
+    d_ref = cross_entropy.ce_bwd_plain(logits, labels, lse_ref, g)
+    assert d.dtype == dtype
+    # bf16: both sides round one f32 value, so they differ by at most
+    # one bf16 ulp of each element (2^-7 relative).
+    d_atol, d_rtol = (1e-6, 1e-6) if dtype == torch.float32 else (1e-7, 8e-3)
+    torch.testing.assert_close(d.float(), d_ref.float(), atol=d_atol, rtol=d_rtol)
+    assert (cross_entropy.ce_fwd.launches, cross_entropy.ce_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_fused_ce_autograd_matches_reference(dev):
+    """Through the autograd Function, with the expanded stride-0
+    cotangent a mean gives, against autograd of the plain reference."""
+    logits, labels, _ = _ce_inputs(dev, torch.float32, 48, 4099, seed=1)
+    grads = []
+    for fused in (True, False):
+        x = logits.clone().requires_grad_()
+        loss = cross_entropy.cross_entropy_per_example(x, labels, fused=fused).mean()
+        grads.append((loss, torch.autograd.grad(loss, x)[0]))
+    torch.testing.assert_close(grads[0][0], grads[1][0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(grads[0][1], grads[1][1], atol=1e-6, rtol=1e-5)
+
+
+def test_ce_kernels_refuse_what_they_cannot_launch(dev):
+    with pytest.raises(ValueError, match="dtype"):
+        cross_entropy.ce_fwd(torch.zeros(2, 8, device=dev, dtype=torch.float16),
+                             torch.zeros(2, dtype=torch.long, device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        cross_entropy.ce_fwd(torch.zeros(2, 8, device=dev), torch.zeros(2, dtype=torch.long))

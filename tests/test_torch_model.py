@@ -5,8 +5,17 @@ Weights come from a flax init of the smoke model
 (``tools/serve_bench.SMOKE_MODEL``: vocab 211, d 32, 2 layers, 2 heads,
 max_len 64), handed to the port as nested dicts of numpy arrays; logits
 of the port's ``forward_full`` must match the JAX engine's at atol 1e-5.
+
+Decoding: ``core/rng.split`` equals ``jax.random.split`` bit for bit;
+the port's ``generate`` gives the JAX ``transformer.generate``'s greedy
+stream token for token (flash-decode through the plain version on the
+CPU, the Pallas kernel in interpret mode on the JAX side), and its
+sampled stream (temperature 0.8, top_k 5, the same key) may part from
+the JAX one only at a near-tie: where the two best Gumbel-perturbed
+scores are within 1e-4 (XLA's CPU ``log`` is not correctly rounded).
 """
 
+import dataclasses
 import os
 import sys
 
@@ -18,6 +27,8 @@ import torch
 
 from tensorflow_examples_tpu.models import transformer as jax_transformer
 from tensorflow_examples_tpu.serving import engine as jax_engine
+from tensorflow_examples_torch import generate as generate_cli
+from tensorflow_examples_torch.core import rng
 from tensorflow_examples_torch.models import convert, transformer
 from tensorflow_examples_torch.serving import engine
 
@@ -138,3 +149,100 @@ def test_random_init_follows_the_reference_scheme():
     other = transformer.GPT2(cfg, seed=4)
     assert torch.equal(m.h_3.attn.qkv.kernel, again.h_3.attn.qkv.kernel)
     assert not torch.equal(m.h_3.attn.qkv.kernel, other.h_3.attn.qkv.kernel)
+
+
+# ---------------------------------------------------------------- decoding
+
+NEAR_TIE = 1e-4
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_rng_split_matches_jax_bit_for_bit(seed):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 5)
+    for num in (1, 2, 3, 31, 1000):
+        assert np.array_equal(rng.split(np.asarray(key), num),
+                              np.asarray(jax.random.split(key, num)))
+    assert np.array_equal(rng.split(rng.PRNGKey(seed)), np.asarray(
+        jax.random.split(jax.random.PRNGKey(seed))))
+
+
+def _generate_both(flax_params, impl, temperature, top_k, num_tokens=12):
+    jax_cfg, cfg = smoke_cfgs()
+    jax_cfg = dataclasses.replace(jax_cfg, attention=impl)
+    cfg = dataclasses.replace(cfg, attention=impl)
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 10))
+    theirs = np.asarray(jax_transformer.generate(
+        jax_transformer.Transformer(jax_cfg), jax.tree.map(jnp.asarray, flax_params),
+        jnp.asarray(prompt, jnp.int32), num_tokens=num_tokens, rng=jax.random.PRNGKey(3),
+        temperature=temperature, top_k=top_k))
+    model = convert.model_from_params(cfg, flax_params)
+    ours = transformer.generate(cfg, model, torch.from_numpy(prompt), num_tokens=num_tokens,
+                                key=rng.PRNGKey(3), temperature=temperature, top_k=top_k)
+    return cfg, model, prompt, ours.numpy(), theirs
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_greedy_generate_matches_jax(flax_params, impl):
+    _, _, prompt, ours, theirs = _generate_both(flax_params, impl, 0.0, 0)
+    assert ours.shape == (2, 22) and np.array_equal(ours[:, :10], prompt)
+    assert np.array_equal(ours, theirs)
+
+
+def test_sampled_generate_matches_jax_up_to_near_ties(flax_params):
+    temp, top_k, n = 0.8, 5, 12
+    cfg, model, prompt, ours, theirs = _generate_both(flax_params, "xla", temp, top_k, n)
+    key, first = rng.split(rng.PRNGKey(3))
+    keys = [first, *rng.split(key, n - 1)]
+    for b in range(2):
+        diff = np.nonzero(ours[b, 10:] != theirs[b, 10:])[0]
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        with torch.no_grad():
+            logits = model(torch.from_numpy(theirs[b:b + 1, :10 + i]))[0, -1].float() / temp
+        kth = torch.sort(logits).values[-top_k]
+        logits = torch.where(logits < kth, -1e30, logits)
+        scores = rng.gumbel(keys[i], (2, cfg.vocab_size))[b] + logits
+        top2 = torch.topk(scores, 2).values
+        assert float(top2[0] - top2[1]) < NEAR_TIE, (b, i, ours[b], theirs[b])
+    assert len(set(ours[0, 10:].tolist())) > 1  # sampling, not a constant
+
+
+def test_generate_rejects_a_stream_past_max_len(flax_params):
+    _, cfg = smoke_cfgs()
+    model = convert.model_from_params(cfg, flax_params)
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        transformer.generate(cfg, model, torch.zeros(1, 60, dtype=torch.long), num_tokens=5,
+                             key=rng.PRNGKey(0), temperature=0.0)
+
+
+def test_generate_cli_and_serve_restore_the_checkpoint(tmp_path, capsys):
+    """Train two steps into a workdir through the training CLI; the
+    generate CLI's stream equals ``generate`` on the restored params, and
+    ``serve --workdir`` restores the same params."""
+    from tensorflow_examples_torch import serve
+    from tensorflow_examples_torch.train import cli
+    from tensorflow_examples_torch.workloads import gpt2
+
+    flags = ["--device", "cpu", "--vocab_size", "256", "--seq_len", "32", "--num_layers", "1",
+             "--num_heads", "2", "--d_model", "32", "--workdir", str(tmp_path)]
+    assert cli.main(flags + ["--global_batch_size", "4", "--train_steps", "2",
+                             "--warmup_steps", "1", "--log_every", "1", "--eval_every", "0"]) == 0
+    capsys.readouterr()
+    assert generate_cli.main(flags + ["--prompt", "the ", "--num_tokens", "6",
+                                      "--temperature", "0"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    toks = [int(t) for t in out[0].split(":", 1)[1].strip(" []").split(",")]
+    cfg = gpt2.Gpt2Config(device="cpu", vocab_size=256, seq_len=32, num_layers=1, num_heads=2,
+                          d_model=32, workdir=str(tmp_path))
+    model, step = generate_cli.restore_model(gpt2.model_config(cfg), str(tmp_path), "cpu")
+    want = transformer.generate(gpt2.model_config(cfg), model,
+                                torch.tensor([list(b"the ")]), num_tokens=6,
+                                key=rng.PRNGKey(cfg.seed), temperature=0.0)
+    assert step == 2 and toks == want[0].tolist() and len(out) == 2
+    with pytest.raises(SystemExit):
+        generate_cli.main(flags[:-2])  # no --workdir: a usage error
+    args = serve.build_parser().parse_args(["--workdir", str(tmp_path)])
+    assert args.workdir == str(tmp_path)
+    with pytest.raises(SystemExit):
+        serve.build_parser().parse_args(["--workdir", "a", "--params_npz", "b"])

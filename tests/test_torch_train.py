@@ -248,8 +248,11 @@ def test_losses_and_reference_cross_entropy_match_jax():
                                         jnp.asarray(labels).reshape(3, 4),
                                         jnp.asarray(weights).reshape(3, 4), fused=False)),
         rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
-        cross_entropy.cross_entropy_per_example(t_logits, t_labels, fused=True)
+    np.testing.assert_allclose(  # fused=True: the kernels' plain versions on the CPU
+        cross_entropy.cross_entropy_per_example(t_logits, t_labels, fused=True).numpy(),
+        np.asarray(jax_ce.cross_entropy_per_example(jnp.asarray(logits), jnp.asarray(labels),
+                                                    fused=True)),
+        rtol=1e-5, atol=1e-5)
 
 
 def test_precision_policy_casts_differentiably():
@@ -460,7 +463,7 @@ def test_trainer_runs_on_cuda_unless_asked_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(gpt2.make_task(cfg), cfg.replace(device="cuda"))
     assert gpt2.Gpt2Config().device == "cuda"
-    assert gpt2.Gpt2Config().fused_ce is False
+    assert gpt2.Gpt2Config().fused_ce is True  # the JAX default
 
 
 def test_gpt2_124m_shapes_on_meta():
