@@ -22,7 +22,15 @@ non-zero:
    cotangent; the fused cross-entropy forward and backward at the
    step's logits, N=16384 x V=50257, bf16 and f32, plus V 4099 and 1000,
    N=1, labels -1 and V, a row of all -1e30 and a non-unit cotangent,
-   with ``torch.nn.functional.cross_entropy`` timed as a yardstick only);
+   with ``torch.nn.functional.cross_entropy`` timed as a yardstick only;
+   the grouped-matmul kernels ``gmm``, ``gmm`` with ``transpose_rhs`` and
+   ``tgmm`` at the MoE step's two expert products, [16384, 768] x
+   [8, 768, 3072] and [16384, 3072] x [8, 3072, 768], with the skewed
+   group sizes ``MOE_SIZES``, bf16 and f32, plus m=2, m=1554, k and n of
+   100 and 36, every row in one group, one-row groups and empty groups
+   first and last (``tgmm`` exact zeros), with ``torch._grouped_mm`` (or,
+   where it refuses, the per-group ``torch.matmul`` loop) timed as a
+   yardstick only);
 4. training: GPT-2 124M at full width on synthetic bigram data through
    ``Trainer.fit`` (bf16 compute, dropout 0.1, batch 16 x 1024, 20 steps,
    warmup cut to 5 steps so the loss can move, the fused cross-entropy
@@ -43,6 +51,19 @@ non-zero:
    ``tensorflow_examples_torch.generate``, 32 greedy tokens from a
    64-token prompt in f32 with ``attention="flash"`` (flash-decode, 12
    launches a call) and ``"xla"``, the two streams held to each other;
+4c. MoE training: ``bench.py``'s ``moe_bench_config()`` at its TPU widths
+   (GPT-2 124M widths, 8 experts, top-2 MoE in every 2nd block, batch
+   8 x 1024, bf16, dropout 0, flash, fused CE, ``moe_impl="grouped"``)
+   through ``Trainer.fit`` for 20 steps (warmup cut to 5), checkpointing
+   at the end, after step 0 (f32, router jitter on) with the grouped
+   kernels is held to ``impl="scatter"`` at capacity factor 8 (nothing
+   drops) and to the plain gmm/tgmm; loss falling, ``moe_drop`` 0,
+   ``moe_aux`` finite, exactly 24 gmm and 12 tgmm launches a step, step
+   time, tokens/s, peak memory and one profiled step;
+4d. MoE generate: 32 greedy tokens from that checkpoint through
+   ``tensorflow_examples_torch.generate`` (f32), the grouped kernels
+   against the plain gmm, the two streams held to each other, and the
+   logits of the whole sequence held within 1e-4 of their max;
 5. serving: GPT-2 124M at full width, random weights from seed 0, f32,
    through ``ContinuousBatcher`` + ``ServingFrontend`` over real HTTP in
    three engine configurations (dense pool with ``attention="flash"``;
@@ -56,6 +77,7 @@ non-zero:
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -73,6 +95,8 @@ FLASH_SOURCE = "tensorflow_examples_torch/ops/csrc/decode.cu"
 PAGED_SOURCE = "tensorflow_examples_torch/ops/csrc/paged_decode.cu"
 ATTN_SOURCE = "tensorflow_examples_torch/ops/csrc/flash_attention.cu"
 CE_SOURCE = "tensorflow_examples_torch/ops/csrc/cross_entropy.cu"
+GMM_SOURCE = "tensorflow_examples_torch/ops/csrc/grouped_matmul.cu"
+GMM_REPLACES = "tensorflow_examples_tpu/parallel/moe.py:190 (megablox gmm.py:{})"
 BF16_DENSE_PEAK = 989.4e12     # H100 SXM bf16 tensor cores, dense: the MFU denominator
 TRAIN_STEPS = 20
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ce_fwd", "ce_bwd")
@@ -90,6 +114,20 @@ FLASH_EDGES = (
     ("key_bias NEG_INF", 200, 320, True, "NEG_INF", False),
     ("dlse", 512, 512, True, None, True),
 )
+# The MoE step's expert products (m, k, n): 8 x 1024 tokens, top-2, d 768, ff 3072.
+MOE_SHAPES = ((16384, 768, 3072), (16384, 3072, 768))
+MOE_SIZES = (5000, 3000, 2500, 2000, 1800, 1084, 1000, 0)  # skewed routing over 8 experts
+# Grouped-matmul edge cases (label, m, k, n, group sizes).
+GMM_EDGES = (
+    ("m=2", 2, 768, 3072, (0, 1, 0, 0, 0, 0, 1, 0)),
+    ("m=1554", 1554, 768, 3072, (300, 0, 254, 500, 0, 200, 300, 0)),
+    ("k=100 n=36", 1554, 100, 36, (300, 0, 254, 500, 0, 200, 300, 0)),
+    ("k=36 n=100", 1554, 36, 100, (300, 0, 254, 500, 0, 200, 300, 0)),
+    ("one group", 16384, 768, 3072, (0, 0, 0, 16384, 0, 0, 0, 0)),
+    ("one-row groups", 1025, 768, 3072, (1, 512, 0, 511, 1, 0, 0, 0)),
+    ("empty first and last", 2048, 3072, 768, (0, 700, 600, 748, 0, 0, 0, 0)),
+)
+MOE_KERNELS = ("gmm", "tgmm")
 
 
 def fail(msg: str) -> None:
@@ -533,6 +571,143 @@ def phase_ce_kernels(torch, ce) -> dict:
     return out
 
 
+def gmm_times(m, k, n, g, itemsize, dtype_name, kind):
+    """(bytes_ms, ops_ms) of one grouped-matmul call on these shapes: each
+    input read once, the output written once; 2 m k n operations (every
+    row lies in a group)."""
+    if kind == "tgmm":  # lhs_t [k, m], rhs [m, n] -> [g, k, n]
+        nbytes = (k * m + m * n + g * k * n) * itemsize
+    else:  # lhs [m, k], rhs [g, k, n] -> [m, n]
+        nbytes = (m * k + g * k * n + m * n) * itemsize
+    nbytes += 4 * g  # group sizes
+    ops = 2 * m * k * n
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+
+
+def gmm_err(torch, out, ref, dtype):
+    """(max |out - ref|, ok). f32: every element within 1e-4 of max |ref|.
+    bf16 allows one bf16 rounding of each element on top (8e-3 |ref|):
+    the two sides sum in f32 in different orders and each rounds its own
+    sum, so a per-element bound alone fails where sums cancel to near 0."""
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    limit = 1e-4 * float(b.abs().max()) + (8e-3 * b.abs() if dtype == torch.bfloat16 else 0.0)
+    ok = bool(torch.isfinite(a).all()) and bool((diff <= limit).all())
+    return float(diff.max()), ok
+
+
+def library_grouped(torch, lhs, rhs, grad, sizes, kind):
+    """(name, a callable computing the kind's product with one PyTorch
+    call, ``torch._grouped_mm``) where this torch has it and takes these
+    operands; else the per-group ``torch.matmul`` loop. Timed as a
+    yardstick only: the port never calls either."""
+    ends = np.cumsum(sizes)
+    starts = ends - np.asarray(sizes)
+    offs = torch.tensor(ends, dtype=torch.int32, device=lhs.device)
+    if kind == "tgmm":
+        call = lambda: torch._grouped_mm(lhs.T, grad, offs=offs)
+        plain = lambda: torch.stack([lhs[s:e].T @ grad[s:e] for s, e in zip(starts, ends)])
+    elif kind == "gmm_t":
+        call = lambda: torch._grouped_mm(grad, rhs.transpose(1, 2), offs=offs)
+        plain = lambda: torch.cat([grad[s:e] @ rhs[i].T
+                                   for i, (s, e) in enumerate(zip(starts, ends))])
+    else:
+        call = lambda: torch._grouped_mm(lhs, rhs, offs=offs)
+        plain = lambda: torch.cat([lhs[s:e] @ rhs[i]
+                                   for i, (s, e) in enumerate(zip(starts, ends))])
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            call()
+            torch.cuda.synchronize()
+            return "torch._grouped_mm", call
+        except (RuntimeError, TypeError, ValueError) as e:
+            log(f"  torch._grouped_mm refused {kind} {lhs.dtype}: {str(e).splitlines()[0][:120]}")
+    return "per-group torch.matmul loop", plain
+
+
+def phase_moe_kernels(torch, gm) -> dict:
+    """The grouped-matmul kernels against their plain versions."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    rows, worst = {}, {}
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    def check(label, m, k, n, sizes, dtype, timed=False):
+        dname = str(dtype).replace("torch.", "")
+        g = len(sizes)
+        lhs, rhs = randn(m, k, dtype=dtype), randn(g, k, n, dtype=dtype)
+        grad = randn(m, n, dtype=dtype)
+        sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        calls = {
+            "gmm": (lambda: gm.gmm(lhs, rhs, sz), lambda: gm.gmm_plain(lhs, rhs, sz)),
+            "gmm_t": (lambda: gm.gmm(grad, rhs, sz, transpose_rhs=True),
+                      lambda: gm.gmm_plain(grad, rhs, sz, transpose_rhs=True)),
+            "tgmm": (lambda: gm.tgmm(lhs.T, grad, sz), lambda: gm.tgmm_plain(lhs.T, grad, sz)),
+        }
+        errs = {}
+        for kind, (kernel, plain) in calls.items():
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            errs[kind] = gmm_err(torch, out, ref, dtype)
+            if kind == "tgmm":
+                empty = [i for i, size in enumerate(sizes) if size == 0]
+                nonzero = [i for i in empty if bool(out[i].any())]
+                if nonzero:
+                    fail(f"tgmm[{label}] {dname}: empty groups {nonzero} are not exact zeros")
+            del out, ref
+        log(f"gmm[{label}] {dname} m={m} k={k} n={n} sizes={list(sizes)}: max_abs_err "
+            + " ".join(f"{kind} {err:.3e}" for kind, (err, _) in errs.items())
+            + "; tgmm empty groups exact zeros")
+        bad = [kind for kind, (_, ok) in errs.items() if not ok]
+        if bad:
+            fail(f"gmm[{label}] {dname}: {bad} outside tolerance (1e-4 of max |ref|, plus "
+                 f"8e-3 |ref| per element in bf16)")
+        for kind, (err, _) in errs.items():
+            worst[f"{dname}/{kind}"] = max(worst.get(f"{dname}/{kind}", 0.0), err)
+        if not timed:
+            return
+        for kind, (kernel, plain) in calls.items():
+            ms = cuda_ms(torch, kernel)
+            plain_ms = cuda_ms(torch, plain, iters=5, warmup=1)
+            lib_name, lib = library_grouped(torch, lhs, rhs, grad, sizes, kind)
+            lib_ms = cuda_ms(torch, lib, iters=5, warmup=1)
+            kk, nn = (n, k) if kind == "gmm_t" else (k, n)
+            t_bytes, t_ops = gmm_times(m, kk, nn, g, lhs.element_size(), dname,
+                                       "tgmm" if kind == "tgmm" else "gmm")
+            bound_ms, by = bound(t_bytes, t_ops)
+            log(f"{kind} {dname} m={m} k={kk} n={nn} g={g}: kernel_ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} bytes_ms {t_bytes:.5f} ops_ms {t_ops:.5f} bound_ms "
+                f"{bound_ms:.5f} ({by}); library {lib_name} ms {lib_ms:.4f}")
+            rows[f"{dname}/{label}/{kind}"] = dict(
+                shape=f"m={m} k={kk} n={nn} g={g} {dname} sizes={list(sizes)}", ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                library=lib_name, max_abs_err=errs[kind][0])
+        del lhs, rhs, grad
+        torch.cuda.empty_cache()
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, k, n in MOE_SHAPES:
+            check(f"k={k}", m, k, n, MOE_SIZES, dtype, timed=True)
+        for label, m, k, n, sizes in GMM_EDGES:
+            check(label, m, k, n, sizes, dtype)
+    # The rows carry the first expert product (x [16384, 768] x w_in) for
+    # gmm and its weight gradient for tgmm; the other timings ride along.
+    first = f"k={MOE_SHAPES[0][1]}"
+    out = {}
+    for name, kinds in (("gmm", ("gmm", "gmm_t")), ("tgmm", ("tgmm",))):
+        row = dict(rows[f"bfloat16/{first}/{name}"])
+        row["float32"] = rows[f"float32/{first}/{name}"]
+        row["all_shapes"] = {key: {f: r[f] for f in ("shape", "ms", "plain_ms", "bound_ms",
+                                                     "library_ms", "library")}
+                             for key, r in rows.items() if key.split("/")[-1] in kinds}
+        row["worst_abs_err_all_cases"] = {
+            d: max(worst[f"{d}/{kind}"] for kind in kinds) for d in ("bfloat16", "float32")}
+        out[name] = row
+    return out
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -549,7 +724,7 @@ def device_split(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    split = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {"flash": 0.0, "gmm": 0.0, "tgmm": 0.0, "matmul": 0.0, "other": 0.0}
     launches = 0
     top = {}
     for e in prof.key_averages():
@@ -558,6 +733,8 @@ def device_split(torch, fn) -> dict:
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
         kind = ("flash" if "flash_" in name else
+                "tgmm" if "tgmm_kernel" in name else
+                "gmm" if "gmm_kernel" in name else
                 "matmul" if any(t in name for t in ("gemm", "cutlass", "xmma", "cublas", "sm90_"))
                 else "other")
         split[kind] += ms
@@ -818,6 +995,278 @@ def phase_generate(torch, counters, workdir: str) -> dict:
     return summary
 
 
+def moe_config(gpt2, **kw):
+    """``bench.py``'s ``moe_bench_config()`` at its TPU widths (GPT-2 124M
+    widths, 8 experts, top-2 MoE in every 2nd block, batch 8 x 1024, bf16,
+    dropout 0, flash attention, fused CE, the grouped dispatch), cut to
+    ``TRAIN_STEPS`` steps with warmup 5 so the loss moves."""
+    base = dict(global_batch_size=8, seq_len=1024, dropout=0.0, precision="bf16",
+                attention="flash", fused_ce=True, moe_experts=8, moe_top_k=2, moe_every=2,
+                moe_impl="grouped", train_steps=TRAIN_STEPS, warmup_steps=5, log_every=1,
+                eval_every=0, checkpoint_every=0, telemetry_sinks="")
+    base.update(kw)
+    return gpt2.Gpt2Config(**base)
+
+
+class plain_grouped_matmul:
+    """Within the block, the grouped-matmul Function runs the plain
+    versions (the kernels' comparison, never the main path)."""
+
+    def __init__(self, gm):
+        self.gm = gm
+
+    def __enter__(self):
+        self.saved = self.gm.gmm, self.gm.tgmm
+        self.gm.gmm, self.gm.tgmm = self.gm.gmm_plain, self.gm.tgmm_plain
+
+    def __exit__(self, *exc):
+        self.gm.gmm, self.gm.tgmm = self.saved
+
+
+class pinned_routing:
+    """Within the block, ``parallel/moe.py``'s router runs as usual and
+    keeps each call's experts (``recorded`` None), or routes call i to
+    the experts ``recorded[i]`` holds, with this run's own probabilities
+    as the gates. Routing is discontinuous: two runs whose activations
+    differ by f32 rounding (a kernel against a plain version) can pick
+    different experts where two probabilities nearly tie, and that token
+    then computes another function. Replaying one run's routing in the
+    other compares the arithmetic alone; ``flips`` counts the decisions
+    this run's router would have made otherwise and ``worst_gap`` is the
+    largest probability gap among them, which must be a near-tie."""
+
+    def __init__(self, moe, recorded=None):
+        self.moe, self.recorded = moe, recorded
+        self.calls, self.flips, self.worst_gap = [], 0, 0.0
+
+    def __enter__(self):
+        self.real = self.moe._router
+        self.moe._router = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.real
+
+    def route(self, tokens, gate_w, *, top_k, rng, jitter):
+        import torch
+        import torch.nn.functional as F
+
+        gates, experts, moh0, mpr = self.real(tokens, gate_w, top_k=top_k, rng=rng,
+                                              jitter=jitter)
+        if self.recorded is None:
+            self.calls.append(experts)
+            return gates, experts, moh0, mpr
+        want = self.recorded[len(self.calls)]
+        self.calls.append(want)
+        differ = torch.stack([a != b for a, b in zip(experts, want)]).any(dim=0)
+        if not bool(differ.any()):
+            return gates, experts, moh0, mpr
+        probs = self.moe._router_probs(tokens, gate_w, rng=rng, jitter=jitter)
+        own = torch.stack([probs.gather(-1, e[:, None])[:, 0] for e in experts])
+        forced = torch.stack([probs.gather(-1, e[:, None])[:, 0] for e in want])
+        self.flips += int(differ.sum())
+        self.worst_gap = max(self.worst_gap, float((own - forced).abs()[:, differ].max()))
+        gates = [probs.gather(-1, e[:, None])[:, 0] for e in want]
+        if top_k > 1:
+            denom = torch.clamp(sum(gates), min=1e-9)
+            gates = [g / denom for g in gates]
+        return gates, want, F.one_hot(want[0], gate_w.shape[-1]).float().mean(dim=0), mpr
+
+
+def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
+    from tensorflow_examples_torch.core import rng
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.parallel import moe as moe_mod
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    base = moe_config(gpt2)
+    train_ds, _ = gpt2.datasets(base)
+    batch0 = next(train_iterator(train_ds, base.global_batch_size, seed=base.seed))
+    n_moe = sum(i % base.moe_every == base.moe_every - 1 for i in range(base.num_layers))
+
+    # Step 0 in f32 with the router jitter on (train=True, the step key):
+    # the grouped kernels against the scatter formulation at capacity 8
+    # (nothing drops, so both compute one function) and against the plain
+    # gmm/tgmm, each replaying the kernel run's routing (pinned_routing).
+    step0, recorded = {}, None
+    runs = (("grouped", "grouped", {}, False),
+            ("scatter", "scatter", {"moe_capacity_factor": 8.0}, False),
+            ("grouped_plain", "grouped", {}, True))
+    for label, impl, overrides, plain in runs:
+        cfg = base.replace(precision="f32", moe_impl=impl)
+        trainer = Trainer(gpt2.make_task(cfg, **overrides), cfg)
+        leaves = {k: p.detach().requires_grad_() for k, p in trainer.state.params.items()}
+        for c in counters.values():
+            c.launches = 0
+        with pinned_routing(moe_mod, recorded) as routing, \
+                plain_grouped_matmul(gm) if plain else contextlib.nullcontext():
+            loss, metrics, _ = trainer.task.loss_fn(
+                trainer.policy.cast_compute(leaves), {}, trainer.put_batch(batch0),
+                rng=rng.step_rng(rng.PRNGKey(cfg.seed + 1), 0), train=True)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        recorded = recorded or routing.calls
+        step0[label] = (float(loss.detach()), dict(zip(leaves, grads)),
+                        {k: counters[k].launches for k in MOE_KERNELS},
+                        {k: float(v.detach()) for k, v in metrics.items()},
+                        (routing.flips, routing.worst_gap))
+        del trainer, leaves, loss, grads, metrics
+        torch.cuda.empty_cache()
+
+    def compare(a, b):
+        (loss_a, g_a, launches_a, m_a, _), (loss_b, g_b, _, m_b, (flips, gap)) = step0[a], step0[b]
+        rel = abs(loss_a - loss_b) / abs(loss_b)
+        name, worst = max(
+            ((k, float((g_a[k] - g_b[k]).abs().max()) / max(float(g_b[k].abs().max()), 1e-30))
+             for k in g_b), key=lambda kv: kv[1])
+        log(f"moe step 0, f32, router jitter on: loss {a} {loss_a:.7f} {b} {loss_b:.7f} (rel "
+            f"{rel:.2e}, limit 1e-5); moe_aux {m_a['moe_aux']:.6f} / {m_b['moe_aux']:.6f}, "
+            f"moe_drop {m_a['moe_drop']} / {m_b['moe_drop']}; worst grad {name}: max|diff| / "
+            f"max|grad| {worst:.2e} (limit 1e-3) over {len(g_b)} tensors; {b} replayed {a}'s "
+            f"routing: its own router differed in {flips} (token, rank) decisions, largest "
+            f"probability gap {gap:.2e} (near-tie limit {NEAR_TIE}); launches {a}: {launches_a}")
+        if not (np.isfinite(loss_a) and rel <= 1e-5 and worst <= 1e-3 and gap < NEAR_TIE):
+            fail(f"moe step 0: the {a} step disagrees with the {b} step")
+        return dict(loss=[loss_a, loss_b], rel=rel, worst_grad=name, worst_grad_rel=worst,
+                    routing_flips=flips, flip_gap=gap)
+
+    checks = {"grouped_vs_scatter": compare("grouped", "scatter"),
+              "grouped_vs_plain": compare("grouped", "grouped_plain")}
+    want = {"gmm": 4 * n_moe, "tgmm": 2 * n_moe}
+    if step0["grouped"][2] != want:
+        fail(f"moe step 0: launches {step0['grouped'][2]}, expected {want}")
+    if any(step0[k][2][n] for k in ("scatter", "grouped_plain") for n in MOE_KERNELS):
+        fail(f"moe step 0: scatter / plain runs launched the kernels: "
+             f"{step0['scatter'][2]} {step0['grouped_plain'][2]}")
+    if step0["scatter"][3]["moe_drop"] != 0.0 or step0["grouped"][3]["moe_drop"] != 0.0:
+        fail("moe step 0: tokens dropped at capacity factor 8")
+    del step0
+    torch.cuda.empty_cache()
+
+    # The slice: moe_bench_config() through fit, saving the final state.
+    cfg = base.replace(workdir=workdir)
+    trainer = Trainer(gpt2.make_task(cfg), cfg)
+    data = lambda start: train_iterator(train_ds, cfg.global_batch_size, seed=cfg.seed,
+                                        start_step=start)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(data, num_steps=TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"moe train: losses not finite and falling over {len(hist)} steps: {losses}")
+    if any(h["moe_drop"] != 0.0 or not np.isfinite(h["moe_aux"]) or h["bad_step"] for h in hist):
+        fail(f"moe train: moe_drop / moe_aux / bad_step per step: "
+             f"{[(h['moe_drop'], h['moe_aux'], h['bad_step']) for h in hist]}")
+    for name, per_step in (("gmm", 4 * n_moe), ("tgmm", 2 * n_moe), ("flash_fwd", base.num_layers),
+                           ("ce_fwd", 1), ("ce_bwd", 1)):
+        if launches[name] != per_step * TRAIN_STEPS:
+            fail(f"moe train: {name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
+                 f"expected {per_step} per step")
+    step_s = float(np.median([h["step_time_s"] for h in hist[1:]]))
+    tokens = base.global_batch_size * base.seq_len
+    summary = dict(
+        steps=TRAIN_STEPS, wall_s=wall, step_ms_p50=step_s * 1e3,
+        first_step_ms=hist[0]["step_time_s"] * 1e3, tokens_per_s=tokens / step_s, card=smi,
+        n_params=trainer.n_params, moe_layers=n_moe, loss_first=losses[0], loss_last=losses[-1],
+        losses=losses, moe_aux=[h["moe_aux"] for h in hist],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()}, launches=launches,
+        step0=checks,
+    )
+    log(f"moe train: {json.dumps(summary)}")
+    batch = trainer.put_batch(next(data(TRAIN_STEPS)))
+
+    def one_step():
+        trainer.state, _ = trainer._train_step(trainer.state, batch)
+
+    one_step()
+    prof = device_split(torch, one_step)
+    log(f"profile[moe train step] (ms): {json.dumps(prof)}")
+    summary["profile"] = prof
+    del trainer
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_moe_generate(torch, counters, gm, workdir: str) -> dict:
+    """Greedy decoding from the MoE run's checkpoint, the grouped kernels
+    against the plain gmm."""
+    from tensorflow_examples_torch import generate
+    from tensorflow_examples_torch.models import transformer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    from tensorflow_examples_torch.parallel import moe as moe_mod
+
+    cfg = moe_config(gpt2, workdir=workdir, precision="f32")
+    n_moe = sum(i % cfg.moe_every == cfg.moe_every - 1 for i in range(cfg.num_layers))
+    prompt = [int(t) for t in np.random.default_rng(5).integers(0, cfg.vocab_size, 64)]
+    streams, launches, recorded = {}, {}, None
+    for label in ("kernels", "plain"):
+        for c in counters.values():
+            c.launches = 0
+        # The plain run replays the kernel run's routing (see pinned_routing).
+        with pinned_routing(moe_mod, recorded) as routing, \
+                plain_grouped_matmul(gm) if label == "plain" else contextlib.nullcontext():
+            toks, step = generate.generate_from_workdir(cfg, prompt, num_tokens=32,
+                                                        temperature=0.0, top_k=0)
+        recorded = recorded or routing.calls
+        launches[label] = {k: counters[k].launches for k in MOE_KERNELS}
+        if step != TRAIN_STEPS or toks[:64] != prompt or len(toks) != 96 or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"moe generate[{label}]: step {step}, malformed stream {toks}")
+        streams[label] = toks[64:]
+    if launches["kernels"] != {"gmm": 2 * n_moe * 32, "tgmm": 0} or any(launches["plain"].values()):
+        fail(f"moe generate: launches {launches}, expected {2 * n_moe * 32} gmm with the kernels, "
+             "none with the plain versions")
+    verdict = "exact"
+    for i, (a, b) in enumerate(zip(streams["kernels"], streams["plain"])):
+        if a != b:
+            model, _ = generate.restore_model(gpt2.model_config(cfg), workdir)
+            ids = torch.tensor([prompt + streams["plain"][:i]], device="cuda")
+            with plain_grouped_matmul(gm), torch.no_grad():
+                logits = transformer.forward(gpt2.model_config(cfg), model, ids)[0, -1]
+            top2 = torch.topk(logits.float(), 2).values
+            gap = float(top2[0] - top2[1])
+            verdict = ("tie", i, gap) if gap < NEAR_TIE else ("mismatch", i, gap)
+            break
+    # The greedy streams of a 20-step model can sit in a fixed point, so
+    # also hold the logits of the whole 96-token sequence, kernels
+    # against plain (routing pinned), to the f32 kernel criterion.
+    model, _ = generate.restore_model(gpt2.model_config(cfg), workdir)
+    ids = torch.tensor([prompt + streams["kernels"]], device="cuda")
+    logits, recorded = {}, None
+    for label in ("kernels", "plain"):
+        with pinned_routing(moe_mod, recorded) as seq_routing, torch.no_grad(), \
+                plain_grouped_matmul(gm) if label == "plain" else contextlib.nullcontext():
+            logits[label] = transformer.forward(gpt2.model_config(cfg), model, ids)[0]
+        recorded = recorded or seq_routing.calls
+    logit_err = float((logits["kernels"] - logits["plain"]).abs().max())
+    logit_max = float(logits["plain"].abs().max())
+    del model, logits
+    torch.cuda.empty_cache()
+    summary = dict(checkpoint_step=TRAIN_STEPS, prompt_len=64, new_tokens=32, verdict=verdict,
+                   launches=launches, stream=streams["kernels"][:8],
+                   plain_routing_flips=routing.flips + seq_routing.flips,
+                   flip_gap=max(routing.worst_gap, seq_routing.worst_gap),
+                   sequence_logits_max_abs_err=logit_err, sequence_logits_max=logit_max)
+    log(f"moe generate: {json.dumps(summary)}")
+    if summary["flip_gap"] >= NEAR_TIE:
+        fail(f"moe generate: a routing decision of the plain run differed at a probability gap "
+             f"of {summary['flip_gap']:.2e}, not a near-tie")
+    if not logit_err <= 1e-4 * logit_max:
+        fail(f"moe generate: sequence logits differ by {logit_err:.3e}, over 1e-4 of their "
+             f"max {logit_max:.3e}")
+    if verdict != "exact" and verdict[0] != "tie":
+        fail(f"moe generate: the kernels' stream differs from the plain one at token "
+             f"{verdict[1]} (top-2 gap {verdict[2]})")
+    return summary
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -988,12 +1437,14 @@ def main() -> int:
     sys.path.insert(0, here)
     from tensorflow_examples_torch.core import precision
     from tensorflow_examples_torch.models import transformer
-    from tensorflow_examples_torch.ops import _build, attention, cross_entropy, decode, paged_decode
+    from tensorflow_examples_torch.ops import (
+        _build, attention, cross_entropy, decode, grouped_matmul, paged_decode)
 
     phase_build(_build)
     rows = phase_kernels(torch, decode, paged_decode, precision)
     rows.update(phase_flash_kernels(torch, attention))
     rows.update(phase_ce_kernels(torch, cross_entropy))
+    rows.update(phase_moe_kernels(torch, grouped_matmul))
 
     counters = {"flash_decode": decode.flash_decode_attention,
                 "paged_decode": paged_decode.paged_decode_attention,
@@ -1001,12 +1452,17 @@ def main() -> int:
                 "flash_bwd_dkv": attention.flash_bwd_dkv,
                 "flash_bwd_dq": attention.flash_bwd_dq,
                 "ce_fwd": cross_entropy.ce_fwd,
-                "ce_bwd": cross_entropy.ce_bwd}
+                "ce_bwd": cross_entropy.ce_bwd,
+                "gmm": grouped_matmul.gmm,
+                "tgmm": grouped_matmul.tgmm}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         workdir = os.path.join(tmp, "run")
         training = phase_training(torch, counters, smi, workdir)
         phase_resume(torch, smi, workdir, training)
         phase_generate(torch, counters, workdir)
+        moe_workdir = os.path.join(tmp, "moe")
+        moe = phase_moe_training(torch, counters, grouped_matmul, smi, moe_workdir)
+        phase_moe_generate(torch, counters, grouped_matmul, moe_workdir)
 
     model_cfg = transformer.gpt2_124m()
     t0 = time.perf_counter()
@@ -1031,14 +1487,16 @@ def main() -> int:
          training["launches"]["ce_fwd"]),
         ("ce_bwd", CE_SOURCE, "tensorflow_examples_tpu/ops/cross_entropy.py:83",
          training["launches"]["ce_bwd"]),
+        ("gmm", GMM_SOURCE, GMM_REPLACES.format(526), moe["launches"]["gmm"]),
+        ("tgmm", GMM_SOURCE, GMM_REPLACES.format(763), moe["launches"]["tgmm"]),
     ):
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
-            **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "library_fwd_bwd_ms",
-                                   "worst_abs_err_all_cases") if k in row},
+            **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "library_fwd_bwd_ms", "library",
+                                   "all_shapes", "worst_abs_err_all_cases") if k in row},
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -18,9 +18,14 @@ candidates are within an ulp of each other.
 of ``n`` is the hash of the counter (0, i), so it equals
 ``fold_in(key, i)``. ``step_rng(root, step)`` is ``core/rng.py`` of the
 JAX package: the key of training step ``step`` under root key ``root``.
+``fold_in_static(key, parts)`` is flax's ``_fold_in_static``: the key a
+flax module at scope path ``parts[:-1]`` gets from its ``parts[-1]``-th
+``make_rng`` call (the MoE router's jitter key).
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -67,6 +72,24 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     y0, y1 = threefry2x32(key, np.zeros(1, np.uint32),
                           np.array([int(data) & 0xFFFFFFFF], np.uint32))
     return np.array([y0[0], y1[0]], np.uint32)
+
+
+def fold_in_static(key: np.ndarray, parts) -> np.ndarray:
+    """flax's ``_fold_in_static`` (with ``flax_fix_rng_separator`` off,
+    flax's default): SHA-1 over the parts in order, a string as its UTF-8
+    bytes and an int as its minimal big-endian bytes, then ``fold_in`` of
+    the digest's first four bytes read big-endian. No parts: the key."""
+    if not parts:
+        return key
+    digest = hashlib.sha1()
+    for part in parts:
+        if isinstance(part, str):
+            digest.update(part.encode("utf-8"))
+        elif isinstance(part, int):
+            digest.update(part.to_bytes((part.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"expected int or string, got {part!r}")
+    return fold_in(key, int.from_bytes(digest.digest()[:4], byteorder="big"))
 
 
 def split(key: np.ndarray, num: int = 2) -> np.ndarray:

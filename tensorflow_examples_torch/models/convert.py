@@ -5,7 +5,8 @@ The reference's params are a nested dict (``wte/embedding``,
 arrays, or as an ``.npz`` of the flattened tree with ``/``-joined keys,
 they load into :class:`~tensorflow_examples_torch.models.transformer.GPT2`
 unchanged: the module's ``state_dict`` keys are the same paths with
-``.`` for ``/``, in the same layouts. :func:`to_param_tree` is the other
+``.`` for ``/``, in the same layouts, an MoE block's
+``h_i/moe/{gate,w_in,b_in,w_out,b_out}`` included. :func:`to_param_tree` is the other
 direction: a module, or a trainer's ``{name: tensor}`` params, back to
 the nested numpy tree the JAX package loads. The port never sees a jax
 array.

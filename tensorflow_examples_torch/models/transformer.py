@@ -10,12 +10,15 @@ that):
 * ``h_i.attn.qkv.kernel`` [d, 3, H, hd] with ``bias`` [3, H, hd];
 * ``h_i.attn.proj.kernel`` [H, hd, d] with ``bias`` [d];
 * ``h_i.mlp_fc`` ([d, ff], [ff]) and ``h_i.mlp_proj`` ([ff, d], [d]);
+  in an MoE block (``cfg.use_moe(i)``) ``h_i.moe`` in their place:
+  ``gate`` [d, E], ``w_in`` [E, d, ff], ``b_in`` [E, ff], ``w_out``
+  [E, ff, d], ``b_out`` [E, d];
 * the LM head is tied: ``logits = x @ wte.embedding.T``.
 
 Random init follows the reference: normal(0.02) for kernels and
 ``wte``, normal(0.01) for ``wpe``, std 0.02 / sqrt(2 L) for the residual
-projections (``attn.proj`` and ``mlp_proj``), zero biases, unit
-LayerNorm scales, drawn from an explicit ``torch.Generator``.
+projections (``attn.proj``, ``mlp_proj`` and ``moe.w_out``), zero
+biases, unit LayerNorm scales, drawn from an explicit ``torch.Generator``.
 
 The layer math (``_embed``, ``_layer_norm``, ``_qkv``, ``_attn_out``,
 ``_block_mlp``) lives here and the serving engine imports it. Math is
@@ -31,14 +34,25 @@ block in the backward (``torch.utils.checkpoint``). Parameters run in
 whatever dtype they hold: the precision policy
 (``core/precision.py``) hands the module compute-dtype copies.
 
+Mixture-of-Experts (``moe_experts`` E > 0): the MLP of every
+``moe_every``-th block is a top-``moe_top_k`` MoE over E experts
+(``parallel/moe.py``; the expert weights cast to the activations' dtype,
+the router in f32). At ``train=True`` with a dropout key, block i's
+router jitter key is ``fold_in_static(key, ("h_i", "moe", 1))``, the key
+flax's ``make_rng("dropout")`` gives the reference's ``MoeMlp``, so the
+jitter equals jax's bit for bit. ``forward(..., moe_stats=True)`` also
+returns the summed aux loss and the mean dropped fraction of the MoE
+blocks, which the reference sows as intermediates.
+
 Decoding (the reference's ``sample_tokens``, ``init_cache`` and
 ``generate``): :class:`KVCache` holds each layer's keys and values at
 [B, H, max_len, D] and the next write position; :func:`decode_step`
 appends q_len tokens and attends over the cache through the
 flash-decode kernel (``attention="flash"``, ``ops/decode.py``) or the
 plain masked reference (``"xla"``), as the reference's
-``_decode_attend``. The cache is updated in place, where the reference
-threads a new one through each call. :func:`generate` prefills the
+``_decode_attend``; an MoE block routes its tokens without jitter. The
+cache is updated in place, where the reference threads a new one through
+each call. :func:`generate` prefills the
 prompt in one call, then takes one token per call; its keys come from
 ``core/rng.split`` as jax's, so greedy and sampled streams follow the
 reference's.
@@ -57,6 +71,7 @@ from torch.utils.checkpoint import checkpoint
 from tensorflow_examples_torch.core import rng as rng_mod
 from tensorflow_examples_torch.ops.attention import NEG_INF, attention_reference, flash_attention
 from tensorflow_examples_torch.ops.decode import decode_attention_reference, flash_decode_attention
+from tensorflow_examples_torch.parallel.moe import moe_ffn
 
 ATTENTION_IMPLS = ("flash", "xla")
 
@@ -72,6 +87,18 @@ class TransformerConfig:
     dropout: float = 0.1
     attention: str = "flash"  # flash (the flash kernels) | xla (plain)
     remat: bool = False  # recompute each block in the backward
+    # Mixture-of-Experts: 0 = dense MLP everywhere; E > 0 swaps the MLP of
+    # every moe_every-th block for a top-moe_top_k MoE of E experts.
+    moe_experts: int = 0
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_top_k: int = 1
+    # "" = the device's default (grouped on CUDA, scatter on the CPU); pin
+    # "grouped" (dropless) or "scatter" (drops at capacity) for one function.
+    moe_impl: str = ""
+
+    def use_moe(self, layer: int) -> bool:
+        return self.moe_experts > 0 and layer % self.moe_every == self.moe_every - 1
 
     @property
     def head_dim(self) -> int:
@@ -126,16 +153,34 @@ class Attention(nn.Module):
         self.proj = Dense((h, hd, d), (d,), out_std, generator, device)
 
 
-class Block(nn.Module):
+class MoeMlp(nn.Module):
+    """The reference's ``MoeMlp`` parameters: router ``gate`` and the
+    experts' FFN weights with a leading [E] axis."""
+
     def __init__(self, cfg: TransformerConfig, generator=None, device=None):
+        super().__init__()
+        e, d, ff = cfg.moe_experts, cfg.d_model, cfg.ff_dim
+        out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
+        self.gate = _normal((d, e), 0.02, generator, device)
+        self.w_in = _normal((e, d, ff), 0.02, generator, device)
+        self.b_in = nn.Parameter(torch.zeros(e, ff, device=device))
+        self.w_out = _normal((e, ff, d), out_std, generator, device)
+        self.b_out = nn.Parameter(torch.zeros(e, d, device=device))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, generator=None, device=None, use_moe=False):
         super().__init__()
         d, ff = cfg.d_model, cfg.ff_dim
         out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
         self.ln_1 = LayerNorm(d, device)
         self.attn = Attention(cfg, generator, device)
         self.ln_2 = LayerNorm(d, device)
-        self.mlp_fc = Dense((d, ff), (ff,), 0.02, generator, device)
-        self.mlp_proj = Dense((ff, d), (d,), out_std, generator, device)
+        if use_moe:
+            self.moe = MoeMlp(cfg, generator, device)
+        else:
+            self.mlp_fc = Dense((d, ff), (ff,), 0.02, generator, device)
+            self.mlp_proj = Dense((ff, d), (d,), out_std, generator, device)
 
 
 # ------------------------------------------------------------ layer math
@@ -161,6 +206,18 @@ def _layer_norm(x, ln, eps=1e-5):
 def _block_mlp(x, blk):
     h = F.gelu(x @ blk.mlp_fc.kernel + blk.mlp_fc.bias, approximate="tanh")
     return h @ blk.mlp_proj.kernel + blk.mlp_proj.bias
+
+
+def _mlp(x, blk, cfg: TransformerConfig, layer: int, moe_key: np.ndarray | None):
+    """Block ``layer``'s MLP of ``x`` [B, L, d]: (y, moe aux, moe drop),
+    the last two None for a dense block. ``moe_key``: the router jitter's
+    key (None: no jitter)."""
+    if not cfg.use_moe(layer):
+        return _block_mlp(x, blk), None, None
+    moe, dt = blk.moe, x.dtype
+    return moe_ffn(moe.gate, moe.w_in.to(dt), moe.b_in.to(dt), moe.w_out.to(dt), moe.b_out.to(dt),
+                   x, capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k, rng=moe_key,
+                   impl=cfg.moe_impl)
 
 
 def _qkv(x, attn):
@@ -210,10 +267,12 @@ class Dropout:
                                                                     device=x.device))
 
 
-def _block(x, blk, impl: str, drop: Dropout, layer: int):
+def _block(x, blk, cfg: TransformerConfig, drop: Dropout, layer: int, moe_key):
+    """One training block: (x, moe aux, moe drop), as :func:`_mlp`."""
     q, k, v = _qkv(_layer_norm(x, blk.ln_1), blk.attn)
-    x = x + drop(_attn_out(_self_attend(q, k, v, impl), blk.attn), 2 * layer + 1)
-    return x + drop(_block_mlp(_layer_norm(x, blk.ln_2), blk), 2 * layer + 2)
+    x = x + drop(_attn_out(_self_attend(q, k, v, cfg.attention), blk.attn), 2 * layer + 1)
+    y, aux, dropped = _mlp(_layer_norm(x, blk.ln_2), blk, cfg, layer, moe_key)
+    return x + drop(y, 2 * layer + 2), aux, dropped
 
 
 class GPT2(nn.Module):
@@ -230,7 +289,7 @@ class GPT2(nn.Module):
         self.wte = Embed(cfg.vocab_size, cfg.d_model, 0.02, gen, device)
         self.wpe = Embed(cfg.max_len, cfg.d_model, 0.01, gen, device)
         for i in range(cfg.num_layers):
-            self.add_module(f"h_{i}", Block(cfg, gen, device))
+            self.add_module(f"h_{i}", Block(cfg, gen, device, cfg.use_moe(i)))
         self.ln_f = LayerNorm(cfg.d_model, device)
 
     def block(self, i: int) -> Block:
@@ -266,22 +325,37 @@ class ParamView:
 
 
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *, train: bool = False,
-            dropout_key: np.ndarray | None = None) -> torch.Tensor:
+            dropout_key: np.ndarray | None = None, moe_stats: bool = False):
     """The training forward: logits [B, L, vocab] of ``tokens`` [B, L] in
     the parameters' dtype. ``params`` is a :class:`GPT2` or a
-    :class:`ParamView`. ``train`` turns dropout on, with masks from
-    ``dropout_key`` (a ``core/rng`` key; none: no dropout)."""
+    :class:`ParamView`. ``train`` turns dropout and the MoE router jitter
+    on, keyed by ``dropout_key`` (a ``core/rng`` key; none: neither).
+    ``moe_stats``: return ``(logits, moe_aux, moe_drop)``, the MoE blocks'
+    summed aux loss and mean dropped fraction (f32 scalars; 0 for a dense
+    model)."""
     if cfg.attention not in ATTENTION_IMPLS:
         raise ValueError(f"attention={cfg.attention!r} not in {ATTENTION_IMPLS}")
     drop = Dropout(cfg.dropout if train else 0.0, dropout_key)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = drop(_embed(params, tokens, positions[None]), 0)
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes, drops = [], []
     for layer in range(cfg.num_layers):
-        args = (x, params.block(layer), cfg.attention, drop, layer)
-        x = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
-    x = _layer_norm(x, params.ln_f)
-    return x @ params.wte.embedding.T
+        moe_key = None
+        if train and dropout_key is not None and cfg.use_moe(layer):
+            moe_key = rng_mod.fold_in_static(dropout_key, (f"h_{layer}", "moe", 1))
+        args = (x, params.block(layer), cfg, drop, layer, moe_key)
+        x, aux, dropped = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
+        if aux is not None:
+            auxes.append(aux)
+            drops.append(dropped)
+    logits = _layer_norm(x, params.ln_f) @ params.wte.embedding.T
+    if not moe_stats:
+        return logits
+    if not auxes:
+        zero = torch.zeros((), device=tokens.device)
+        return logits, zero, zero
+    return logits, sum(auxes), sum(drops) / len(drops)
 
 
 # ---------------------------------------------------------------- decoding
@@ -347,7 +421,7 @@ def decode_step(cfg: TransformerConfig, params, tokens: torch.Tensor,
         blk = params.block(layer)
         q, k, v = _qkv(_layer_norm(x, blk.ln_1), blk.attn)
         x = x + _attn_out(_decode_attend(cfg, q, k, v, cache, layer), blk.attn)
-        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk)
+        x = x + _mlp(_layer_norm(x, blk.ln_2), blk, cfg, layer, None)[0]
     cache.index += tokens.shape[1]
     return _layer_norm(x, params.ln_f) @ params.wte.embedding.T
 

@@ -1,1 +1,2 @@
-"""Attention, losses and cross-entropy, and the hand-written CUDA kernels that replace the TPU kernels."""
+"""Attention, losses, cross-entropy and grouped matmuls, and the hand-written
+CUDA kernels that replace the TPU kernels."""

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("decode", "paged_decode", "flash_attention", "cross_entropy")
+SOURCES = ("decode", "paged_decode", "flash_attention", "cross_entropy", "grouped_matmul")
 # -Xptxas=-v prints registers, shared memory and spills per kernel into
 # the build log; it does not change the binary.
 NVCC_FLAGS = (

@@ -350,6 +350,8 @@ class InferenceEngine:
 
     def __init__(self, model_cfg: TransformerConfig, params, *,
                  cfg: ServeConfig | None = None, registry=None, device=None):
+        if model_cfg.moe_experts:
+            raise NotImplementedError("serving engine currently covers dense GPT-2 models only")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # The reference computes in f32. TF32 matmuls keep ~3 decimal

@@ -1,6 +1,5 @@
 """GPT-2 124M causal-LM workload: the port of the non-pipeline path of
-``tensorflow_examples_tpu/workloads/gpt2.py`` (no MoE, no vocab-parallel
-head).
+``tensorflow_examples_tpu/workloads/gpt2.py`` (no vocab-parallel head).
 
 ``Gpt2Config`` keeps the reference's recipe (AdamW b2 0.95, warmup-cosine
 from 6e-4, weight decay 0.1, clip 1.0, bf16 compute, dropout 0.1, batch
@@ -8,6 +7,14 @@ from 6e-4, weight decay 0.1, clip 1.0, bf16 compute, dropout 0.1, batch
 cross-entropy kernels of ``ops/csrc/cross_entropy.cu`` on the card (their
 plain versions on the CPU); ``fused_ce=False`` takes the plain f32
 reference, differentiated by autograd.
+
+``moe_experts`` E > 0 swaps the MLP of every ``moe_every``-th block for a
+top-``moe_top_k`` MoE (``models/transformer.py``): the loss is then
+``mean(nll) + moe_aux_weight * moe_aux`` and the step's metrics carry
+``moe_aux`` (summed over the MoE blocks) and ``moe_drop`` (their mean
+dropped fraction), as the reference's. ``moe_impl`` "" takes the device's
+default dispatch: ``grouped`` (the grouped-matmul kernels) on the card,
+``scatter`` on the CPU.
 """
 
 from __future__ import annotations
@@ -37,6 +44,12 @@ class Gpt2Config(TrainConfig):
     dropout: float = 0.1
     attention: str = "flash"  # flash | xla
     fused_ce: bool = True  # the fused cross-entropy kernels (False: plain f32 reference)
+    # Mixture-of-Experts: 0 = dense GPT-2.
+    moe_experts: int = 0
+    moe_every: int = 2
+    moe_top_k: int = 1
+    moe_aux_weight: float = 0.01
+    moe_impl: str = ""  # "" = grouped on CUDA, scatter on the CPU; pin one to compare
 
     global_batch_size: int = 16
     train_steps: int = 20000
@@ -52,12 +65,16 @@ def model_config(cfg: Gpt2Config) -> transformer.TransformerConfig:
     return transformer.TransformerConfig(
         vocab_size=cfg.vocab_size, max_len=cfg.seq_len, num_layers=cfg.num_layers,
         num_heads=cfg.num_heads, d_model=cfg.d_model, dropout=cfg.dropout,
-        attention=cfg.attention, remat=cfg.remat,
+        attention=cfg.attention, remat=cfg.remat, moe_experts=cfg.moe_experts,
+        moe_every=cfg.moe_every, moe_top_k=cfg.moe_top_k, moe_impl=cfg.moe_impl,
     )
 
 
-def make_task(cfg: Gpt2Config) -> Task:
-    mcfg = model_config(cfg)
+def make_task(cfg: Gpt2Config, **model_overrides) -> Task:
+    """The task; ``model_overrides`` replace fields of
+    :func:`model_config`'s result (e.g. ``moe_capacity_factor``, which the
+    reference's workload config does not carry either)."""
+    mcfg = dataclasses.replace(model_config(cfg), **model_overrides)
 
     def init_fn(seed: int, device: torch.device):
         model = transformer.GPT2(mcfg, seed=seed, device=device)
@@ -65,17 +82,22 @@ def make_task(cfg: Gpt2Config) -> Task:
 
     def token_nll(params, batch, *, rng, train):
         inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-        logits = transformer.forward(mcfg, transformer.ParamView(params), inputs,
-                                     train=train, dropout_key=rng if train else None)
+        logits, moe_aux, moe_drop = transformer.forward(
+            mcfg, transformer.ParamView(params), inputs, train=train,
+            dropout_key=rng if train else None, moe_stats=True)
         nll = cross_entropy_per_example(logits.reshape(-1, logits.shape[-1]),
                                         labels.reshape(-1), fused=cfg.fused_ce)
-        return nll.reshape(labels.shape)
+        return nll.reshape(labels.shape), moe_aux, moe_drop
 
     def loss_fn(params, model_state, batch, *, rng, train):
-        return token_nll(params, batch, rng=rng, train=train).mean(), {}, model_state
+        nll, moe_aux, moe_drop = token_nll(params, batch, rng=rng, train=train)
+        if not cfg.moe_experts:
+            return nll.mean(), {}, model_state
+        loss = nll.mean() + cfg.moe_aux_weight * moe_aux
+        return loss, {"moe_aux": moe_aux, "moe_drop": moe_drop}, model_state
 
     def eval_fn(params, model_state, batch):
-        per_example = token_nll(params, batch, rng=None, train=False).mean(dim=-1)
+        per_example = token_nll(params, batch, rng=None, train=False)[0].mean(dim=-1)
         mask = batch.get("mask")
         weight = mask.float().sum() if mask is not None else torch.tensor(
             float(per_example.shape[0]), device=per_example.device)

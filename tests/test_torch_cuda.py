@@ -12,7 +12,8 @@ flash-decode and flash forward, 2e-2 for bf16, 5e-4 for f32 flash
 gradients, 2e-6 for paged decode (fp32 and int8); for the fused
 cross-entropy kernels 1e-5 (f32) and 2e-2 (bf16) on the NLL and lse,
 and on dlogits 1e-6 (f32) or one bf16 ulp, 8e-3 relative, of each
-value (bf16).
+value (bf16); for the grouped-matmul kernels 1e-4 of the largest value
+(f32), plus one bf16 rounding of each value (bf16).
 """
 
 import numpy as np
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 from tensorflow_examples_torch.core import precision
-from tensorflow_examples_torch.ops import attention, cross_entropy, decode, paged_decode
+from tensorflow_examples_torch.ops import (
+    attention, cross_entropy, decode, grouped_matmul, paged_decode)
 
 pytestmark = pytest.mark.cuda
 
@@ -219,3 +221,77 @@ def test_ce_kernels_refuse_what_they_cannot_launch(dev):
                              torch.zeros(2, dtype=torch.long, device=dev))
     with pytest.raises(ValueError, match="CUDA"):
         cross_entropy.ce_fwd(torch.zeros(2, 8, device=dev), torch.zeros(2, dtype=torch.long))
+
+
+# ------------------------------------------------ grouped matmul (MoE)
+
+GMM_CASES = [
+    (2, 768, 3072, (0, 1, 0, 0, 0, 0, 1, 0)),            # one decode token, top-2
+    (1554, 100, 36, (300, 0, 254, 500, 0, 200, 300, 0)),  # not a tile multiple
+    (1025, 64, 96, (1, 512, 0, 511, 1, 0, 0, 0)),         # one-row groups
+    (300, 36, 100, (0, 300, 0)),                          # one group, empty first and last
+    (700, 48, 40, (100, 200)),                            # rows past the last group
+]
+
+
+def _gmm_close(out, ref, dtype):
+    """f32: within 1e-4 of max |ref|; bf16: plus one bf16 rounding of each
+    element (8e-3 |ref|), since the two sides sum in different orders."""
+    scale = float(ref.float().abs().max())
+    rtol = 8e-3 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-4 * scale, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,sizes", GMM_CASES)
+def test_grouped_matmul_kernels_match_plain(dev, dtype, m, k, n, sizes):
+    rng = np.random.default_rng(m + k)
+    g = len(sizes)
+    lhs, grad = _randn(rng, (m, k), dev, dtype), _randn(rng, (m, n), dev, dtype)
+    rhs = _randn(rng, (g, k, n), dev, dtype)
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = (grouped_matmul.gmm.launches, grouped_matmul.tgmm.launches)
+    out = grouped_matmul.gmm(lhs, rhs, sz)
+    assert out.dtype == dtype and out.shape == (m, n)
+    _gmm_close(out, grouped_matmul.gmm_plain(lhs, rhs, sz), dtype)
+    _gmm_close(grouped_matmul.gmm(grad, rhs, sz, transpose_rhs=True),
+               grouped_matmul.gmm_plain(grad, rhs, sz, transpose_rhs=True), dtype)
+    assert not out[sum(sizes):].float().any()  # rows past the last group
+    ref = grouped_matmul.tgmm_plain(lhs.T, grad, sz)
+    for lhs_t in (lhs.T, lhs.T.contiguous()):  # read in place, and a contiguous copy
+        dw = grouped_matmul.tgmm(lhs_t, grad, sz)
+        assert dw.shape == (g, k, n)
+        _gmm_close(dw, ref, dtype)
+        for i, size in enumerate(sizes):
+            if size == 0:
+                assert not dw[i].float().any()  # an empty group: exact zeros
+    assert (grouped_matmul.gmm.launches, grouped_matmul.tgmm.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_grouped_matmul_grads_match_plain(dev):
+    """The autograd Function on the card (gmm, gmm transposed and tgmm)
+    against autograd of the plain per-group products."""
+    rng = np.random.default_rng(3)
+    sizes = torch.tensor([40, 0, 300, 7, 0, 165], dtype=torch.int32, device=dev)
+    lhs, rhs = _randn(rng, (512, 96), dev), _randn(rng, (6, 96, 80), dev)
+    grad = _randn(rng, (512, 80), dev)
+    out = []
+    for fn in (grouped_matmul.grouped_matmul, grouped_matmul.gmm_plain):
+        a, b = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+        y = fn(a, b, sizes)
+        out.append((y, *torch.autograd.grad(y, (a, b), grad)))
+    for got, want in zip(*out):
+        _gmm_close(got, want, torch.float32)
+
+
+def test_grouped_matmul_kernels_refuse_what_they_cannot_launch(dev):
+    sizes = torch.tensor([2, 2], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        grouped_matmul.gmm(torch.zeros(4, 8, device=dev), torch.zeros(2, 8, 8, device=dev,
+                                                                      dtype=torch.bfloat16), sizes)
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_matmul.gmm(torch.zeros(4, 8, device=dev), torch.zeros(2, 8, 8, device=dev),
+                           sizes.cpu())
+    with pytest.raises(ValueError, match="do not fit"):
+        grouped_matmul.tgmm(torch.zeros(8, 4, device=dev), torch.zeros(5, 8, device=dev), sizes)
