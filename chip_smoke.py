@@ -23,6 +23,9 @@ non-zero:
    step's logits, N=16384 x V=50257, bf16 and f32, plus V 4099 and 1000,
    N=1, labels -1 and V, a row of all -1e30 and a non-unit cotangent,
    with ``torch.nn.functional.cross_entropy`` timed as a yardstick only;
+   every attention kernel (flash forward, dK/dV, dQ, flash-decode, paged
+   decode) at head_dim 8, 16, 32 and 128 against its plain version at
+   batch 2 with the head_dim-64 tolerances;
    the grouped-matmul kernels ``gmm``, ``gmm`` with ``transpose_rhs`` and
    ``tgmm`` at the MoE step's two expert products, [16384, 768] x
    [8, 768, 3072] and [16384, 3072] x [8, 3072, 768], with the skewed
@@ -30,7 +33,8 @@ non-zero:
    100 and 36, every row in one group, one-row groups and empty groups
    first and last (``tgmm`` exact zeros), with ``torch._grouped_mm`` (or,
    where it refuses, the per-group ``torch.matmul`` loop) timed as a
-   yardstick only);
+   yardstick only; the bf16 MoE shapes must take gmm's tensor-core
+   kernel, k and n of 100 and 36 its SIMT one);
 4. training: GPT-2 124M at full width on synthetic bigram data through
    ``Trainer.fit`` (bf16 compute, dropout 0.1, batch 16 x 1024, 20 steps,
    warmup cut to 5 steps so the loss can move, the fused cross-entropy
@@ -58,12 +62,15 @@ non-zero:
    at the end, after step 0 (f32, router jitter on) with the grouped
    kernels is held to ``impl="scatter"`` at capacity factor 8 (nothing
    drops) and to the plain gmm/tgmm; loss falling, ``moe_drop`` 0,
-   ``moe_aux`` finite, exactly 24 gmm and 12 tgmm launches a step, step
-   time, tokens/s, peak memory and one profiled step;
-4d. MoE generate: 32 greedy tokens from that checkpoint through
-   ``tensorflow_examples_torch.generate`` (f32), the grouped kernels
-   against the plain gmm, the two streams held to each other, and the
-   logits of the whole sequence held within 1e-4 of their max;
+   ``moe_aux`` finite, exactly 24 gmm (all on the tensor cores) and 12
+   tgmm launches a step, step time, tokens/s, peak memory and one
+   profiled step;
+4d. MoE generate: 32 greedy tokens from a step-0 checkpoint of the MoE
+   model's initial parameters from seed 0 (the 20-step state decodes to
+   one token repeated) through ``tensorflow_examples_torch.generate``
+   (f32), the grouped kernels against the plain gmm, the stream needing
+   at least 8 distinct tokens, the two streams held to each other, and
+   the logits of the whole sequence held within 1e-4 of their max;
 5. serving: GPT-2 124M at full width, random weights from seed 0, f32,
    through ``ContinuousBatcher`` + ``ServingFrontend`` over real HTTP in
    three engine configurations (dense pool with ``attention="flash"``;
@@ -128,6 +135,9 @@ GMM_EDGES = (
     ("empty first and last", 2048, 3072, 768, (0, 700, 600, 748, 0, 0, 0, 0)),
 )
 MOE_KERNELS = ("gmm", "tgmm")
+SWEEP_HEAD_DIMS = (8, 16, 32, 128)  # head_dim 64 is the main path's, checked above
+MIN_DISTINCT = 8                    # distinct tokens a compared 32-token stream needs
+MOE_GENERATE_SEED = 0               # the MoE generate phase's init (the serving phase's seed)
 
 
 def fail(msg: str) -> None:
@@ -476,6 +486,95 @@ def phase_flash_kernels(torch, attention) -> dict:
     return out
 
 
+def phase_head_dim_sweep(torch, attention, decode, paged, precision) -> dict:
+    """Every attention kernel at the other head_dims it is built for,
+    against its plain version at batch 2 with the head_dim-64 tolerances:
+    the three training flash kernels (B=2, H=12, S=1024, causal, bf16 and
+    f32; the bf16 forward on the tensor cores from D=16), flash-decode
+    (B=2, H=12, q_len=length=300, f32 and bf16) and paged decode (S=2,
+    H=12, fp32 and int8; block 16, and block 64 at D=128, where a block
+    takes two staged chunks). Returns the worst error per kernel and D."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    worst = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    def note(kernel, d, err, ok, what):
+        worst.setdefault(kernel, {})[d] = max(worst.get(kernel, {}).get(d, 0.0), err)
+        if not ok:
+            fail(f"head_dim sweep: {kernel} {what} D={d}: max_abs_err {err:.3e} outside tolerance")
+
+    b, h, seq = 2, TRAIN_ATTN[1], TRAIN_ATTN[2]
+    for d in SWEEP_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            q, k, v, do = (randn(b * h, seq, d, dtype=dtype) for _ in range(4))
+            dlse = randn(b * h, seq)
+            kw = dict(heads=h, causal=True, sm_scale=d ** -0.5)
+            o, lse = attention.flash_fwd(q, k, v, None, **kw)
+            o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, None, **kw)
+            delta = (do.float() * o_ref.float()).sum(-1)
+            args = (q, k, v, do, lse_ref, delta, dlse, None)
+            dk, dv = attention.flash_bwd_dkv(*args, **kw)
+            dq = attention.flash_bwd_dq(*args, **kw)
+            dk_ref, dv_ref = attention.flash_bwd_dkv_plain(*args, **kw)
+            dq_ref = attention.flash_bwd_dq_plain(*args, **kw)
+            torch.cuda.synchronize()
+            fwd_tol = 2e-5 if dtype == torch.float32 else 2e-2
+
+            def grad_err(a, r):  # f32: the JAX suite's; bf16: 2e-2 of the largest gradient
+                if dtype == torch.float32:
+                    return allclose_err(torch, a, r, 5e-4, 5e-4)
+                return allclose_err(torch, a, r, 2e-2 * float(r.float().abs().max()), 0.0)
+
+            errs = {("flash_fwd", "O"): allclose_err(torch, o, o_ref, fwd_tol, fwd_tol),
+                    ("flash_fwd", "lse"): allclose_err(torch, lse, lse_ref, 1e-4, 1e-5),
+                    ("flash_bwd_dkv", "dK dV"): worst_of(grad_err(dk, dk_ref),
+                                                         grad_err(dv, dv_ref)),
+                    ("flash_bwd_dq", "dQ"): grad_err(dq, dq_ref)}
+            ms = cuda_ms(torch, lambda: attention.flash_fwd(q, k, v, None, **kw), iters=10)
+            log(f"head_dim sweep flash {dname} B={b} H={h} S={seq} D={d} causal: max_abs_err "
+                + " ".join(f"{what} {err:.3e}" for (_, what), (err, _) in errs.items())
+                + f"; flash_fwd kernel_ms {ms:.4f}")
+            for (kernel, what), (err, ok) in errs.items():
+                note(kernel, d, err, ok, f"{dname} {what}")
+            del q, k, v, do, o, o_ref, dk, dv, dq, dk_ref, dv_ref, dq_ref
+
+            n = 300
+            q, kc, vc = (randn(b, h, n, d, dtype=dtype) for _ in range(3))
+            out = decode.flash_decode_attention(q, kc, vc, n)
+            ref = decode.decode_attention_reference(q, kc, vc, n)
+            torch.cuda.synchronize()
+            err, ok = allclose_err(torch, out, ref, fwd_tol, 0.0)
+            log(f"head_dim sweep flash_decode {dname} B={b} H={h} q_len=length={n} D={d}: "
+                f"max_abs_err {err:.3e} (atol {fwd_tol})")
+            note("flash_decode", d, err, ok, dname)
+
+        for bs in ((16, 64) if d == 128 else (16,)):
+            lengths_l = [77, 16 * bs - 3]
+            nb = -(-max(lengths_l) // bs)
+            num_blocks = 2 * nb + 1
+            perm = (torch.randperm(num_blocks - 1, generator=gen) + 1).int()
+            tables = torch.stack([perm[:nb], perm[nb:2 * nb]]).to(dev)
+            lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+            q = randn(2, h, d)
+            kb, vb = randn(num_blocks, h, bs, d), randn(num_blocks, h, bs, d)
+            qk, ks = precision.quantize_int8_rows(kb)
+            qv, vs = precision.quantize_int8_rows(vb)
+            for label, kv, kw in (("fp32", (kb, vb), {}),
+                                  ("int8", (qk, qv), {"k_scale": ks, "v_scale": vs})):
+                out = paged.paged_decode_attention(q, *kv, lengths, tables, **kw)
+                ref = paged.paged_decode_reference(q, *kv, lengths, tables, **kw)
+                torch.cuda.synchronize()
+                err, ok = allclose_err(torch, out, ref, 2e-6, 0.0)
+                log(f"head_dim sweep paged_decode {label} S=2 H={h} BS={bs} D={d} "
+                    f"lengths={lengths_l}: max_abs_err {err:.3e} (2e-6)")
+                note("paged_decode", d, err, ok, f"{label} BS={bs}")
+    return worst
+
+
 def ce_times(n, vocab, itemsize, kind):
     """(bytes_ms, ops_ms) of one cross-entropy kernel: logits read once
     (int64 labels and the f32 row values too), the outputs written once;
@@ -647,10 +746,16 @@ def phase_moe_kernels(torch, gm) -> dict:
             "tgmm": (lambda: gm.tgmm(lhs.T, grad, sz), lambda: gm.tgmm_plain(lhs.T, grad, sz)),
         }
         errs = {}
+        tensor_cores = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
         for kind, (kernel, plain) in calls.items():
+            before = gm.gmm.tensor_core_launches, gm.gmm.simt_launches
             out, ref = kernel(), plain()
             torch.cuda.synchronize()
             errs[kind] = gmm_err(torch, out, ref, dtype)
+            took = (gm.gmm.tensor_core_launches - before[0], gm.gmm.simt_launches - before[1])
+            if kind != "tgmm" and took != ((1, 0) if tensor_cores else (0, 1)):
+                fail(f"gmm[{label}] {dname} {kind}: launched (tensor-core, SIMT) {took}, "
+                     f"expected the {'tensor-core' if tensor_cores else 'SIMT'} kernel")
             if kind == "tgmm":
                 empty = [i for i, size in enumerate(sizes) if size == 0]
                 nonzero = [i for i in empty if bool(out[i].any())]
@@ -659,7 +764,8 @@ def phase_moe_kernels(torch, gm) -> dict:
             del out, ref
         log(f"gmm[{label}] {dname} m={m} k={k} n={n} sizes={list(sizes)}: max_abs_err "
             + " ".join(f"{kind} {err:.3e}" for kind, (err, _) in errs.items())
-            + "; tgmm empty groups exact zeros")
+            + f"; gmm kernel {'tensor-core' if tensor_cores else 'SIMT'}; tgmm empty groups "
+            "exact zeros")
         bad = [kind for kind, (_, ok) in errs.items() if not ok]
         if bad:
             fail(f"gmm[{label}] {dname}: {bad} outside tolerance (1e-4 of max |ref|, plus "
@@ -683,7 +789,9 @@ def phase_moe_kernels(torch, gm) -> dict:
             rows[f"{dname}/{label}/{kind}"] = dict(
                 shape=f"m={m} k={kk} n={nn} g={g} {dname} sizes={list(sizes)}", ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                library=lib_name, max_abs_err=errs[kind][0])
+                library=lib_name, max_abs_err=errs[kind][0],
+                kernel="tgmm SIMT" if kind == "tgmm" else
+                "tensor-core" if tensor_cores else "SIMT")
         del lhs, rhs, grad
         torch.cuda.empty_cache()
 
@@ -700,7 +808,7 @@ def phase_moe_kernels(torch, gm) -> dict:
         row = dict(rows[f"bfloat16/{first}/{name}"])
         row["float32"] = rows[f"float32/{first}/{name}"]
         row["all_shapes"] = {key: {f: r[f] for f in ("shape", "ms", "plain_ms", "bound_ms",
-                                                     "library_ms", "library")}
+                                                     "library_ms", "library", "kernel")}
                              for key, r in rows.items() if key.split("/")[-1] in kinds}
         row["worst_abs_err_all_cases"] = {
             d: max(worst[f"{d}/{kind}"] for kind in kinds) for d in ("bfloat16", "float32")}
@@ -734,7 +842,7 @@ def device_split(torch, fn) -> dict:
         name = e.key.lower()
         kind = ("flash" if "flash_" in name else
                 "tgmm" if "tgmm_kernel" in name else
-                "gmm" if "gmm_kernel" in name else
+                "gmm" if "gmm_kernel" in name or "gmm_tc_kernel" in name else
                 "matmul" if any(t in name for t in ("gemm", "cutlass", "xmma", "cublas", "sm90_"))
                 else "other")
         split[kind] += ms
@@ -1151,10 +1259,13 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
+    gm.gmm.tensor_core_launches = gm.gmm.simt_launches = 0
     t0 = time.perf_counter()
     trainer.fit(data, num_steps=TRAIN_STEPS)
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
+    launches["gmm_tensor_core"] = gm.gmm.tensor_core_launches
+    launches["gmm_simt"] = gm.gmm.simt_launches
     hist = trainer.history
     losses = [h["loss"] for h in hist]
     if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1162,7 +1273,8 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
     if any(h["moe_drop"] != 0.0 or not np.isfinite(h["moe_aux"]) or h["bad_step"] for h in hist):
         fail(f"moe train: moe_drop / moe_aux / bad_step per step: "
              f"{[(h['moe_drop'], h['moe_aux'], h['bad_step']) for h in hist]}")
-    for name, per_step in (("gmm", 4 * n_moe), ("tgmm", 2 * n_moe), ("flash_fwd", base.num_layers),
+    for name, per_step in (("gmm", 4 * n_moe), ("gmm_tensor_core", 4 * n_moe), ("gmm_simt", 0),
+                           ("tgmm", 2 * n_moe), ("flash_fwd", base.num_layers),
                            ("ce_fwd", 1), ("ce_bwd", 1)):
         if launches[name] != per_step * TRAIN_STEPS:
             fail(f"moe train: {name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
@@ -1194,15 +1306,29 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
 
 
 def phase_moe_generate(torch, counters, gm, workdir: str) -> dict:
-    """Greedy decoding from the MoE run's checkpoint, the grouped kernels
-    against the plain gmm."""
+    """Greedy decoding of the MoE model through a checkpoint of its
+    initial parameters from seed MOE_GENERATE_SEED (saved under
+    ``workdir`` as step 0), the grouped kernels against the plain gmm.
+    The state is chosen for the stream's diversity: the 20-step state and
+    the init from the training run's seed 42 decode to one or two tokens
+    repeated, fixed points that would make "streams identical" say
+    little. The stream must hold at least MIN_DISTINCT distinct tokens
+    in 32."""
+    import types
+
     from tensorflow_examples_torch import generate
     from tensorflow_examples_torch.models import transformer
+    from tensorflow_examples_torch.parallel import moe as moe_mod
+    from tensorflow_examples_torch.train.checkpoint import CheckpointManager
     from tensorflow_examples_torch.workloads import gpt2
 
-    from tensorflow_examples_torch.parallel import moe as moe_mod
-
     cfg = moe_config(gpt2, workdir=workdir, precision="f32")
+    init = transformer.GPT2(gpt2.model_config(cfg), seed=MOE_GENERATE_SEED)
+    state = types.SimpleNamespace(step=0, params=dict(init.named_parameters()), opt_state={},
+                                  model_state={})
+    with CheckpointManager(workdir) as ckpt:
+        ckpt.save(0, state)
+    del init, state
     n_moe = sum(i % cfg.moe_every == cfg.moe_every - 1 for i in range(cfg.num_layers))
     prompt = [int(t) for t in np.random.default_rng(5).integers(0, cfg.vocab_size, 64)]
     streams, launches, recorded = {}, {}, None
@@ -1216,7 +1342,7 @@ def phase_moe_generate(torch, counters, gm, workdir: str) -> dict:
                                                         temperature=0.0, top_k=0)
         recorded = recorded or routing.calls
         launches[label] = {k: counters[k].launches for k in MOE_KERNELS}
-        if step != TRAIN_STEPS or toks[:64] != prompt or len(toks) != 96 or not all(
+        if step != 0 or toks[:64] != prompt or len(toks) != 96 or not all(
                 0 <= t < cfg.vocab_size for t in toks):
             fail(f"moe generate[{label}]: step {step}, malformed stream {toks}")
         streams[label] = toks[64:]
@@ -1234,9 +1360,8 @@ def phase_moe_generate(torch, counters, gm, workdir: str) -> dict:
             gap = float(top2[0] - top2[1])
             verdict = ("tie", i, gap) if gap < NEAR_TIE else ("mismatch", i, gap)
             break
-    # The greedy streams of a 20-step model can sit in a fixed point, so
-    # also hold the logits of the whole 96-token sequence, kernels
-    # against plain (routing pinned), to the f32 kernel criterion.
+    # Also hold the logits of the whole 96-token sequence, kernels against
+    # plain (routing pinned), to the f32 kernel criterion.
     model, _ = generate.restore_model(gpt2.model_config(cfg), workdir)
     ids = torch.tensor([prompt + streams["kernels"]], device="cuda")
     logits, recorded = {}, None
@@ -1249,12 +1374,16 @@ def phase_moe_generate(torch, counters, gm, workdir: str) -> dict:
     logit_max = float(logits["plain"].abs().max())
     del model, logits
     torch.cuda.empty_cache()
-    summary = dict(checkpoint_step=TRAIN_STEPS, prompt_len=64, new_tokens=32, verdict=verdict,
-                   launches=launches, stream=streams["kernels"][:8],
+    distinct = len(set(streams["kernels"]))
+    summary = dict(checkpoint_step=0, prompt_len=64, new_tokens=32, verdict=verdict,
+                   distinct_tokens=distinct, launches=launches, stream=streams["kernels"],
                    plain_routing_flips=routing.flips + seq_routing.flips,
                    flip_gap=max(routing.worst_gap, seq_routing.worst_gap),
                    sequence_logits_max_abs_err=logit_err, sequence_logits_max=logit_max)
     log(f"moe generate: {json.dumps(summary)}")
+    if distinct < MIN_DISTINCT:
+        fail(f"moe generate: the stream holds {distinct} distinct tokens in 32, under "
+             f"{MIN_DISTINCT}: comparing it proves little")
     if summary["flip_gap"] >= NEAR_TIE:
         fail(f"moe generate: a routing decision of the plain run differed at a probability gap "
              f"of {summary['flip_gap']:.2e}, not a near-tie")
@@ -1445,6 +1574,9 @@ def main() -> int:
     rows.update(phase_flash_kernels(torch, attention))
     rows.update(phase_ce_kernels(torch, cross_entropy))
     rows.update(phase_moe_kernels(torch, grouped_matmul))
+    for name, errs in phase_head_dim_sweep(torch, attention, decode, paged_decode,
+                                           precision).items():
+        rows[name]["head_dim_sweep_max_abs_err"] = errs
 
     counters = {"flash_decode": decode.flash_decode_attention,
                 "paged_decode": paged_decode.paged_decode_attention,
@@ -1460,9 +1592,8 @@ def main() -> int:
         training = phase_training(torch, counters, smi, workdir)
         phase_resume(torch, smi, workdir, training)
         phase_generate(torch, counters, workdir)
-        moe_workdir = os.path.join(tmp, "moe")
-        moe = phase_moe_training(torch, counters, grouped_matmul, smi, moe_workdir)
-        phase_moe_generate(torch, counters, grouped_matmul, moe_workdir)
+        moe = phase_moe_training(torch, counters, grouped_matmul, smi, os.path.join(tmp, "moe"))
+        phase_moe_generate(torch, counters, grouped_matmul, os.path.join(tmp, "moe-init"))
 
     model_cfg = transformer.gpt2_124m()
     t0 = time.perf_counter()
@@ -1471,6 +1602,7 @@ def main() -> int:
         f"random init seed 0, f32, built in {time.perf_counter() - t0:.3f} s")
     summaries = phase_serving(torch, model, model_cfg, counters)
 
+    rows["gmm"]["tensor_core_launches"] = moe["launches"]["gmm_tensor_core"]
     kernels = []
     for name, source, replaces, launches in (
         ("flash_decode", FLASH_SOURCE, "tensorflow_examples_tpu/ops/decode.py:78",
@@ -1496,7 +1628,9 @@ def main() -> int:
             "launches": launches, **{k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
             **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "library_fwd_bwd_ms", "library",
-                                   "all_shapes", "worst_abs_err_all_cases") if k in row},
+                                   "all_shapes", "worst_abs_err_all_cases",
+                                   "head_dim_sweep_max_abs_err", "tensor_core_launches")
+               if k in row},
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

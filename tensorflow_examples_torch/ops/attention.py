@@ -15,12 +15,14 @@ contract are the reference's:
 * a row that sees no key gives 0 (``l`` is clamped at 1e-30).
 
 Three kernels carry it, hand-written for Hopper in
-``ops/csrc/flash_attention.cu``: :func:`flash_fwd` (O and lse),
-:func:`flash_bwd_dkv` and :func:`flash_bwd_dq`, each on the folded
-[batch*heads, seq, 64] layout, each with a launch counter. Beside each
-is its plain PyTorch version (``*_plain``), the same two-kernel math
-written with whole-matrix ops; a wrapper given CPU tensors runs the
-plain version, given CUDA tensors it launches the kernel or raises.
+``ops/csrc/flash_attention.cu``: :func:`flash_fwd` (O and lse; in bf16 on
+the tensor cores for head_dim 16 to 128), :func:`flash_bwd_dkv` and
+:func:`flash_bwd_dq`, each on the folded [batch*heads, seq, head_dim]
+layout for a head_dim in :data:`SUPPORTED_HEAD_DIMS`, each with a launch
+counter. Beside each is its plain PyTorch version (``*_plain``), the same
+two-kernel math written with whole-matrix ops; a wrapper given CPU
+tensors runs the plain version, given CUDA tensors it launches the
+kernel or raises.
 :class:`_FlashFunction` is the ``torch.autograd.Function`` around them:
 its forward calls the forward kernel, its backward the two backward
 kernels, with ``delta = rowsum(dO * O)`` computed outside them as in the
@@ -37,7 +39,9 @@ import torch
 from tensorflow_examples_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIM = 64  # the only head_dim the kernels are built for
+# The head_dims every attention kernel of the port is built for (the flash
+# kernels here, flash-decode and paged decode); a wrapper refuses others.
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -144,13 +148,18 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def check_head_dim(what: str, d: int) -> None:
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} unsupported (the kernels take "
+                         f"{SUPPORTED_HEAD_DIMS})")
+
+
 def _check_qkv(q, k, v, kb, heads):
     bh, seq_q, d = q.shape
     seq_kv = k.shape[1]
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash attention: dtype {q.dtype} not in f32/bf16")
-    if d != HEAD_DIM:
-        raise ValueError(f"flash attention: head_dim {d} unsupported (needs {HEAD_DIM})")
+    check_head_dim("flash attention", d)
     if bh % heads:
         raise ValueError(f"batch*heads {bh} is not a multiple of heads {heads}")
     _check("q", q, q.dtype, (bh, seq_q, d))
@@ -164,7 +173,7 @@ def _check_qkv(q, k, v, kb, heads):
 def _fn(name: str, n_ptrs: int):
     fn = getattr(_build.library("flash_attention"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
@@ -179,9 +188,11 @@ def _stream(t: torch.Tensor) -> int:
 
 def flash_fwd(q, k, v, kb=None, *, heads: int = 1, causal: bool = True,
               sm_scale: float | None = None):
-    """Forward kernel on folded q [BH, seq_q, 64], k/v [BH, seq_kv, 64]
-    (f32 or bf16, contiguous) and an optional f32 key bias [BH/heads,
-    seq_kv]: returns (O, lse [BH, seq_q] f32). CPU tensors take
+    """Forward kernel on folded q [BH, seq_q, D], k/v [BH, seq_kv, D]
+    (f32 or bf16, contiguous, D in :data:`SUPPORTED_HEAD_DIMS`) and an
+    optional f32 key bias [BH/heads, seq_kv]: returns (O, lse [BH, seq_q]
+    f32). bf16 at D >= 16 runs on the tensor cores, which round the
+    probabilities to bf16 for P V. CPU tensors take
     :func:`flash_fwd_plain`."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
@@ -192,7 +203,7 @@ def flash_fwd(q, k, v, kb=None, *, heads: int = 1, causal: bool = True,
     lse = torch.empty(bh, seq_q, dtype=torch.float32, device=q.device)
     status = _fn("flash_fwd", 6)(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kb),
-        o.data_ptr(), lse.data_ptr(), bh, heads, seq_q, seq_kv, int(causal),
+        o.data_ptr(), lse.data_ptr(), bh, heads, seq_q, seq_kv, q.shape[2], int(causal),
         float(sm_scale), _stream(q),
     )
     _build.check(status, "flash_fwd")
@@ -223,7 +234,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, dlse, kb=None, *, heads: int = 1,
     status = _fn("flash_bwd_dkv", 10)(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(), _ptr(kb), dk.data_ptr(),
-        dv.data_ptr(), bh, heads, seq_q, seq_kv, int(causal), float(sm_scale), _stream(q),
+        dv.data_ptr(), bh, heads, seq_q, seq_kv, q.shape[2], int(causal), float(sm_scale),
+        _stream(q),
     )
     _build.check(status, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
@@ -245,7 +257,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dlse, kb=None, *, heads: int = 1,
     status = _fn("flash_bwd_dq", 9)(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(), _ptr(kb), dq.data_ptr(),
-        bh, heads, seq_q, seq_kv, int(causal), float(sm_scale), _stream(q),
+        bh, heads, seq_q, seq_kv, q.shape[2], int(causal), float(sm_scale), _stream(q),
     )
     _build.check(status, "flash_bwd_dq")
     flash_bwd_dq.launches += 1

@@ -154,10 +154,16 @@ def cross_entropy_per_example(logits: torch.Tensor, labels: torch.Tensor, *,
                               block_n: int = 256, block_v: int = 4096,
                               fused: bool = True) -> torch.Tensor:
     """Per-example NLL [N] (f32) from logits [N, V] and int labels [N].
-    ``block_n`` and ``block_v`` are the reference's TPU tile sizes,
-    accepted for signature parity and ignored: the CUDA kernels pick
-    their own tiling."""
-    del block_n, block_v
+    ``block_n`` and ``block_v`` are the reference's TPU tile sizes, kept
+    for signature parity at their defaults only: the CUDA kernels pick
+    their own tiling, so any other value raises ``ValueError`` rather
+    than being silently ignored."""
+    if (block_n, block_v) != (256, 4096):
+        raise ValueError(
+            f"cross_entropy_per_example: block_n={block_n}, block_v={block_v} are TPU tile "
+            "sizes; the CUDA kernels choose their own tiling, so only the defaults "
+            "(256, 4096) are accepted"
+        )
     if not fused:
         return cross_entropy_reference(logits, labels)
     return _FusedCE.apply(logits, labels)

@@ -10,11 +10,12 @@
 // then dK/dV and dQ in the backward (a second forward per layer under
 // remat).
 //
-// Contract (the JAX one): q [BH, seq_q, 64], k/v [BH, seq_kv, 64], row-major
-// and contiguous, f32 or bf16. The causal diagonal is aligned bottom-right:
-// row r sees key columns c <= r + (seq_kv - seq_q). An optional f32 key bias
-// [B, seq_kv] (B = BH / heads) is added to every score of its batch row; it
-// is data, not differentiated. The forward writes O (q's dtype) and the row
+// Contract (the JAX one): q [BH, seq_q, D], k/v [BH, seq_kv, D], row-major
+// and contiguous, f32 or bf16, head_dim D in {8, 16, 32, 64, 128}. The
+// causal diagonal is aligned bottom-right: row r sees key columns
+// c <= r + (seq_kv - seq_q). An optional f32 key bias [B, seq_kv]
+// (B = BH / heads) is added to every score of its batch row; it is data,
+// not differentiated. The forward writes O (q's dtype) and the row
 // logsumexp lse [BH, seq_q] (f32); the backward takes dO, lse,
 // delta = rowsum(dO * O) and the lse cotangent dlse (all f32 but dO) and
 // uses ds = p * (dp - delta + dlse) with p = exp(s - lse). Everything is
@@ -26,23 +27,53 @@
 // seq 1024, D = 64, causal) the forward does ~26 GFLOP on ~100 MB and the
 // backward ~2.5x that, i.e. ~250 operations per byte: past the f32 ridge
 // (67 TFLOP/s over 3.35 TB/s) and, counted against the bf16 tensor cores
-// (989 TFLOP/s), near theirs. These kernels are bound by FMA throughput on
-// the CUDA cores: they use no tensor cores yet (mma/wgmma, TMA and
-// split-KV are later work), which is what keeps them simple and exact.
+// (989 TFLOP/s), near theirs. So the bf16 forward runs on the tensor
+// cores; the f32 kernels and the two backward kernels are SIMT, bound by
+// FMA throughput on the CUDA cores.
 //
-// Design, shared by the three: 256 threads per CTA, four per tile row, each
-// holding 16 of the row's 64 dims (interleaved, so the four threads of a
-// row read 64 contiguous bytes of a shared row and a warp's eight rows read
-// the same address: a broadcast). Dot products reduce with two shuffles.
-// A loop inside the CTA walks the other operand's 64-row tiles staged in
-// shared memory as f32 (this loop replaces the TPU's sequential grid axis);
-// under causal masking its bounds stop at the diagonal, so tiles wholly
-// past it are never read. Masked scores are -inf inside the kernel, so
-// their probability is exactly 0 and a fully masked tile cannot make a
-// NaN: the running max starts at the finite -1e30 and -inf - m = -inf.
-// Element offsets are computed in 64 bits.
-//   flash_fwd: one CTA per (batch*head, 64-row query tile); online softmax
-//     with (m, l, acc) in registers; one tile's 64 scores per thread.
+// The bf16 forward (flash_fwd_mma_kernel, D = 16..128), FlashAttention-2's
+// design on mma.sync: one CTA of 4 warps takes 64 query rows of one
+// (batch*head), 16 rows a warp, and launches the longest causal tiles
+// first (the query-tile index runs backwards on the slow grid axis). Q is
+// copied once to shared memory with cp.async and kept in registers as
+// ldmatrix A fragments. K and V tiles of 64 rows stay bf16 in shared
+// memory, each row padded by 16 bytes so that ldmatrix is free of bank
+// conflicts, and are double-buffered: the cp.async of tile j+1 is issued
+// before the tensor-core work on tile j (rows past the loop bound are
+// zero-filled by the copy, never read). S = Q K^T by
+// mma.sync.m16n8k16.bf16 with f32 accumulators; sm_scale is applied to S
+// in f32 (1/sqrt(D) is no power of two at D = 8, 32, 128, so scaling bf16
+// q would move the lse); the key bias and the causal / ragged-end mask go
+// onto the f32 fragments, the mask only on tiles that reach the diagonal
+// or the end. The online softmax runs on the fragments (row max and sum
+// across each quad with two shuffles), with the reference's running max
+// from -1e30 and rescale alpha = exp(m - m_new). P is rounded to bf16 in
+// registers and fed straight back as the A operand of O += P V (two
+// adjacent n8 C fragments are one k16 A fragment), with V fragments from
+// ldmatrix.trans on the row-major [kv, D] tile; O stays in f32 registers.
+// The epilogue divides by max(l, 1e-30), stages O as bf16 through shared
+// memory and writes it with 16-byte coalesced stores; lse = m + log(l).
+// The one difference from the reference: the JAX kernel multiplies f32 p
+// by v, this kernel rounds p to bf16 once for the product (l sums the f32
+// p, so the lse is unchanged). D = 8 is under the mma's k16 depth and
+// takes the SIMT kernel in bf16 as well.
+//
+// The SIMT kernels (f32 at every D; bf16 at D = 8; both backward
+// kernels): TILE rows per CTA, PARTS threads per row (2 at D = 8, 8 at
+// D = 128, else 4), each holding D / PARTS of the row's dims in float4
+// groups, interleaved so the PARTS threads of a row read contiguous bytes
+// of a shared row and a warp's rows read the same address (a broadcast).
+// Dot products reduce over the row's threads with shuffles. A loop inside
+// the CTA walks the other operand's tiles (KT rows: 64, or 32 at D = 128
+// to stay within 48 KB of static shared memory) staged as f32 (this loop
+// replaces the TPU's sequential grid axis); under causal masking its
+// bounds stop at the diagonal, so tiles wholly past it are never read.
+// Masked scores are -inf inside the kernels, so their probability is
+// exactly 0 and a fully masked tile cannot make a NaN: the running max
+// starts at the finite -1e30 and -inf - m = -inf. Element offsets are
+// computed in 64 bits.
+//   flash_fwd (SIMT): one CTA per (batch*head, 64-row query tile); online
+//     softmax with (m, l, acc) in registers; one tile's scores per thread.
 //   flash_bwd_dkv: one CTA per (batch*head, 64-row key tile); walks query
 //     tiles from the first one that reaches the diagonal, recomputes
 //     p = exp(s - lse), accumulates dV += p dO and dK += ds q.
@@ -56,17 +87,27 @@
 
 namespace {
 
-constexpr int D = 64;                  // head_dim
-constexpr int TILE = 64;               // rows per CTA and per staged tile
-constexpr int PARTS = 4;               // threads per row
-constexpr int THREADS = TILE * PARTS;  // 256
+typedef __nv_bfloat16 bf16;
+
+constexpr int TILE = 64;               // rows per CTA
 constexpr float NEG_INF = -1e30f;      // ops/attention.py NEG_INF
+
+// The SIMT kernels' layout for head_dim D.
+template <int D>
+struct Simt {
+  static_assert(D == 8 || D == 16 || D == 32 || D == 64 || D == 128, "unsupported head_dim");
+  static constexpr int PARTS = D == 8 ? 2 : (D == 128 ? 8 : 4);  // threads per row
+  static constexpr int DPT = D / PARTS;                            // dims per thread
+  static constexpr int GROUPS = DPT / 4;                           // float4 groups per thread
+  static constexpr int THREADS = TILE * PARTS;
+  static constexpr int KT = D == 128 ? 32 : 64;                    // rows of a staged tile
+};
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+__device__ __forceinline__ float4 load4(const bf16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
@@ -77,7 +118,7 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c, floa
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
   __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
   __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
   uint2 u;
@@ -87,16 +128,19 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float
 }
 
 // First of the four dims a thread owns in its i-th group of four.
-__device__ __forceinline__ int dim_of(int part, int i) { return 16 * i + 4 * part; }
+template <int D>
+__device__ __forceinline__ int dim_of(int part, int i) {
+  return 4 * Simt<D>::PARTS * i + 4 * part;
+}
 
-// One row's 16 owned dims from device memory into registers (zeros when
-// the row does not exist), times `scale`.
-template <typename T>
-__device__ __forceinline__ void load_row(float (&dst)[16], const T* row, bool live, int part,
-                                         float scale) {
+// One row's owned dims from device memory into registers (zeros when the
+// row does not exist), times `scale`.
+template <int D, typename T>
+__device__ __forceinline__ void load_row(float (&dst)[Simt<D>::DPT], const T* row, bool live,
+                                         int part, float scale) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 x = live ? load4(row + dim_of(part, i)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < Simt<D>::GROUPS; ++i) {
+    const float4 x = live ? load4(row + dim_of<D>(part, i)) : make_float4(0.f, 0.f, 0.f, 0.f);
     dst[4 * i + 0] = x.x * scale;
     dst[4 * i + 1] = x.y * scale;
     dst[4 * i + 2] = x.z * scale;
@@ -104,19 +148,20 @@ __device__ __forceinline__ void load_row(float (&dst)[16], const T* row, bool li
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_row(T* row, const float (&src)[16], int part, float scale) {
+template <int D, typename T>
+__device__ __forceinline__ void store_row(T* row, const float (&src)[Simt<D>::DPT], int part,
+                                          float scale) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    store4(row + dim_of(part, i), src[4 * i] * scale, src[4 * i + 1] * scale,
+  for (int i = 0; i < Simt<D>::GROUPS; ++i)
+    store4(row + dim_of<D>(part, i), src[4 * i] * scale, src[4 * i + 1] * scale,
            src[4 * i + 2] * scale, src[4 * i + 3] * scale);
 }
 
-// Rows [row0, row0 + TILE) of one head's [rows, D] matrix into shared
-// memory as f32; rows at or past `end` are zero-filled.
-template <typename T>
+// Rows [row0, row0 + KT) of one head's [rows, D] matrix into shared memory
+// as f32; rows at or past `end` are zero-filled.
+template <int D, typename T>
 __device__ __forceinline__ void stage_tile(float (*dst)[D], const T* src, int row0, int end) {
-  for (int idx = threadIdx.x; idx < TILE * (D / 4); idx += THREADS) {
+  for (int idx = threadIdx.x; idx < Simt<D>::KT * (D / 4); idx += Simt<D>::THREADS) {
     const int r = idx / (D / 4);
     const int c = (idx % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -125,25 +170,29 @@ __device__ __forceinline__ void stage_tile(float (*dst)[D], const T* src, int ro
   }
 }
 
-// The dot product of a thread's 16 dims with a shared row, summed over the
-// four threads of the row.
-__device__ __forceinline__ float row_dot(const float (&a)[16], const float* srow, int part) {
+// The dot product of a thread's dims with a shared row, summed over the
+// threads of the row.
+template <int D>
+__device__ __forceinline__ float row_dot(const float (&a)[Simt<D>::DPT], const float* srow,
+                                         int part) {
   float dot = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 b = *reinterpret_cast<const float4*>(srow + dim_of(part, i));
+  for (int i = 0; i < Simt<D>::GROUPS; ++i) {
+    const float4 b = *reinterpret_cast<const float4*>(srow + dim_of<D>(part, i));
     dot += a[4 * i] * b.x + a[4 * i + 1] * b.y + a[4 * i + 2] * b.z + a[4 * i + 3] * b.w;
   }
-  dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-  dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+#pragma unroll
+  for (int o = 1; o < Simt<D>::PARTS; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
   return dot;
 }
 
-// acc += w * shared row (the thread's 16 dims).
-__device__ __forceinline__ void row_axpy(float (&acc)[16], float w, const float* srow, int part) {
+// acc += w * shared row (the thread's dims).
+template <int D>
+__device__ __forceinline__ void row_axpy(float (&acc)[Simt<D>::DPT], float w, const float* srow,
+                                         int part) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 b = *reinterpret_cast<const float4*>(srow + dim_of(part, i));
+  for (int i = 0; i < Simt<D>::GROUPS; ++i) {
+    const float4 b = *reinterpret_cast<const float4*>(srow + dim_of<D>(part, i));
     acc[4 * i + 0] += w * b.x;
     acc[4 * i + 1] += w * b.y;
     acc[4 * i + 2] += w * b.z;
@@ -156,30 +205,31 @@ __device__ __forceinline__ int kv_reach(int q_last, int offset, int seq_kv, int 
   return causal ? max(0, min(seq_kv, q_last + offset + 1)) : seq_kv;
 }
 
-// ------------------------------------------------------------------ forward
+// ------------------------------------------------------------ SIMT forward
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int D>
+__global__ void __launch_bounds__(Simt<D>::THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ kb, T* __restrict__ o, float* __restrict__ lse,
                  int heads, int seq_q, int seq_kv, int causal, float sm_scale) {
-  __shared__ __align__(16) float ks[TILE][D];
-  __shared__ __align__(16) float vs[TILE][D];
-  __shared__ float bias[TILE];
+  using L = Simt<D>;
+  __shared__ __align__(16) float ks[L::KT][D];
+  __shared__ __align__(16) float vs[L::KT][D];
+  __shared__ float bias[L::KT];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * TILE;
-  const int row = threadIdx.x / PARTS;
-  const int part = threadIdx.x % PARTS;
+  const int row = threadIdx.x / L::PARTS;
+  const int part = threadIdx.x % L::PARTS;
   const int qi = q0 + row;
   const bool live = qi < seq_q;
   const int offset = seq_kv - seq_q;
   const int row_last = causal ? qi + offset : seq_kv - 1;  // last column this row sees
 
-  float qr[16], acc[16];
-  load_row(qr, q + ((size_t)bh * seq_q + qi) * D, live, part, sm_scale);
+  float qr[L::DPT], acc[L::DPT];
+  load_row<D>(qr, q + ((size_t)bh * seq_q + qi) * D, live, part, sm_scale);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::DPT; ++i) acc[i] = 0.f;
   float m = NEG_INF, l = 0.f;
 
   const int kv_end = kv_reach(min(q0 + TILE, seq_q) - 1, offset, seq_kv, causal);
@@ -187,19 +237,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* vp = v + (size_t)bh * seq_kv * D;
   const float* bp = kb ? kb + (size_t)(bh / heads) * seq_kv : nullptr;
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += TILE) {
+  for (int kv0 = 0; kv0 < kv_end; kv0 += L::KT) {
     __syncthreads();  // the previous tile is fully consumed
-    stage_tile(ks, kp, kv0, kv_end);
-    stage_tile(vs, vp, kv0, kv_end);
-    if (threadIdx.x < TILE)
+    stage_tile<D>(ks, kp, kv0, kv_end);
+    stage_tile<D>(vs, vp, kv0, kv_end);
+    if (threadIdx.x < L::KT)
       bias[threadIdx.x] = (bp && kv0 + threadIdx.x < kv_end) ? bp[kv0 + threadIdx.x] : 0.f;
     __syncthreads();
 
-    float s[TILE];
+    float s[L::KT];
     float tile_max = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < TILE; ++j) {
-      const float dot = row_dot(qr, ks[j], part) + bias[j];
+    for (int j = 0; j < L::KT; ++j) {
+      const float dot = row_dot<D>(qr, ks[j], part) + bias[j];
       const int col = kv0 + j;
       s[j] = (col < kv_end && col <= row_last) ? dot : -INFINITY;
       tile_max = fmaxf(tile_max, s[j]);
@@ -207,13 +257,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float m_new = fmaxf(m, tile_max);
     const float alpha = expf(m - m_new);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] *= alpha;
+    for (int i = 0; i < L::DPT; ++i) acc[i] *= alpha;
     float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < TILE; ++j) {
+    for (int j = 0; j < L::KT; ++j) {
       const float p = expf(s[j] - m_new);
       psum += p;
-      row_axpy(acc, p, vs[j], part);
+      row_axpy<D>(acc, p, vs[j], part);
     }
     l = l * alpha + psum;
     m = m_new;
@@ -221,47 +271,309 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (live) {
     const float denom = fmaxf(l, 1e-30f);
-    store_row(o + ((size_t)bh * seq_q + qi) * D, acc, part, 1.f / denom);
+    store_row<D>(o + ((size_t)bh * seq_q + qi) * D, acc, part, 1.f / denom);
     if (part == 0) lse[(size_t)bh * seq_q + qi] = m + logf(denom);
+  }
+}
+
+// ------------------------------------------- bf16 forward on the tensor cores
+
+constexpr int FA_ROWS = 64;     // query rows per CTA, 16 per warp
+constexpr int FA_KV = 64;       // key rows per tile
+constexpr int FA_THREADS = 128; // 4 warps
+
+// Shared memory of the tensor-core forward: the Q tile, then two stages
+// of K and two of V, each 64 rows of D bf16 padded by 8 (16 bytes).
+template <int D>
+struct FaSmem {
+  static constexpr int LD = D + 8;
+  static constexpr int TILE_ELEMS = 64 * LD;
+  static constexpr int BYTES = 5 * TILE_ELEMS * (int)sizeof(bf16);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; src_bytes 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  const int src_bytes = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16x16 bf16, row) x b (16x8 bf16, col), f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rows [row0, row0 + 64) of one head's [rows, D] bf16 matrix into a padded
+// shared tile by cp.async; rows at or past `end` are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int row0, int end) {
+  constexpr int PER_ROW = D / 8;  // 16-byte chunks in a row
+  static_assert(64 * PER_ROW % FA_THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int t = 0; t < 64 * PER_ROW / FA_THREADS; ++t) {
+    const int c = threadIdx.x + t * FA_THREADS;
+    const int r = c / PER_ROW, col = (c % PER_ROW) * 8;
+    const bool in = row0 + r < end;
+    cp_async16(smem_u32(dst + r * FaSmem<D>::LD + col),
+               in ? src + (size_t)(row0 + r) * D + col : src, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const float* __restrict__ kb,
+                     bf16* __restrict__ o, float* __restrict__ lse, int heads, int seq_q,
+                     int seq_kv, int causal, float sm_scale) {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "the mma forward takes D = 16..128");
+  constexpr int LD = FaSmem<D>::LD;
+  constexpr int TE = FaSmem<D>::TILE_ELEMS;
+  constexpr int KSTEPS = D / 16;   // k16 steps of Q K^T
+  constexpr int DTILES = D / 8;    // n8 tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* kst = qs + TE;      // two K stages
+  bf16* vst = qs + 3 * TE;  // two V stages
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FA_ROWS;  // longest causal tiles first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int offset = seq_kv - seq_q;
+  const int kv_end = kv_reach(min(q0 + FA_ROWS, seq_q) - 1, offset, seq_kv, causal);
+  const int n_tiles = (kv_end + FA_KV - 1) / FA_KV;
+
+  const bf16* qp = q + (size_t)bh * seq_q * D;
+  const bf16* kp = k + (size_t)bh * seq_kv * D;
+  const bf16* vp = v + (size_t)bh * seq_kv * D;
+  const float* bp = kb ? kb + (size_t)(bh / heads) * seq_kv : nullptr;
+
+  stage_bf16<D>(qs, qp, q0, seq_q);
+  if (n_tiles > 0) {
+    stage_bf16<D>(kst, kp, 0, kv_end);
+    stage_bf16<D>(vst, vp, 0, kv_end);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Q A fragments of this warp's 16 rows, kept for the whole loop.
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks)
+    ldmatrix_x4(qf[ks], smem_u32(qs + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8));
+
+  float acc[DTILES][4];
+#pragma unroll
+  for (int dt = 0; dt < DTILES; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // rows g and g + 8 (thread-partial l)
+  const int row_g = q0 + warp * 16 + g;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: which matrix, which row of it
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * FA_KV;
+    if (j + 1 < n_tiles) {  // the next tile flies during this tile's products
+      stage_bf16<D>(kst + ((j + 1) & 1) * TE, kp, kv0 + FA_KV, kv_end);
+      stage_bf16<D>(vst + ((j + 1) & 1) * TE, vp, kv0 + FA_KV, kv_end);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kt = kst + (j & 1) * TE;
+    const bf16* vt = vst + (j & 1) * TE;
+
+    // S = Q K^T: 16 x 64 per warp, eight n8 tiles.
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, smem_u32(kt + (np * 16 + mr + (mi >> 1) * 8) * LD + ks * 16 + (mi & 1) * 8));
+        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+      }
+    }
+
+    // Scale in f32, key bias, and the mask where the tile reaches the
+    // diagonal or the end of the keys.
+    const bool edge = kv0 + FA_KV > seq_kv || (causal && kv0 + FA_KV - 1 > q0 + offset);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = kv0 + nt * 8 + 2 * tig + e;
+        const float b = (bp && col < seq_kv) ? __ldg(bp + col) : 0.f;
+        float x0 = s[nt][e] * sm_scale + b;      // row g
+        float x1 = s[nt][2 + e] * sm_scale + b;  // row g + 8
+        if (edge) {
+          if (col >= seq_kv || (causal && col > row_g + offset)) x0 = -INFINITY;
+          if (col >= seq_kv || (causal && col > row_g + 8 + offset)) x1 = -INFINITY;
+        }
+        s[nt][e] = x0;
+        s[nt][2 + e] = x1;
+      }
+    }
+
+    // Online softmax on the fragments; a quad of threads shares two rows.
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    const float alpha0 = expf(m[0] - mx[0]), alpha1 = expf(m[1] - mx[1]);
+    m[0] = mx[0];
+    m[1] = mx[1];
+    float rs0 = 0.f, rs1 = 0.f;
+    uint32_t pf[4][4];  // P as the A fragments of four k16 steps
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float p0 = expf(s[nt][0] - m[0]), p1 = expf(s[nt][1] - m[0]);
+      const float p2 = expf(s[nt][2] - m[1]), p3 = expf(s[nt][3] - m[1]);
+      rs0 += p0 + p1;
+      rs1 += p2 + p3;
+      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);  // a0 / a2: row g
+      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);  // a1 / a3: row g + 8
+    }
+    l[0] = l[0] * alpha0 + rs0;
+    l[1] = l[1] * alpha1 + rs1;
+#pragma unroll
+    for (int dt = 0; dt < DTILES; ++dt) {
+      acc[dt][0] *= alpha0;
+      acc[dt][1] *= alpha0;
+      acc[dt][2] *= alpha1;
+      acc[dt][3] *= alpha1;
+    }
+
+    // O += P V, V fragments by ldmatrix.trans from the row-major tile.
+#pragma unroll
+    for (int kstep = 0; kstep < 4; ++kstep) {
+#pragma unroll
+      for (int dp = 0; dp < DTILES / 2; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, smem_u32(vt + (kstep * 16 + mr + (mi & 1) * 8) * LD + dp * 16 + (mi >> 1) * 8));
+        mma_bf16(acc[2 * dp], pf[kstep], b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], pf[kstep], b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next prefetch overwrites it
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
+  const float inv0 = 1.f / den0, inv1 = 1.f / den1;
+  if (tig == 0) {
+    if (row_g < seq_q) lse[(size_t)bh * seq_q + row_g] = m[0] + logf(den0);
+    if (row_g + 8 < seq_q) lse[(size_t)bh * seq_q + row_g + 8] = m[1] + logf(den1);
+  }
+
+  // O as bf16 through the (now free) Q tile, then 16-byte stores.
+  __syncthreads();
+#pragma unroll
+  for (int dt = 0; dt < DTILES; ++dt) {
+    const int col = dt * 8 + 2 * tig;
+    *reinterpret_cast<uint32_t*>(qs + (warp * 16 + g) * LD + col) =
+        pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    *reinterpret_cast<uint32_t*>(qs + (warp * 16 + g + 8) * LD + col) =
+        pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+  }
+  __syncthreads();
+  bf16* op = o + (size_t)bh * seq_q * D;
+  constexpr int PER_ROW = D / 8;
+#pragma unroll
+  for (int t = 0; t < FA_ROWS * PER_ROW / FA_THREADS; ++t) {
+    const int c = tid + t * FA_THREADS;
+    const int r = c / PER_ROW, col = (c % PER_ROW) * 8;
+    if (q0 + r < seq_q)
+      *reinterpret_cast<uint4*>(op + (size_t)(q0 + r) * D + col) =
+          *reinterpret_cast<const uint4*>(qs + r * LD + col);
   }
 }
 
 // ------------------------------------------------------------- dK and dV
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int D>
+__global__ void __launch_bounds__(Simt<D>::THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ dlse,
                      const float* __restrict__ kb, T* __restrict__ dk, T* __restrict__ dv,
                      int heads, int seq_q, int seq_kv, int causal, float sm_scale) {
-  __shared__ __align__(16) float qs[TILE][D];
-  __shared__ __align__(16) float dos[TILE][D];
-  __shared__ float lse_s[TILE], delta_s[TILE], dlse_s[TILE];
+  using L = Simt<D>;
+  __shared__ __align__(16) float qs[L::KT][D];
+  __shared__ __align__(16) float dos[L::KT][D];
+  __shared__ float lse_s[L::KT], delta_s[L::KT], dlse_s[L::KT];
 
   const int bh = blockIdx.y;
   const int kv0 = blockIdx.x * TILE;
-  const int row = threadIdx.x / PARTS;
-  const int part = threadIdx.x % PARTS;
+  const int row = threadIdx.x / L::PARTS;
+  const int part = threadIdx.x % L::PARTS;
   const int kj = kv0 + row;  // this thread's key column
   const bool live = kj < seq_kv;
   const int offset = seq_kv - seq_q;
 
-  float kr[16], vr[16], dkacc[16], dvacc[16];
-  load_row(kr, k + ((size_t)bh * seq_kv + kj) * D, live, part, 1.f);
-  load_row(vr, v + ((size_t)bh * seq_kv + kj) * D, live, part, 1.f);
+  float kr[L::DPT], vr[L::DPT], dkacc[L::DPT], dvacc[L::DPT];
+  load_row<D>(kr, k + ((size_t)bh * seq_kv + kj) * D, live, part, 1.f);
+  load_row<D>(vr, v + ((size_t)bh * seq_kv + kj) * D, live, part, 1.f);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dkacc[i] = dvacc[i] = 0.f;
+  for (int i = 0; i < L::DPT; ++i) dkacc[i] = dvacc[i] = 0.f;
   const float b = (kb && live) ? kb[(size_t)(bh / heads) * seq_kv + kj] : 0.f;
 
   // First query row that sees column kv0 is kv0 - offset; start at its tile.
-  const int q_begin = causal ? max(0, kv0 - offset) / TILE * TILE : 0;
+  const int q_begin = causal ? max(0, kv0 - offset) / L::KT * L::KT : 0;
   const size_t qrow0 = (size_t)bh * seq_q;
-  for (int q0 = q_begin; q0 < seq_q; q0 += TILE) {
+  for (int q0 = q_begin; q0 < seq_q; q0 += L::KT) {
     __syncthreads();
-    stage_tile(qs, q + qrow0 * D, q0, seq_q);
-    stage_tile(dos, dout + qrow0 * D, q0, seq_q);
-    if (threadIdx.x < TILE) {
+    stage_tile<D>(qs, q + qrow0 * D, q0, seq_q);
+    stage_tile<D>(dos, dout + qrow0 * D, q0, seq_q);
+    if (threadIdx.x < L::KT) {
       const int r = q0 + threadIdx.x;
       const bool ok = r < seq_q;
       lse_s[threadIdx.x] = ok ? lse[qrow0 + r] : 0.f;
@@ -271,53 +583,54 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();
 
 #pragma unroll 4
-    for (int i = 0; i < TILE; ++i) {
-      const float qk = row_dot(kr, qs[i], part);
-      const float dp = row_dot(vr, dos[i], part);
+    for (int i = 0; i < L::KT; ++i) {
+      const float qk = row_dot<D>(kr, qs[i], part);
+      const float dp = row_dot<D>(vr, dos[i], part);
       const int qi = q0 + i;
       const bool visible = live && qi < seq_q && (!causal || kj <= qi + offset);
       const float s = qk * sm_scale + b;
       const float p = visible ? expf(s - lse_s[i]) : 0.f;
       const float ds = p * (dp - delta_s[i] + dlse_s[i]);
-      row_axpy(dvacc, p, dos[i], part);
-      row_axpy(dkacc, ds, qs[i], part);
+      row_axpy<D>(dvacc, p, dos[i], part);
+      row_axpy<D>(dkacc, ds, qs[i], part);
     }
   }
 
   if (live) {
-    store_row(dk + ((size_t)bh * seq_kv + kj) * D, dkacc, part, sm_scale);
-    store_row(dv + ((size_t)bh * seq_kv + kj) * D, dvacc, part, 1.f);
+    store_row<D>(dk + ((size_t)bh * seq_kv + kj) * D, dkacc, part, sm_scale);
+    store_row<D>(dv + ((size_t)bh * seq_kv + kj) * D, dvacc, part, 1.f);
   }
 }
 
 // -------------------------------------------------------------------- dQ
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int D>
+__global__ void __launch_bounds__(Simt<D>::THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ dlse,
                     const float* __restrict__ kb, T* __restrict__ dq, int heads, int seq_q,
                     int seq_kv, int causal, float sm_scale) {
-  __shared__ __align__(16) float ks[TILE][D];
-  __shared__ __align__(16) float vs[TILE][D];
-  __shared__ float bias[TILE];
+  using L = Simt<D>;
+  __shared__ __align__(16) float ks[L::KT][D];
+  __shared__ __align__(16) float vs[L::KT][D];
+  __shared__ float bias[L::KT];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * TILE;
-  const int row = threadIdx.x / PARTS;
-  const int part = threadIdx.x % PARTS;
+  const int row = threadIdx.x / L::PARTS;
+  const int part = threadIdx.x % L::PARTS;
   const int qi = q0 + row;
   const bool live = qi < seq_q;
   const int offset = seq_kv - seq_q;
   const int row_last = causal ? qi + offset : seq_kv - 1;
   const size_t r = (size_t)bh * seq_q + qi;
 
-  float qr[16], dor[16], acc[16];
-  load_row(qr, q + r * D, live, part, 1.f);
-  load_row(dor, dout + r * D, live, part, 1.f);
+  float qr[L::DPT], dor[L::DPT], acc[L::DPT];
+  load_row<D>(qr, q + r * D, live, part, 1.f);
+  load_row<D>(dor, dout + r * D, live, part, 1.f);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::DPT; ++i) acc[i] = 0.f;
   const float row_lse = live ? lse[r] : 0.f;
   const float row_delta = live ? delta[r] : 0.f;
   const float row_dlse = live ? dlse[r] : 0.f;
@@ -327,28 +640,28 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* vp = v + (size_t)bh * seq_kv * D;
   const float* bp = kb ? kb + (size_t)(bh / heads) * seq_kv : nullptr;
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += TILE) {
+  for (int kv0 = 0; kv0 < kv_end; kv0 += L::KT) {
     __syncthreads();
-    stage_tile(ks, kp, kv0, kv_end);
-    stage_tile(vs, vp, kv0, kv_end);
-    if (threadIdx.x < TILE)
+    stage_tile<D>(ks, kp, kv0, kv_end);
+    stage_tile<D>(vs, vp, kv0, kv_end);
+    if (threadIdx.x < L::KT)
       bias[threadIdx.x] = (bp && kv0 + threadIdx.x < kv_end) ? bp[kv0 + threadIdx.x] : 0.f;
     __syncthreads();
 
 #pragma unroll 4
-    for (int j = 0; j < TILE; ++j) {
-      const float qk = row_dot(qr, ks[j], part);
-      const float dp = row_dot(dor, vs[j], part);
+    for (int j = 0; j < L::KT; ++j) {
+      const float qk = row_dot<D>(qr, ks[j], part);
+      const float dp = row_dot<D>(dor, vs[j], part);
       const int col = kv0 + j;
       const bool visible = live && col < kv_end && col <= row_last;
       const float s = qk * sm_scale + bias[j];
       const float p = visible ? expf(s - row_lse) : 0.f;
       const float ds = p * (dp - row_delta + row_dlse);
-      row_axpy(acc, ds, ks[j], part);
+      row_axpy<D>(acc, ds, ks[j], part);
     }
   }
 
-  if (live) store_row(dq + r * D, acc, part, sm_scale);
+  if (live) store_row<D>(dq + r * D, acc, part, sm_scale);
 }
 
 dim3 grid_for(int rows, int bh) { return dim3((rows + TILE - 1) / TILE, bh); }
@@ -357,26 +670,76 @@ bool bad_shape(int bh, int heads, int seq_q, int seq_kv) {
   return bh < 1 || bh > 65535 || heads < 1 || bh % heads || seq_q < 1 || seq_kv < 1;
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. kb may be NULL (no key bias). Each entry
-// point returns cudaGetLastError() after its launch (0 on success), launches
-// on `stream` and does not synchronise.
-extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
-                         const float* kb, void* o, float* lse, int bh, int heads, int seq_q,
-                         int seq_kv, int causal, float sm_scale, void* stream) {
-  if (bad_shape(bh, heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(seq_q, bh);
+template <int D>
+int launch_fwd(int dtype, const void* q, const void* k, const void* v, const float* kb, void* o,
+               float* lse, int bh, int heads, int seq_q, int seq_kv, int causal, float sm_scale,
+               cudaStream_t st) {
   if (dtype == 0) {
-    flash_fwd_kernel<float><<<grid, THREADS, 0, st>>>(
+    flash_fwd_kernel<float, D><<<grid_for(seq_q, bh), Simt<D>::THREADS, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), kb, static_cast<float*>(o), lse, heads, seq_q, seq_kv,
         causal, sm_scale);
   } else if (dtype == 1) {
-    flash_fwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), kb, static_cast<__nv_bfloat16*>(o), lse, heads,
+    if constexpr (D == 8) {  // under the mma's k16 depth: the SIMT kernel
+      flash_fwd_kernel<bf16, D><<<grid_for(seq_q, bh), Simt<D>::THREADS, 0, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          kb, static_cast<bf16*>(o), lse, heads, seq_q, seq_kv, causal, sm_scale);
+    } else {
+      constexpr int bytes = FaSmem<D>::BYTES;
+      if (bytes > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err != cudaSuccess) return (int)err;
+      }
+      const dim3 grid(bh, (seq_q + FA_ROWS - 1) / FA_ROWS);
+      flash_fwd_mma_kernel<D><<<grid, FA_THREADS, bytes, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          kb, static_cast<bf16*>(o), lse, heads, seq_q, seq_kv, causal, sm_scale);
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, const float* dlse, const float* kb,
+               void* dk, void* dv, int bh, int heads, int seq_q, int seq_kv, int causal,
+               float sm_scale, cudaStream_t st) {
+  const dim3 grid = grid_for(seq_kv, bh);
+  if (dtype == 0) {
+    flash_bwd_dkv_kernel<float, D><<<grid, Simt<D>::THREADS, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, dlse, kb,
+        static_cast<float*>(dk), static_cast<float*>(dv), heads, seq_q, seq_kv, causal,
+        sm_scale);
+  } else if (dtype == 1) {
+    flash_bwd_dkv_kernel<bf16, D><<<grid, Simt<D>::THREADS, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), lse, delta, dlse, kb, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), heads, seq_q, seq_kv, causal, sm_scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(int dtype, const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, const float* dlse, const float* kb, void* dq,
+              int bh, int heads, int seq_q, int seq_kv, int causal, float sm_scale,
+              cudaStream_t st) {
+  const dim3 grid = grid_for(seq_q, bh);
+  if (dtype == 0) {
+    flash_bwd_dq_kernel<float, D><<<grid, Simt<D>::THREADS, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, dlse, kb,
+        static_cast<float*>(dq), heads, seq_q, seq_kv, causal, sm_scale);
+  } else if (dtype == 1) {
+    flash_bwd_dq_kernel<bf16, D><<<grid, Simt<D>::THREADS, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), lse, delta, dlse, kb, static_cast<bf16*>(dq), heads,
         seq_q, seq_kv, causal, sm_scale);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -384,52 +747,53 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// One case per supported head_dim; any other returns cudaErrorInvalidValue.
+#define FLASH_HEAD_DIMS(d, CALL)                  \
+  switch (d) {                                    \
+    case 8: { constexpr int D = 8; return CALL; } \
+    case 16: { constexpr int D = 16; return CALL; } \
+    case 32: { constexpr int D = 32; return CALL; } \
+    case 64: { constexpr int D = 64; return CALL; } \
+    case 128: { constexpr int D = 128; return CALL; } \
+    default: return (int)cudaErrorInvalidValue;   \
+  }
+
+// dtype: 0 = float32, 1 = bfloat16; head_dim in {8, 16, 32, 64, 128}. kb
+// may be NULL (no key bias). Each entry point returns cudaGetLastError()
+// after its launch (0 on success), launches on `stream` and does not
+// synchronise. The grid's query-tile axis is the slow one for the bf16
+// forward, so seq_q / 64 is bounded by 65535 there and bh by 65535 in the
+// SIMT kernels.
+extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
+                         const float* kb, void* o, float* lse, int bh, int heads, int seq_q,
+                         int seq_kv, int head_dim, int causal, float sm_scale, void* stream) {
+  if (bad_shape(bh, heads, seq_q, seq_kv) || (seq_q + TILE - 1) / TILE > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  FLASH_HEAD_DIMS(head_dim, launch_fwd<D>(dtype, q, k, v, kb, o, lse, bh, heads, seq_q, seq_kv,
+                                          causal, sm_scale, st))
+}
+
 extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                              const void* dout, const float* lse, const float* delta,
                              const float* dlse, const float* kb, void* dk, void* dv, int bh,
-                             int heads, int seq_q, int seq_kv, int causal, float sm_scale,
-                             void* stream) {
+                             int heads, int seq_q, int seq_kv, int head_dim, int causal,
+                             float sm_scale, void* stream) {
   if (bad_shape(bh, heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(seq_kv, bh);
-  if (dtype == 0) {
-    flash_bwd_dkv_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, dlse, kb,
-        static_cast<float*>(dk), static_cast<float*>(dv), heads, seq_q, seq_kv, causal,
-        sm_scale);
-  } else if (dtype == 1) {
-    flash_bwd_dkv_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
-        delta, dlse, kb, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-        heads, seq_q, seq_kv, causal, sm_scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  FLASH_HEAD_DIMS(head_dim, launch_dkv<D>(dtype, q, k, v, dout, lse, delta, dlse, kb, dk, dv, bh,
+                                          heads, seq_q, seq_kv, causal, sm_scale, st))
 }
 
 extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                             const void* dout, const float* lse, const float* delta,
                             const float* dlse, const float* kb, void* dq, int bh, int heads,
-                            int seq_q, int seq_kv, int causal, float sm_scale, void* stream) {
+                            int seq_q, int seq_kv, int head_dim, int causal, float sm_scale,
+                            void* stream) {
   if (bad_shape(bh, heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(seq_q, bh);
-  if (dtype == 0) {
-    flash_bwd_dq_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, dlse, kb,
-        static_cast<float*>(dq), heads, seq_q, seq_kv, causal, sm_scale);
-  } else if (dtype == 1) {
-    flash_bwd_dq_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
-        delta, dlse, kb, static_cast<__nv_bfloat16*>(dq), heads, seq_q, seq_kv, causal,
-        sm_scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  FLASH_HEAD_DIMS(head_dim, launch_dq<D>(dtype, q, k, v, dout, lse, delta, dlse, kb, dq, bh,
+                                         heads, seq_q, seq_kv, causal, sm_scale, st))
 }

@@ -7,12 +7,13 @@
 // ServeConfig.attention="paged_flash", including the int8 KV pool, whose
 // rows it dequantizes in the kernel.
 //
-// Contract: q [S, H, 64] (f32 or bf16), one query per slot; K/V block
-// pools [NB, H, BS, 64] (f32, bf16 or int8), with per-row f32 scales
+// Contract: q [S, H, D] (f32 or bf16), one query per slot, head_dim D in
+// {8, 16, 32, 64, 128}; K/V block pools [NB, H, BS, D] (f32, bf16 or
+// int8), with per-row f32 scales
 // [NB, H, BS] for int8; lengths [S] int32 (populated length including the
 // new token); block_tables [S, nb] int32 (logical -> physical block).
 // Slot s attends columns < lengths[s] and reads nothing past them. A slot
-// of length 0 writes zeros. Output [S, H, 64] in q's dtype.
+// of length 0 writes zeros. Output [S, H, D] in q's dtype.
 //
 // What bounds it on an H100: bytes. Each K/V element is used for two
 // multiply-adds, so a decode step is far below the card's ridge; the least
@@ -27,9 +28,11 @@
 // block-table entries (no scalar prefetch on this card) and loops over
 // logical blocks j < ceil(length / BS); for each it stages that physical
 // block's populated K and V rows in shared memory as f32 (dequantized
-// with their row scales when the pool is int8), computes the BS scores
-// with one warp per row, and folds them into an online softmax whose
-// accumulator (one dim per thread) stays in registers. With few slots the
+// with their row scales when the pool is int8), CHUNK rows at a time (64,
+// or 32 at D = 128 to stay within 48 KB of static shared memory), computes
+// their scores with one warp per row (lane d, d + 32, ... of the dims),
+// and folds them into an online softmax whose accumulator (one dim per
+// thread, threads d < D) stays in registers. With few slots the
 // card holds few CTAs, so a step is bound by per-block latency rather than
 // bandwidth; splitting the KV range across CTAs with an lse merge and
 // pipelining the block loads are left for later work.
@@ -40,11 +43,17 @@
 
 namespace {
 
-constexpr int D = 64;             // head_dim
-constexpr int THREADS = 128;      // 4 warps
+constexpr int THREADS = 128;      // 4 warps; thread d < D owns dim d
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_BS = 64;        // largest block size the shared tiles hold
+constexpr int MAX_BS = 64;        // largest block size taken
 constexpr float NEG_INF = -1e30f; // ops/attention.py NEG_INF
+
+// Rows of a block staged in shared memory at a time.
+template <int D>
+struct Chunk {
+  static_assert(D == 8 || D == 16 || D == 32 || D == 64 || D == 128, "unsupported head_dim");
+  static constexpr int ROWS = D == 128 ? 32 : 64;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -68,17 +77,18 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename QT, typename KVT>
+template <typename QT, typename KVT, int D>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kb,
                     const KVT* __restrict__ vb, const float* __restrict__ ksc,
                     const float* __restrict__ vsc, const int* __restrict__ lengths,
                     const int* __restrict__ tables, QT* __restrict__ o, int num_heads,
                     int num_blocks, int block_size, int nb, float sm_scale) {
-  __shared__ __align__(16) float ks[MAX_BS][D];
-  __shared__ __align__(16) float vs[MAX_BS][D];
+  constexpr int CH = Chunk<D>::ROWS;
+  __shared__ __align__(16) float ks[CH][D];
+  __shared__ __align__(16) float vs[CH][D];
   __shared__ float qs[D];
-  __shared__ float sc[MAX_BS];
+  __shared__ float sc[CH];
 
   const int h = blockIdx.x;
   const int s = blockIdx.y;
@@ -97,81 +107,80 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kb,
     const int blk = table[j];
     if (blk < 0 || blk >= num_blocks) __trap();  // a corrupt table is a fault
     const size_t row0 = ((size_t)blk * num_heads + h) * block_size;
-    __syncthreads();  // previous block consumed; qs visible on the first pass
-    for (int idx = tid; idx < block_size * (D / 4); idx += THREADS) {
-      const int r = idx / (D / 4);
-      const int c = (idx % (D / 4)) * 4;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (r < rows) {
-        kk = load4(kb + (row0 + r) * D + c);
-        vv = load4(vb + (row0 + r) * D + c);
+    // One chunk when a chunk holds the largest block: a constant trip
+    // count the compiler removes (a runtime-bounded loop here made the
+    // fp32 kernel measurably slower on the H100).
+    const int chunks = CH >= MAX_BS ? 1 : (rows + CH - 1) / CH;
+    for (int ci = 0; ci < chunks; ++ci) {
+      const int c0 = ci * CH;
+      const int n = min(CH, rows - c0);  // populated rows of this chunk
+      __syncthreads();  // previous chunk consumed; qs visible on the first pass
+      for (int idx = tid; idx < n * (D / 4); idx += THREADS) {
+        const int r = idx / (D / 4);
+        const int c = (idx % (D / 4)) * 4;
+        const size_t at = row0 + c0 + r;
+        float4 kk = load4(kb + at * D + c);
+        float4 vv = load4(vb + at * D + c);
         if (ksc != nullptr) {
-          const float a = ksc[row0 + r], b = vsc[row0 + r];
+          const float a = ksc[at], b = vsc[at];
           kk.x *= a; kk.y *= a; kk.z *= a; kk.w *= a;
           vv.x *= b; vv.y *= b; vv.z *= b; vv.w *= b;
         }
+        *reinterpret_cast<float4*>(&ks[r][c]) = kk;
+        *reinterpret_cast<float4*>(&vs[r][c]) = vv;
       }
-      *reinterpret_cast<float4*>(&ks[r][c]) = kk;
-      *reinterpret_cast<float4*>(&vs[r][c]) = vv;
-    }
-    __syncthreads();
-    for (int r = warp; r < block_size; r += WARPS) {
-      float dot = qs[lane] * ks[r][lane] + qs[lane + 32] * ks[r][lane + 32];
+      __syncthreads();
+      for (int r = warp; r < n; r += WARPS) {
+        float dot = 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0) sc[r] = r < rows ? dot : NEG_INF;
+        for (int i = 0; i < (D + 31) / 32; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) dot += qs[d] * ks[r][d];
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (lane == 0) sc[r] = dot;
+      }
+      __syncthreads();
+      float bmax = NEG_INF;
+      for (int r = 0; r < n; ++r) bmax = fmaxf(bmax, sc[r]);
+      const float m_new = fmaxf(m, bmax);
+      const float alpha = expf(m - m_new);
+      float psum = 0.f, a = acc * alpha;
+      for (int r = 0; r < n; ++r) {
+        const float p = expf(sc[r] - m_new);
+        psum += p;
+        if (tid < D) a += p * vs[r][tid];
+      }
+      acc = a;
+      l = l * alpha + psum;
+      m = m_new;
     }
-    __syncthreads();
-    float bmax = NEG_INF;
-    for (int r = 0; r < block_size; ++r) bmax = fmaxf(bmax, sc[r]);
-    const float m_new = fmaxf(m, bmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f, a = acc * alpha;
-    for (int r = 0; r < block_size; ++r) {
-      const float p = expf(sc[r] - m_new);
-      psum += p;
-      if (tid < D) a += p * vs[r][tid];
-    }
-    acc = a;
-    l = l * alpha + psum;
-    m = m_new;
   }
   if (tid < D) store1(o + qoff + tid, acc / fmaxf(l, 1e-30f));
 }
 
-template <typename QT, typename KVT>
+template <typename QT, typename KVT, int D>
 void launch(const void* q, const void* kb, const void* vb, const void* ksc,
             const void* vsc, const void* lengths, const void* tables, void* o,
             int num_slots, int num_heads, int num_blocks, int block_size, int nb,
             float sm_scale, cudaStream_t st) {
   const dim3 grid(num_heads, num_slots);
-  paged_decode_kernel<QT, KVT><<<grid, THREADS, 0, st>>>(
+  paged_decode_kernel<QT, KVT, D><<<grid, THREADS, 0, st>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(kb), static_cast<const KVT*>(vb),
       static_cast<const float*>(ksc), static_cast<const float*>(vsc),
       static_cast<const int*>(lengths), static_cast<const int*>(tables),
       static_cast<QT*>(o), num_heads, num_blocks, block_size, nb, sm_scale);
 }
 
-}  // namespace
-
-// q_dtype: 0 = float32, 1 = bfloat16. kv_dtype: 0 = float32, 1 = bfloat16,
-// 2 = int8 (k_scale / v_scale then required, else null). Returns
-// cudaGetLastError() after the launch (0 on success). Launches on
-// `stream`; does not synchronise.
-extern "C" int paged_decode(int q_dtype, int kv_dtype, const void* q, const void* kb,
-                            const void* vb, const void* k_scale, const void* v_scale,
-                            const void* lengths, const void* tables, void* o,
-                            int num_slots, int num_heads, int num_blocks, int block_size,
-                            int nb, float sm_scale, void* stream) {
-  if (num_slots < 1 || num_slots > 65535 || num_heads < 1 || num_blocks < 1 ||
-      block_size < 1 || block_size > MAX_BS || nb < 1)
-    return (int)cudaErrorInvalidValue;
-  if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+template <int D>
+int launch_dtypes(int q_dtype, int kv_dtype, const void* q, const void* kb, const void* vb,
+                  const void* k_scale, const void* v_scale, const void* lengths,
+                  const void* tables, void* o, int num_slots, int num_heads, int num_blocks,
+                  int block_size, int nb, float sm_scale, cudaStream_t st) {
 #define TET_LAUNCH(QT, KVT)                                                          \
-  launch<QT, KVT>(q, kb, vb, k_scale, v_scale, lengths, tables, o, num_slots,        \
-                  num_heads, num_blocks, block_size, nb, sm_scale, st)
+  launch<QT, KVT, D>(q, kb, vb, k_scale, v_scale, lengths, tables, o, num_slots,     \
+                     num_heads, num_blocks, block_size, nb, sm_scale, st)
   if (q_dtype == 0 && kv_dtype == 0) TET_LAUNCH(float, float);
   else if (q_dtype == 1 && kv_dtype == 1) TET_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   else if (q_dtype == 0 && kv_dtype == 2) TET_LAUNCH(float, int8_t);
@@ -179,4 +188,37 @@ extern "C" int paged_decode(int q_dtype, int kv_dtype, const void* q, const void
   else return (int)cudaErrorInvalidValue;
 #undef TET_LAUNCH
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q_dtype: 0 = float32, 1 = bfloat16. kv_dtype: 0 = float32, 1 = bfloat16,
+// 2 = int8 (k_scale / v_scale then required, else null). head_dim in
+// {8, 16, 32, 64, 128}. Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for what it does not take. Launches
+// on `stream`; does not synchronise.
+extern "C" int paged_decode(int q_dtype, int kv_dtype, const void* q, const void* kb,
+                            const void* vb, const void* k_scale, const void* v_scale,
+                            const void* lengths, const void* tables, void* o,
+                            int num_slots, int num_heads, int num_blocks, int block_size,
+                            int nb, int head_dim, float sm_scale, void* stream) {
+  if (num_slots < 1 || num_slots > 65535 || num_heads < 1 || num_blocks < 1 ||
+      block_size < 1 || block_size > MAX_BS || nb < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+#define TET_HEAD_DIM(D)                                                                   \
+  case D:                                                                                 \
+    return launch_dtypes<D>(q_dtype, kv_dtype, q, kb, vb, k_scale, v_scale, lengths, tables, \
+                            o, num_slots, num_heads, num_blocks, block_size, nb, sm_scale, st)
+  switch (head_dim) {
+    TET_HEAD_DIM(8);
+    TET_HEAD_DIM(16);
+    TET_HEAD_DIM(32);
+    TET_HEAD_DIM(64);
+    TET_HEAD_DIM(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TET_HEAD_DIM
 }

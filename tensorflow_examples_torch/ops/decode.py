@@ -20,9 +20,8 @@ import ctypes
 import torch
 
 from tensorflow_examples_torch.ops import _build
-from tensorflow_examples_torch.ops.attention import NEG_INF
+from tensorflow_examples_torch.ops.attention import NEG_INF, check_head_dim
 
-HEAD_DIM = 64  # the only head_dim the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,7 +63,7 @@ def _lib():
     lib = _build.library("decode")
     fn = lib.flash_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
@@ -81,7 +80,8 @@ def flash_decode_attention(
     """Attend ``q`` [B, H, q_len, D] over the populated prefix of a
     [B, H, max_len, D] cache; ``length`` counts the q_len new tokens.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (f32 or bf16, head_dim 64, contiguous) or raises."""
+    kernel (f32 or bf16, a head_dim of ``SUPPORTED_HEAD_DIMS``, contiguous)
+    or raises."""
     if q.device.type == "cpu":
         return decode_attention_reference(
             q, k_cache, v_cache, length, sm_scale=sm_scale
@@ -90,8 +90,7 @@ def flash_decode_attention(
     max_len = k_cache.shape[2]
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_decode_attention: dtype {q.dtype} not in f32/bf16")
-    if d != HEAD_DIM:
-        raise ValueError(f"flash_decode_attention: head_dim {d} unsupported (needs {HEAD_DIM})")
+    check_head_dim("flash_decode_attention", d)
     _check("q", q, q.dtype, (b, h, q_len, d))
     _check("k_cache", k_cache, q.dtype, (b, h, max_len, d))
     _check("v_cache", v_cache, q.dtype, (b, h, max_len, d))
@@ -100,7 +99,7 @@ def flash_decode_attention(
     out = torch.empty_like(q)
     status = _lib()(
         _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        out.data_ptr(), b * h, q_len, max_len, int(length), float(sm_scale),
+        out.data_ptr(), b * h, q_len, max_len, int(length), d, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_decode")

@@ -21,6 +21,12 @@ read the sizes on the device: no call syncs with the host. The megablox
 tiling argument has no counterpart: the kernels pick their own tiles and
 take any m, k and n.
 
+:func:`gmm` has two kernels and picks one by what it is given, counting
+each beside ``gmm.launches``: bf16 with k and n multiples of 8 and
+16-byte-aligned operands (every gmm of the MoE step) runs on the tensor
+cores (``gmm.tensor_core_launches``); anything else, f32 included, runs
+the SIMT kernel (``gmm.simt_launches``).
+
 :func:`grouped_matmul` is the differentiable product, a
 ``torch.autograd.Function`` whose backward is megablox's ``_gmm_bwd``:
 ``dlhs = gmm(grad, rhs, transpose_rhs=not transpose_rhs)`` and
@@ -80,7 +86,8 @@ def tgmm_plain(lhs_t: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor
 def _fn(name: str):
     fn = getattr(_build.library("grouped_matmul"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+    ints = 1 if name == "gmm_tc" else 2  # gmm_tc takes no dtype
+    fn.argtypes = ([ctypes.c_int] * ints + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
                    + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
@@ -105,8 +112,9 @@ def _stream(t: torch.Tensor) -> int:
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
         transpose_rhs: bool = False) -> torch.Tensor:
     """Kernel: ``lhs [m, k]`` times ``rhs [g, k, n]`` (``[g, n, k]`` with
-    ``transpose_rhs``) per row segment -> [m, n] in ``lhs``'s dtype. CPU
-    tensors take :func:`gmm_plain`."""
+    ``transpose_rhs``) per row segment -> [m, n] in ``lhs``'s dtype, on the
+    tensor cores where :func:`uses_tensor_cores` says so. CPU tensors take
+    :func:`gmm_plain`."""
     if lhs.device.type == "cpu":
         return gmm_plain(lhs, rhs, group_sizes, transpose_rhs=transpose_rhs)
     sizes = _check("gmm", lhs, rhs, group_sizes)
@@ -118,11 +126,24 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
     n = rhs.shape[1 if transpose_rhs else 2]
     lhs, rhs = lhs.contiguous(), rhs.contiguous()
     out = torch.empty(m, n, dtype=lhs.dtype, device=lhs.device)
-    status = _fn("gmm")(_DTYPES[lhs.dtype], int(transpose_rhs), lhs.data_ptr(), rhs.data_ptr(),
-                        sizes.data_ptr(), out.data_ptr(), m, k, n, sizes.shape[0], _stream(lhs))
-    _build.check(status, "gmm")
+    args = (int(transpose_rhs), lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(),
+            out.data_ptr(), m, k, n, sizes.shape[0], _stream(lhs))
+    if uses_tensor_cores(lhs, rhs, n):
+        _build.check(_fn("gmm_tc")(*args), "gmm_tc")
+        gmm.tensor_core_launches += 1
+    else:
+        _build.check(_fn("gmm")(_DTYPES[lhs.dtype], *args), "gmm")
+        gmm.simt_launches += 1
     gmm.launches += 1
     return out
+
+
+def uses_tensor_cores(lhs: torch.Tensor, rhs: torch.Tensor, n: int) -> bool:
+    """Whether :func:`gmm` takes its tensor-core kernel for these
+    (contiguous) operands and output width: bf16, k and n multiples of 8
+    and 16-byte-aligned bases, which its 16-byte copies and stores need."""
+    return (lhs.dtype == torch.bfloat16 and lhs.shape[1] % 8 == 0 and n % 8 == 0
+            and lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0)
 
 
 def tgmm(lhs_t: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
@@ -156,6 +177,8 @@ def tgmm(lhs_t: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
 
 
 gmm.launches = 0
+gmm.tensor_core_launches = 0
+gmm.simt_launches = 0
 tgmm.launches = 0
 
 

@@ -29,8 +29,8 @@ import ctypes
 import torch
 
 from tensorflow_examples_torch.ops import _build
+from tensorflow_examples_torch.ops.attention import check_head_dim
 
-HEAD_DIM = 64  # the only head_dim the kernel is built for
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_BLOCK_SIZE = 64  # the kernel's shared tiles hold this many rows
@@ -92,7 +92,7 @@ def _lib():
     lib = _build.library("paged_decode")
     fn = lib.paged_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
@@ -125,8 +125,7 @@ def paged_decode_attention(
     nb = block_tables.shape[1]
     if q.dtype not in _Q_DTYPES:
         raise ValueError(f"paged_decode_attention: q dtype {q.dtype} not in f32/bf16")
-    if d != HEAD_DIM:
-        raise ValueError(f"paged_decode_attention: head_dim {d} unsupported (needs {HEAD_DIM})")
+    check_head_dim("paged_decode_attention", d)
     if block_size > MAX_BLOCK_SIZE:
         raise ValueError(f"paged_decode_attention: block size {block_size} > {MAX_BLOCK_SIZE}")
     quantized = k_scale is not None
@@ -149,7 +148,7 @@ def paged_decode_attention(
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-        num_slots, num_heads, num_blocks, block_size, nb, float(sm_scale),
+        num_slots, num_heads, num_blocks, block_size, nb, d, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "paged_decode")

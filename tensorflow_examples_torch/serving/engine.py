@@ -56,8 +56,12 @@ from tensorflow_examples_torch.models.transformer import (
     _layer_norm,
     _qkv,
 )
-from tensorflow_examples_torch.ops.attention import NEG_INF, attention_reference
-from tensorflow_examples_torch.ops.decode import HEAD_DIM, flash_decode_attention
+from tensorflow_examples_torch.ops.attention import (
+    NEG_INF,
+    SUPPORTED_HEAD_DIMS,
+    attention_reference,
+)
+from tensorflow_examples_torch.ops.decode import flash_decode_attention
 from tensorflow_examples_torch.ops.paged_decode import paged_decode_attention
 from tensorflow_examples_torch.serving import kv_cache as kv_mod
 from tensorflow_examples_torch.serving import paged_kv
@@ -372,9 +376,9 @@ class InferenceEngine:
             raise ValueError("kv_dtype (quantized KV) requires the paged pool — "
                              "set kv_block_size")
         if (self.device.type == "cuda" and cfg.attention != "xla"
-                and model_cfg.head_dim != HEAD_DIM):
-            raise ValueError(f"attention={cfg.attention!r} kernels take head_dim "
-                             f"{HEAD_DIM}, the model has {model_cfg.head_dim}")
+                and model_cfg.head_dim not in SUPPORTED_HEAD_DIMS):
+            raise ValueError(f"attention={cfg.attention!r} kernels take head_dim in "
+                             f"{SUPPORTED_HEAD_DIMS}, the model has {model_cfg.head_dim}")
         if isinstance(params, GPT2):
             model = params.to(self.device)
         else:

@@ -59,6 +59,7 @@ class Gpt2Config(TrainConfig):
     grad_clip_norm: float = 1.0
     eval_every: int = 2000
     log_every: int = 50
+    checkpoint_every: int = 2000
 
 
 def model_config(cfg: Gpt2Config) -> transformer.TransformerConfig:

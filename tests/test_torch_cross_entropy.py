@@ -145,11 +145,17 @@ def test_plain_kernel_versions_are_the_reference_and_its_gradient():
 
 
 def test_block_sizes_are_accepted_and_cpu_never_counts_a_launch():
+    """The reference's TPU tile sizes: the defaults are accepted, any
+    other value raises (the kernels choose their own tiling); and the
+    CPU path counts no launch."""
     logits, labels = _inputs(9, 8, 64)
     before = (cross_entropy.ce_fwd.launches, cross_entropy.ce_bwd.launches)
     x = torch.from_numpy(logits).requires_grad_()
+    for kw in ({"block_n": 8, "block_v": 16}, {"block_n": 8}, {"block_v": 16}):
+        with pytest.raises(ValueError, match="TPU tile sizes"):
+            cross_entropy.cross_entropy_per_example(x, torch.from_numpy(labels).long(), **kw)
     nll = cross_entropy.cross_entropy_per_example(x, torch.from_numpy(labels).long(),
-                                                  block_n=8, block_v=16)
+                                                  block_n=256, block_v=4096)
     torch.autograd.grad(nll.sum(), x)
     with torch.no_grad():  # eval: the Function's forward still runs
         cross_entropy.cross_entropy_per_example(x, torch.from_numpy(labels).long())

@@ -9,7 +9,8 @@ it; ``tests/conftest.py`` does import jax, hence on the card:
 
 Tolerances are the JAX suite's for the same kernels: atol 2e-5 for f32
 flash-decode and flash forward, 2e-2 for bf16, 5e-4 for f32 flash
-gradients, 2e-6 for paged decode (fp32 and int8); for the fused
+gradients, 2e-6 for paged decode (fp32 and int8), the same at every
+head_dim the attention kernels take; for the fused
 cross-entropy kernels 1e-5 (f32) and 2e-2 (bf16) on the NLL and lse,
 and on dlogits 1e-6 (f32) or one bf16 ulp, 8e-3 relative, of each
 value (bf16); for the grouped-matmul kernels 1e-4 of the largest value
@@ -25,6 +26,8 @@ from tensorflow_examples_torch.ops import (
     attention, cross_entropy, decode, grouped_matmul, paged_decode)
 
 pytestmark = pytest.mark.cuda
+HEAD_DIMS = attention.SUPPORTED_HEAD_DIMS
+UNSUPPORTED_HEAD_DIM = 48
 
 
 @pytest.fixture
@@ -69,13 +72,78 @@ def test_paged_decode_matches_plain(dev, quantized):
     assert float(out[0].abs().max()) == 0.0  # an empty slot writes zeros
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_flash_decode_matches_plain_at_every_head_dim(dev, dtype, atol, head_dim):
+    rng = np.random.default_rng(head_dim)
+    q = _randn(rng, (2, 3, 70, head_dim), dev, dtype)
+    k, v = (_randn(rng, (2, 3, 300, head_dim), dev, dtype) for _ in range(2))
+    out = decode.flash_decode_attention(q, k, v, 200)
+    ref = decode.decode_attention_reference(q, k, v, 200)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("head_dim,block_size", [(d, 16) for d in HEAD_DIMS] + [(128, 64)])
+def test_paged_decode_matches_plain_at_every_head_dim(dev, quantized, head_dim, block_size):
+    """Block 64 at head_dim 128 takes two staged chunks a block."""
+    rng = np.random.default_rng(head_dim + block_size)
+    lengths = torch.tensor([0, 1, block_size, 3 * block_size - 5], dtype=torch.int32, device=dev)
+    tables = torch.tensor([[0, 0, 0], [1, 0, 0], [2, 0, 0], [3, 4, 5]], dtype=torch.int32,
+                          device=dev)
+    q = _randn(rng, (4, 3, head_dim), dev)
+    kb, vb = (_randn(rng, (6, 3, block_size, head_dim), dev) for _ in range(2))
+    kw = {}
+    if quantized:
+        (kb, ks), (vb, vs) = precision.quantize_int8_rows(kb), precision.quantize_int8_rows(vb)
+        kw = {"k_scale": ks, "v_scale": vs}
+    out = paged_decode.paged_decode_attention(q, kb, vb, lengths, tables, **kw)
+    ref = paged_decode.paged_decode_reference(q, kb, vb, lengths, tables, **kw)
+    torch.testing.assert_close(out[1:], ref[1:], atol=2e-6, rtol=2e-6)
+    assert float(out[0].abs().max()) == 0.0
+
+
 def test_kernels_refuse_what_they_cannot_launch(dev):
-    q = torch.zeros(1, 2, 4, 32, device=dev)
+    q = torch.zeros(1, 2, 4, UNSUPPORTED_HEAD_DIM, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         decode.flash_decode_attention(q, q, q, 4)
     q = torch.zeros(1, 2, 4, 64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         decode.flash_decode_attention(q, q.transpose(2, 3).contiguous().transpose(2, 3), q, 4)
+
+
+@pytest.mark.parametrize("attention_impl,kernel", [("flash", "flash_decode"),
+                                                   ("paged_flash", "paged_decode")])
+@pytest.mark.parametrize("head_dim", [*HEAD_DIMS, UNSUPPORTED_HEAD_DIM])
+def test_engine_serves_every_supported_head_dim(dev, attention_impl, kernel, head_dim):
+    """A two-layer model of two heads of head_dim D through the serving
+    engine's kernel path: the greedy stream equals the cacheless plain
+    replay; an unsupported head_dim is refused when the engine is built."""
+    from tensorflow_examples_torch.models import transformer
+    from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
+
+    cfg = transformer.TransformerConfig(vocab_size=64, max_len=128, num_layers=2, num_heads=2,
+                                        d_model=2 * head_dim, dropout=0.0)
+    model = transformer.GPT2(cfg, seed=head_dim)
+    serve_cfg = ServeConfig(max_slots=2, attention=attention_impl,
+                            kv_block_size=16 if attention_impl == "paged_flash" else 0)
+    if head_dim not in HEAD_DIMS:
+        with pytest.raises(ValueError, match="head_dim"):
+            InferenceEngine(cfg, model, cfg=serve_cfg)
+        return
+    engine = InferenceEngine(cfg, model, cfg=serve_cfg)
+    counter = {"flash_decode": decode.flash_decode_attention,
+               "paged_decode": paged_decode.paged_decode_attention}[kernel]
+    before = counter.launches
+    prompt = [int(t) for t in np.random.default_rng(head_dim).integers(0, 64, 21)]
+    tok, logits = engine.prefill(0, prompt)
+    np.testing.assert_allclose(logits, engine.reference_logits(prompt).cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    toks = [tok]
+    for _ in range(7):
+        toks.append(engine.decode([(0, toks[-1], 0, 0.0, 0)])[0])
+    assert counter.launches > before
+    assert toks == engine.reference_generate(prompt, max_new=8)
 
 
 # ------------------------------------------------- flash attention (training)
@@ -90,11 +158,11 @@ FLASH_CASES = [  # (seq_q, seq_kv, causal, key bias)
 ]
 
 
-def _flash_inputs(dev, dtype, seq_q, seq_kv, bias, seed=0):
+def _flash_inputs(dev, dtype, seq_q, seq_kv, bias, seed=0, head_dim=64):
     rng = np.random.default_rng(seed)
     b, h = 2, 3
-    q = _randn(rng, (b * h, seq_q, 64), dev, dtype)
-    k, v, do = (_randn(rng, (b * h, n, 64), dev, dtype) for n in (seq_kv, seq_kv, seq_q))
+    q = _randn(rng, (b * h, seq_q, head_dim), dev, dtype)
+    k, v, do = (_randn(rng, (b * h, n, head_dim), dev, dtype) for n in (seq_kv, seq_kv, seq_q))
     kb = None
     if bias is not None:
         kb = torch.zeros(b, seq_kv, device=dev)
@@ -106,20 +174,34 @@ def _flash_inputs(dev, dtype, seq_q, seq_kv, bias, seed=0):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("seq_q,seq_kv,causal,bias", FLASH_CASES)
 def test_flash_kernels_match_plain(dev, dtype, atol, seq_q, seq_kv, causal, bias):
-    h, q, k, v, do, kb, dlse = _flash_inputs(dev, dtype, seq_q, seq_kv, bias)
+    _check_flash_kernels(dev, dtype, atol, seq_q, seq_kv, causal, bias, head_dim=64)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+@pytest.mark.parametrize("seq_q,seq_kv,causal,bias", [(100, 260, True, None),
+                                                      (96, 160, False, -1e9)])
+def test_flash_kernels_match_plain_at_every_head_dim(dev, dtype, atol, head_dim, seq_q, seq_kv,
+                                                     causal, bias):
+    _check_flash_kernels(dev, dtype, atol, seq_q, seq_kv, causal, bias, head_dim=head_dim)
+
+
+def _check_flash_kernels(dev, dtype, atol, seq_q, seq_kv, causal, bias, *, head_dim):
+    h, q, k, v, do, kb, dlse = _flash_inputs(dev, dtype, seq_q, seq_kv, bias, head_dim=head_dim)
+    sm_scale = head_dim ** -0.5
     kw = dict(heads=h, causal=causal)
     counts = [f.launches for f in (attention.flash_fwd, attention.flash_bwd_dkv,
                                    attention.flash_bwd_dq)]
     o, lse = attention.flash_fwd(q, k, v, kb, **kw)
-    o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, kb, sm_scale=64 ** -0.5, **kw)
+    o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, kb, sm_scale=sm_scale, **kw)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=atol)
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
     delta = (do.float() * o_ref.float()).sum(-1)
     args = (q, k, v, do, lse_ref, delta, dlse, kb)
     dk, dv = attention.flash_bwd_dkv(*args, **kw)
     dq = attention.flash_bwd_dq(*args, **kw)
-    ref = (*attention.flash_bwd_dkv_plain(*args, sm_scale=64 ** -0.5, **kw),
-           attention.flash_bwd_dq_plain(*args, sm_scale=64 ** -0.5, **kw))
+    ref = (*attention.flash_bwd_dkv_plain(*args, sm_scale=sm_scale, **kw),
+           attention.flash_bwd_dq_plain(*args, sm_scale=sm_scale, **kw))
     grad_tol = 5e-4 if dtype == torch.float32 else 5e-2
     for name, a, b in zip(("dk", "dv", "dq"), (dk, dv, dq), ref):
         scale = max(float(b.float().abs().max()), 1.0)
@@ -151,8 +233,23 @@ def test_flash_row_with_no_visible_key_is_zero(dev):
     torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=2e-5)
 
 
+def test_flash_bf16_row_with_no_visible_key_is_zero(dev):
+    """The tensor-core forward: rows that see no key write 0 and lse
+    ~ -1e30, never NaN."""
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (2, 80, 64), dev, torch.bfloat16)
+    k, v = (_randn(rng, (2, 30, 64), dev, torch.bfloat16) for _ in range(2))
+    o, lse = attention.flash_fwd(q, k, v, causal=True)
+    assert torch.isfinite(o.float()).all() and float(o[:, :50].float().abs().max()) == 0.0
+    assert float(lse[:, :50].max()) <= -1e29
+    o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, None, heads=1, causal=True,
+                                               sm_scale=0.125)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[:, 50:], lse_ref[:, 50:], atol=1e-4, rtol=1e-5)
+
+
 def test_flash_kernels_refuse_what_they_cannot_launch(dev):
-    q = torch.zeros(2, 16, 32, device=dev)
+    q = torch.zeros(2, 16, UNSUPPORTED_HEAD_DIM, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         attention.flash_fwd(q, q, q)
     q = torch.zeros(3, 16, 64, device=dev)
@@ -295,3 +392,42 @@ def test_grouped_matmul_kernels_refuse_what_they_cannot_launch(dev):
                            sizes.cpu())
     with pytest.raises(ValueError, match="do not fit"):
         grouped_matmul.tgmm(torch.zeros(8, 4, device=dev), torch.zeros(5, 8, device=dev), sizes)
+
+
+MOE_SIZES = (5000, 3000, 2500, 2000, 1800, 1084, 1000, 0)  # skewed routing over 8 experts
+
+
+@pytest.mark.parametrize("k,n", [(768, 3072), (3072, 768)])
+def test_tensor_core_gmm_matches_plain_at_the_moe_shapes(dev, k, n):
+    """The MoE step's two expert products and their transpose_rhs
+    backward, bf16, through the tensor-core kernel."""
+    rng = np.random.default_rng(k)
+    m, g = sum(MOE_SIZES) + 384, len(MOE_SIZES)  # rows past the last group too
+    lhs, grad = _randn(rng, (m, k), dev, torch.bfloat16), _randn(rng, (m, n), dev, torch.bfloat16)
+    rhs = _randn(rng, (g, k, n), dev, torch.bfloat16)
+    sz = torch.tensor(MOE_SIZES, dtype=torch.int32, device=dev)
+    before = grouped_matmul.gmm.tensor_core_launches, grouped_matmul.gmm.simt_launches
+    out = grouped_matmul.gmm(lhs, rhs, sz)
+    _gmm_close(out, grouped_matmul.gmm_plain(lhs, rhs, sz), torch.bfloat16)
+    assert not out[sum(MOE_SIZES):].float().any()
+    _gmm_close(grouped_matmul.gmm(grad, rhs, sz, transpose_rhs=True),
+               grouped_matmul.gmm_plain(grad, rhs, sz, transpose_rhs=True), torch.bfloat16)
+    assert (grouped_matmul.gmm.tensor_core_launches, grouped_matmul.gmm.simt_launches) == (
+        before[0] + 2, before[1])
+
+
+@pytest.mark.parametrize("dtype,k,n,tensor_cores", [
+    (torch.bfloat16, 768, 3072, True),
+    (torch.bfloat16, 100, 36, False),   # k and n not multiples of 8
+    (torch.float32, 768, 3072, False),  # f32 stays on the SIMT kernel
+])
+def test_gmm_variant_follows_dtype_and_shape(dev, dtype, k, n, tensor_cores):
+    rng = np.random.default_rng(n)
+    sizes = (40, 0, 300, 7)
+    lhs, rhs = _randn(rng, (400, k), dev, dtype), _randn(rng, (4, k, n), dev, dtype)
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    assert grouped_matmul.uses_tensor_cores(lhs, rhs, n) == tensor_cores
+    before = grouped_matmul.gmm.tensor_core_launches, grouped_matmul.gmm.simt_launches
+    _gmm_close(grouped_matmul.gmm(lhs, rhs, sz), grouped_matmul.gmm_plain(lhs, rhs, sz), dtype)
+    assert (grouped_matmul.gmm.tensor_core_launches, grouped_matmul.gmm.simt_launches) == (
+        before[0] + tensor_cores, before[1] + (not tensor_cores))

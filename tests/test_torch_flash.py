@@ -191,16 +191,28 @@ def test_dot_product_attention_dispatches():
 def test_plain_kernel_versions_match_jax_kernels(causal, bias):
     """Each plain version against the JAX kernel function it stands for,
     on the folded [BH, seq, 64] layout, with a nonzero lse cotangent."""
+    _check_plain_kernel_versions(causal, bias, 64)
+
+
+@pytest.mark.parametrize("head_dim", [8, 16, 128])
+@pytest.mark.parametrize("causal,bias", [(True, False), (False, True)])
+def test_plain_kernel_versions_match_jax_kernels_at_other_head_dims(causal, bias, head_dim):
+    """The same at head_dims the kernels also take: 1/sqrt(D) is no power
+    of two at 8 and 128."""
+    _check_plain_kernel_versions(causal, bias, head_dim)
+
+
+def _check_plain_kernel_versions(causal, bias, d):
     b, h, seq_q, seq_kv = 2, 2, 128, 192
-    q, k, v = _inputs((b * h, seq_q, 64), (b * h, seq_kv, 64), seed=11)
+    q, k, v = _inputs((b * h, seq_q, d), (b * h, seq_kv, d), seed=11)
     rng = np.random.default_rng(12)
-    do = rng.standard_normal((b * h, seq_q, 64)).astype(np.float32)
+    do = rng.standard_normal((b * h, seq_q, d)).astype(np.float32)
     dlse = rng.standard_normal((b * h, seq_q)).astype(np.float32)
     kb = None
     if bias:
         kb = np.zeros((b, seq_kv), np.float32)
         kb[1, 150:] = -1e9
-    scale = 64 ** -0.5
+    scale = d ** -0.5
     jkb = None if kb is None else jnp.asarray(kb)
     jo, jlse = jax_attention._flash_fwd(*_jax(q, k, v), scale, causal, 64, 64, True,
                                         kb=jkb, heads=h)

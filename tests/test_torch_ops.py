@@ -19,7 +19,7 @@ from tensorflow_examples_tpu.core import precision as jax_precision
 from tensorflow_examples_tpu.ops import decode as jax_decode
 from tensorflow_examples_tpu.ops import paged_decode as jax_paged
 from tensorflow_examples_torch.core import precision
-from tensorflow_examples_torch.ops import _build, decode, paged_decode
+from tensorflow_examples_torch.ops import _build, attention, decode, paged_decode
 
 
 @pytest.fixture(autouse=True)
@@ -86,6 +86,17 @@ class TestFlashDecodeParity:
         )
         np.testing.assert_allclose(ours, np.asarray(kernel), atol=2e-5, rtol=2e-5)
 
+    @pytest.mark.parametrize("head_dim", [8, 16, 128])
+    def test_other_head_dims_match_jax_kernel(self, head_dim):
+        rng = np.random.default_rng(head_dim)
+        q = _rand(rng, (1, 2, 40, head_dim))
+        k, v = _rand(rng, (1, 2, 256, head_dim)), _rand(rng, (1, 2, 256, head_dim))
+        ours = decode.flash_decode_attention(_t(q), _t(k), _t(v), 200).numpy()
+        kernel = jax_decode.flash_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 200, block_q=8, block_kv=128
+        )
+        np.testing.assert_allclose(ours, np.asarray(kernel), atol=2e-5, rtol=2e-5)
+
     def test_bf16_cache(self):
         rng = np.random.default_rng(12)
         q = _rand(rng, (1, 2, 1, 64))
@@ -137,6 +148,24 @@ class TestPagedDecodeParity:
         q = _rand(rng, (len(lengths), self.H, self.D))
         k, v = self._pool(len(lengths))
         ours, kernel, ref = self._both(q, k, v, lengths, tables)
+        np.testing.assert_allclose(ours, kernel, atol=2e-6, rtol=2e-6)
+        np.testing.assert_allclose(ours, ref, atol=2e-6, rtol=2e-6)
+
+    @pytest.mark.parametrize("head_dim", [8, 16, 128])
+    @pytest.mark.parametrize("quantized", [False, True])
+    def test_other_head_dims_match_jax_kernel(self, head_dim, quantized):
+        rng = np.random.default_rng(head_dim)
+        shape = (self.NB, self.H, self.BS, head_dim)
+        q = _rand(rng, (3, self.H, head_dim))
+        k, v = _rand(rng, shape), _rand(rng, shape)
+        scales = {}
+        if quantized:
+            k, ks = (np.asarray(x) for x in jax_precision.quantize_int8_rows(jnp.asarray(k)))
+            v, vs = (np.asarray(x) for x in jax_precision.quantize_int8_rows(jnp.asarray(v)))
+            scales = {"k_scale": ks, "v_scale": vs}
+        ours, kernel, ref = self._both(
+            q, k, v, [5, 16, 27], [[1, 0, 0, 0], [2, 3, 0, 0], [4, 5, 6, 7]], **scales
+        )
         np.testing.assert_allclose(ours, kernel, atol=2e-6, rtol=2e-6)
         np.testing.assert_allclose(ours, ref, atol=2e-6, rtol=2e-6)
 
@@ -216,13 +245,43 @@ class TestWrappers:
         with pytest.raises(ValueError, match="CUDA tensor"):
             decode.flash_decode_attention(q, q, q, 16)
         with pytest.raises(ValueError, match="head_dim"):
-            p = torch.empty(2, 2, 16, device="meta")
+            p = torch.empty(2, 2, 48, device="meta")  # not a head_dim the kernels take
             paged_decode.paged_decode_attention(
-                p, torch.empty(3, 2, 8, 16, device="meta"),
-                torch.empty(3, 2, 8, 16, device="meta"),
+                p, torch.empty(3, 2, 8, 48, device="meta"),
+                torch.empty(3, 2, 8, 48, device="meta"),
                 torch.empty(2, dtype=torch.int32, device="meta"),
                 torch.empty(2, 1, dtype=torch.int32, device="meta"),
             )
+
+    @pytest.mark.parametrize("head_dim", [*attention.SUPPORTED_HEAD_DIMS, 48, 256])
+    @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                                        "flash_decode", "paged_decode"])
+    def test_every_wrapper_takes_exactly_the_supported_head_dims(self, kernel, head_dim):
+        """On a tensor that is not on the CPU (meta stands in for the
+        card), a supported head_dim passes the head_dim check and stops
+        only at "CUDA tensor"; 48 and 256 are refused naming the set."""
+        d = head_dim
+
+        def meta(*shape, dtype=torch.float32):
+            return torch.empty(*shape, dtype=dtype, device="meta")
+
+        q, rows = meta(4, 16, d), meta(4, 16)
+        calls = {
+            "flash_fwd": lambda: attention.flash_fwd(q, q, q, heads=2),
+            "flash_bwd_dkv": lambda: attention.flash_bwd_dkv(q, q, q, q, rows, rows, rows,
+                                                             heads=2),
+            "flash_bwd_dq": lambda: attention.flash_bwd_dq(q, q, q, q, rows, rows, rows,
+                                                           heads=2),
+            "flash_decode": lambda: decode.flash_decode_attention(
+                meta(1, 2, 4, d), meta(1, 2, 16, d), meta(1, 2, 16, d), 8),
+            "paged_decode": lambda: paged_decode.paged_decode_attention(
+                meta(2, 2, d), meta(3, 2, 8, d), meta(3, 2, 8, d),
+                meta(2, dtype=torch.int32), meta(2, 1, dtype=torch.int32)),
+        }
+        supported = d in attention.SUPPORTED_HEAD_DIMS
+        match = "CUDA tensor" if supported else r"head_dim %d unsupported .*\(8, 16, 32, 64, 128\)" % d
+        with pytest.raises(ValueError, match=match):
+            calls[kernel]()
 
     def test_kernel_modules_import_and_build_nothing_without_nvcc(self, monkeypatch):
         """Importing the kernel modules builds nothing; a build with no
