@@ -31,10 +31,17 @@ non-zero:
    [8, 768, 3072] and [16384, 3072] x [8, 3072, 768], with the skewed
    group sizes ``MOE_SIZES``, bf16 and f32, plus m=2, m=1554, k and n of
    100 and 36, every row in one group, one-row groups and empty groups
-   first and last (``tgmm`` exact zeros), with ``torch._grouped_mm`` (or,
-   where it refuses, the per-group ``torch.matmul`` loop) timed as a
-   yardstick only; the bf16 MoE shapes must take gmm's tensor-core
-   kernel, k and n of 100 and 36 its SIMT one);
+   first and last (``tgmm`` exact zeros, through ``lhs.T`` and a
+   contiguous ``lhs_t``), with ``torch._grouped_mm`` (or, where it
+   refuses, the per-group ``torch.matmul`` loop) timed as a yardstick
+   only; the bf16 MoE shapes must take the tensor-core gmm and tgmm, f32
+   and k, n of 100 and 36 the SIMT ones; bf16 ``tgmm`` is also timed at
+   both MoE shapes with every expert at 2048 rows and with every row in
+   one group, beside its rows-per-chunk neighbours (2048, 8192); and the
+   MoE bias gathers' backward ``group_row_sum`` at [16384, 3072] and
+   [16384, 768] with ``MOE_SIZES``, bf16 and f32, against its plain
+   version, rerun bit-identical, with ``torch.segment_reduce`` timed as
+   a yardstick only);
 4. training: GPT-2 124M at full width on synthetic bigram data through
    ``Trainer.fit`` (bf16 compute, dropout 0.1, batch 16 x 1024, 20 steps,
    warmup cut to 5 steps so the loss can move, the fused cross-entropy
@@ -61,10 +68,12 @@ non-zero:
    through ``Trainer.fit`` for 20 steps (warmup cut to 5), checkpointing
    at the end, after step 0 (f32, router jitter on) with the grouped
    kernels is held to ``impl="scatter"`` at capacity factor 8 (nothing
-   drops) and to the plain gmm/tgmm; loss falling, ``moe_drop`` 0,
-   ``moe_aux`` finite, exactly 24 gmm (all on the tensor cores) and 12
-   tgmm launches a step, step time, tokens/s, peak memory and one
-   profiled step;
+   drops) and to the plain gmm/tgmm/group_row_sum (step 0 takes the
+   SIMT tgmm, 12 launches, and 12 ``group_row_sum``); loss falling,
+   ``moe_drop`` 0, ``moe_aux`` finite, exactly 24 gmm and 12 tgmm
+   launches a step, all on the tensor cores, and 12 ``group_row_sum``,
+   step time, tokens/s, peak memory and one profiled step, which must
+   run no ``indexing_backward_kernel``;
 4d. MoE generate: 32 greedy tokens from a step-0 checkpoint of the MoE
    model's initial parameters from seed 0 (the 20-step state decodes to
    one token repeated) through ``tensorflow_examples_torch.generate``
@@ -78,7 +87,8 @@ non-zero:
    KV), 8 concurrent greedy requests each, every stream checked against
    the cacheless ``reference_generate`` on the card and the kernels'
    launch counters read around the served requests;
-6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. the ``{"group_row_sum": {...}}`` line (not the port of a TPU kernel),
+   the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -134,7 +144,12 @@ GMM_EDGES = (
     ("one-row groups", 1025, 768, 3072, (1, 512, 0, 511, 1, 0, 0, 0)),
     ("empty first and last", 2048, 3072, 768, (0, 700, 600, 748, 0, 0, 0, 0)),
 )
-MOE_KERNELS = ("gmm", "tgmm")
+# tgmm's timed routings at both MoE shapes, beside MOE_SIZES: every
+# expert at 2048 rows (no group split) and every row in one group.
+TGMM_ROUTINGS = (("balanced", (2048,) * 8), ("one group", (0, 0, 0, 16384, 0, 0, 0, 0)))
+TGMM_CHUNK_SWEEP = (2048, 4096, 8192)  # tgmm's rows per chunk, timed around the chosen one
+ROW_SUM_WIDTHS = (3072, 768)           # the bias gradients: b_in [8, ff], b_out [8, d]
+MOE_KERNELS = ("gmm", "tgmm", "group_row_sum")
 SWEEP_HEAD_DIMS = (8, 16, 32, 128)  # head_dim 64 is the main path's, checked above
 MIN_DISTINCT = 8                    # distinct tokens a compared 32-token stream needs
 MOE_GENERATE_SEED = 0               # the MoE generate phase's init (the serving phase's seed)
@@ -724,8 +739,31 @@ def library_grouped(torch, lhs, rhs, grad, sizes, kind):
     return "per-group torch.matmul loop", plain
 
 
+def row_sum_times(m, n, g, itemsize):
+    """(bytes_ms, ops_ms) of one group_row_sum call: x [m, n] read once,
+    [g, n] written once, the sizes read; m n additions in f32."""
+    nbytes = (m * n + g * n) * itemsize + 4 * g
+    return nbytes / HBM_BYTES_PER_S * 1e3, m * n / PEAK_OPS_PER_S["float32"] * 1e3
+
+
+def library_row_sum(torch, x, sizes):
+    """(name, callable): ``torch.segment_reduce`` over the sorted rows,
+    timed as a yardstick only (its length check may sync with the host,
+    so the port never calls it); None where it refuses these inputs."""
+    lengths = sizes.long()
+    call = lambda: torch.segment_reduce(x, "sum", lengths=lengths, unsafe=True)
+    try:
+        call()
+        torch.cuda.synchronize()
+        return "torch.segment_reduce", call
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"  torch.segment_reduce refused {x.dtype}: {str(e).splitlines()[0][:120]}")
+        return None, None
+
+
 def phase_moe_kernels(torch, gm) -> dict:
-    """The grouped-matmul kernels against their plain versions."""
+    """The grouped-matmul kernels and the bias gathers' segmented sum
+    against their plain versions."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4)
     rows, worst = {}, {}
@@ -733,7 +771,14 @@ def phase_moe_kernels(torch, gm) -> dict:
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen).to(dev, dtype)
 
-    def check(label, m, k, n, sizes, dtype, timed=False):
+    def counts():
+        return (gm.gmm.tensor_core_launches, gm.gmm.simt_launches,
+                gm.tgmm.tensor_core_launches, gm.tgmm.simt_launches)
+
+    def check(label, m, k, n, sizes, dtype, timed=()):
+        """Every kind against its plain version (tgmm through ``lhs.T``
+        and a contiguous ``lhs_t``), the variant each took, and the times
+        of the kinds in ``timed``."""
         dname = str(dtype).replace("torch.", "")
         g = len(sizes)
         lhs, rhs = randn(m, k, dtype=dtype), randn(g, k, n, dtype=dtype)
@@ -747,34 +792,41 @@ def phase_moe_kernels(torch, gm) -> dict:
         }
         errs = {}
         tensor_cores = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+        want = {"gmm": (1, 0, 0, 0), "gmm_t": (1, 0, 0, 0), "tgmm": (0, 0, 1, 0)}
+        if not tensor_cores:
+            want = {"gmm": (0, 1, 0, 0), "gmm_t": (0, 1, 0, 0), "tgmm": (0, 0, 0, 1)}
         for kind, (kernel, plain) in calls.items():
-            before = gm.gmm.tensor_core_launches, gm.gmm.simt_launches
+            before = counts()
             out, ref = kernel(), plain()
             torch.cuda.synchronize()
             errs[kind] = gmm_err(torch, out, ref, dtype)
-            took = (gm.gmm.tensor_core_launches - before[0], gm.gmm.simt_launches - before[1])
-            if kind != "tgmm" and took != ((1, 0) if tensor_cores else (0, 1)):
-                fail(f"gmm[{label}] {dname} {kind}: launched (tensor-core, SIMT) {took}, "
-                     f"expected the {'tensor-core' if tensor_cores else 'SIMT'} kernel")
+            took = tuple(a - b for a, b in zip(counts(), before))
+            if took != want[kind]:
+                fail(f"gmm[{label}] {dname} {kind}: launched (gmm tensor-core, gmm SIMT, tgmm "
+                     f"tensor-core, tgmm SIMT) {took}, expected {want[kind]}")
             if kind == "tgmm":
+                contiguous = gm.tgmm(lhs.T.contiguous(), grad, sz)
+                torch.cuda.synchronize()
+                errs["tgmm_contiguous"] = gmm_err(torch, contiguous, ref, dtype)
                 empty = [i for i, size in enumerate(sizes) if size == 0]
-                nonzero = [i for i in empty if bool(out[i].any())]
+                nonzero = [i for i in empty if bool(out[i].any()) or bool(contiguous[i].any())]
                 if nonzero:
                     fail(f"tgmm[{label}] {dname}: empty groups {nonzero} are not exact zeros")
+                del contiguous
             del out, ref
+        variant = "tensor-core" if tensor_cores else "SIMT"
         log(f"gmm[{label}] {dname} m={m} k={k} n={n} sizes={list(sizes)}: max_abs_err "
             + " ".join(f"{kind} {err:.3e}" for kind, (err, _) in errs.items())
-            + f"; gmm kernel {'tensor-core' if tensor_cores else 'SIMT'}; tgmm empty groups "
-            "exact zeros")
+            + f"; gmm and tgmm kernels {variant}; tgmm empty groups exact zeros")
         bad = [kind for kind, (_, ok) in errs.items() if not ok]
         if bad:
             fail(f"gmm[{label}] {dname}: {bad} outside tolerance (1e-4 of max |ref|, plus "
                  f"8e-3 |ref| per element in bf16)")
         for kind, (err, _) in errs.items():
+            kind = kind.split("_contiguous")[0]
             worst[f"{dname}/{kind}"] = max(worst.get(f"{dname}/{kind}", 0.0), err)
-        if not timed:
-            return
-        for kind, (kernel, plain) in calls.items():
+        for kind in timed:
+            kernel, plain = calls[kind]
             ms = cuda_ms(torch, kernel)
             plain_ms = cuda_ms(torch, plain, iters=5, warmup=1)
             lib_name, lib = library_grouped(torch, lhs, rhs, grad, sizes, kind)
@@ -783,21 +835,34 @@ def phase_moe_kernels(torch, gm) -> dict:
             t_bytes, t_ops = gmm_times(m, kk, nn, g, lhs.element_size(), dname,
                                        "tgmm" if kind == "tgmm" else "gmm")
             bound_ms, by = bound(t_bytes, t_ops)
-            log(f"{kind} {dname} m={m} k={kk} n={nn} g={g}: kernel_ms {ms:.4f} plain_ms "
+            extra = ""
+            row = {}
+            if kind == "tgmm" and tensor_cores:  # the chunk size R, against its neighbours
+                sweep = {}
+                for chunk in TGMM_CHUNK_SWEEP:
+                    saved, gm.TGMM_CHUNK_ROWS = gm.TGMM_CHUNK_ROWS, chunk
+                    try:
+                        sweep[chunk] = cuda_ms(torch, kernel)
+                    finally:
+                        gm.TGMM_CHUNK_ROWS = saved
+                row["chunk_rows_ms"] = sweep
+                extra = "; chunk rows " + " ".join(f"{c}: {t:.4f}" for c, t in sweep.items())
+            log(f"{kind} {dname} [{label}] m={m} k={kk} n={nn} g={g}: kernel_ms {ms:.4f} plain_ms "
                 f"{plain_ms:.4f} bytes_ms {t_bytes:.5f} ops_ms {t_ops:.5f} bound_ms "
-                f"{bound_ms:.5f} ({by}); library {lib_name} ms {lib_ms:.4f}")
+                f"{bound_ms:.5f} ({by}); library {lib_name} ms {lib_ms:.4f}{extra}")
             rows[f"{dname}/{label}/{kind}"] = dict(
                 shape=f"m={m} k={kk} n={nn} g={g} {dname} sizes={list(sizes)}", ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                library=lib_name, max_abs_err=errs[kind][0],
-                kernel="tgmm SIMT" if kind == "tgmm" else
-                "tensor-core" if tensor_cores else "SIMT")
+                library=lib_name, max_abs_err=errs[kind][0], kernel=variant, **row)
         del lhs, rhs, grad
         torch.cuda.empty_cache()
 
     for dtype in (torch.bfloat16, torch.float32):
         for m, k, n in MOE_SHAPES:
-            check(f"k={k}", m, k, n, MOE_SIZES, dtype, timed=True)
+            check(f"k={k}", m, k, n, MOE_SIZES, dtype, timed=("gmm", "gmm_t", "tgmm"))
+            if dtype == torch.bfloat16:
+                for label, sizes in TGMM_ROUTINGS:
+                    check(f"k={k} {label}", m, k, n, sizes, dtype, timed=("tgmm",))
         for label, m, k, n, sizes in GMM_EDGES:
             check(label, m, k, n, sizes, dtype)
     # The rows carry the first expert product (x [16384, 768] x w_in) for
@@ -813,7 +878,52 @@ def phase_moe_kernels(torch, gm) -> dict:
         row["worst_abs_err_all_cases"] = {
             d: max(worst[f"{d}/{kind}"] for kind in kinds) for d in ("bfloat16", "float32")}
         out[name] = row
+    out["tgmm"]["design"] = (f"tensor cores (mma.sync bf16), groups split at "
+                             f"{gm.TGMM_CHUNK_ROWS} rows; f32 SIMT")
+    out["group_row_sum"] = phase_row_sum(torch, gm, randn)
     return out
+
+
+def phase_row_sum(torch, gm, randn) -> dict:
+    """The MoE bias gathers' backward, ``group_row_sum``, against its
+    plain version at the step's two bias gradients, with its byte bound
+    and ``torch.segment_reduce`` as the yardstick."""
+    sz = torch.tensor(MOE_SIZES, dtype=torch.int32, device="cuda")
+    m, g = sum(MOE_SIZES), len(MOE_SIZES)
+    result = {}
+    for n in ROW_SUM_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            x = randn(m, n, dtype=dtype)
+            before = gm.group_row_sum.launches
+            out, ref = gm.group_row_sum(x, sz), gm.group_row_sum_plain(x, sz)
+            torch.cuda.synchronize()
+            if gm.group_row_sum.launches != before + 1:
+                fail(f"group_row_sum [{m}, {n}] {dname}: the kernel did not launch")
+            err, ok = gmm_err(torch, out, ref, dtype)
+            rerun = gm.group_row_sum(x, sz)
+            if not ok or not torch.equal(out, rerun) or bool(out[MOE_SIZES.index(0)].any()):
+                fail(f"group_row_sum [{m}, {n}] {dname}: max_abs_err {err:.3e} (limit 1e-4 of "
+                     "max |ref|, plus 8e-3 |ref| in bf16), a rerun not bit-identical, or the "
+                     "empty group not zero")
+            ms = cuda_ms(torch, lambda: gm.group_row_sum(x, sz))
+            plain_ms = cuda_ms(torch, lambda: gm.group_row_sum_plain(x, sz), iters=5, warmup=1)
+            lib_name, lib = library_row_sum(torch, x, sz)
+            lib_ms = cuda_ms(torch, lib, iters=5, warmup=1) if lib else None
+            t_bytes, t_ops = row_sum_times(m, n, g, x.element_size())
+            bound_ms, by = bound(t_bytes, t_ops)
+            result[f"{dname}/n={n}"] = dict(
+                shape=f"[{m}, {n}] {dname} sizes={list(MOE_SIZES)}", ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library=lib_name, library_ms=lib_ms,
+                max_abs_err=err)
+            log(f"group_row_sum {dname} [{m}, {n}] g={g}: kernel_ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} bytes_ms {t_bytes:.5f} ops_ms {t_ops:.5f} bound_ms "
+                f"{bound_ms:.5f} ({by}); library {lib_name} ms "
+                f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}; max_abs_err {err:.3e}, "
+                "rerun bit-identical")
+            del x, out, ref, rerun
+    torch.cuda.empty_cache()
+    return result
 
 
 # ---------------------------------------------------------------- phase 4
@@ -822,7 +932,9 @@ def phase_moe_kernels(torch, gm) -> dict:
 def device_split(torch, fn) -> dict:
     """torch.profiler around ``fn`` (which ends synchronized): host wall,
     summed kernel time, and kernel time by kind (the port's flash
-    kernels, matmuls, everything else); idle = wall - kernel time."""
+    kernels, its grouped-matmul and row-sum kernels, matmuls, everything
+    else); idle = wall - kernel time. ``indexing_backward_ms`` is PyTorch's
+    scatter-add backward of a row gather, which the MoE step must not run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -832,26 +944,32 @@ def device_split(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    split = {"flash": 0.0, "gmm": 0.0, "tgmm": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {"flash": 0.0, "gmm": 0.0, "tgmm": 0.0, "group_row_sum": 0.0, "matmul": 0.0,
+             "other": 0.0}
     launches = 0
+    indexing_backward = 0.0
     top = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
+        # "gmm_tc_kernel" is a substring of "tgmm_tc_kernel": tgmm is matched first.
         kind = ("flash" if "flash_" in name else
-                "tgmm" if "tgmm_kernel" in name else
+                "tgmm" if "tgmm" in name else
                 "gmm" if "gmm_kernel" in name or "gmm_tc_kernel" in name else
+                "group_row_sum" if "group_row_sum" in name else
                 "matmul" if any(t in name for t in ("gemm", "cutlass", "xmma", "cublas", "sm90_"))
                 else "other")
         split[kind] += ms
         launches += e.count
+        if "indexing_backward" in name:
+            indexing_backward += ms
         top[e.key[:70]] = ms
     busy = sum(split.values())
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_ms": wall_ms - busy,
             "busy_share": busy / wall_ms, **{f"{k}_ms": v for k, v in split.items()},
-            "kernel_launches": launches,
+            "indexing_backward_ms": indexing_backward, "kernel_launches": launches,
             "top": sorted(top.items(), key=lambda kv: -kv[1])[:8]}
 
 
@@ -1117,18 +1235,20 @@ def moe_config(gpt2, **kw):
 
 
 class plain_grouped_matmul:
-    """Within the block, the grouped-matmul Function runs the plain
-    versions (the kernels' comparison, never the main path)."""
+    """Within the block, the grouped-matmul Function and the MoE bias
+    gathers' backward run the plain versions (the kernels' comparison,
+    never the main path)."""
 
     def __init__(self, gm):
         self.gm = gm
 
     def __enter__(self):
-        self.saved = self.gm.gmm, self.gm.tgmm
-        self.gm.gmm, self.gm.tgmm = self.gm.gmm_plain, self.gm.tgmm_plain
+        self.saved = self.gm.gmm, self.gm.tgmm, self.gm.group_row_sum
+        self.gm.gmm, self.gm.tgmm, self.gm.group_row_sum = (
+            self.gm.gmm_plain, self.gm.tgmm_plain, self.gm.group_row_sum_plain)
 
     def __exit__(self, *exc):
-        self.gm.gmm, self.gm.tgmm = self.saved
+        self.gm.gmm, self.gm.tgmm, self.gm.group_row_sum = self.saved
 
 
 class pinned_routing:
@@ -1196,7 +1316,8 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
     # Step 0 in f32 with the router jitter on (train=True, the step key):
     # the grouped kernels against the scatter formulation at capacity 8
     # (nothing drops, so both compute one function) and against the plain
-    # gmm/tgmm, each replaying the kernel run's routing (pinned_routing).
+    # gmm/tgmm/group_row_sum, each replaying the kernel run's routing
+    # (pinned_routing). f32 takes the SIMT tgmm.
     step0, recorded = {}, None
     runs = (("grouped", "grouped", {}, False),
             ("scatter", "scatter", {"moe_capacity_factor": 8.0}, False),
@@ -1207,6 +1328,7 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
         leaves = {k: p.detach().requires_grad_() for k, p in trainer.state.params.items()}
         for c in counters.values():
             c.launches = 0
+        gm.tgmm.tensor_core_launches = gm.tgmm.simt_launches = 0
         with pinned_routing(moe_mod, recorded) as routing, \
                 plain_grouped_matmul(gm) if plain else contextlib.nullcontext():
             loss, metrics, _ = trainer.task.loss_fn(
@@ -1215,7 +1337,9 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
             grads = torch.autograd.grad(loss, list(leaves.values()))
         recorded = recorded or routing.calls
         step0[label] = (float(loss.detach()), dict(zip(leaves, grads)),
-                        {k: counters[k].launches for k in MOE_KERNELS},
+                        {**{k: counters[k].launches for k in MOE_KERNELS},
+                         "tgmm_tensor_core": gm.tgmm.tensor_core_launches,
+                         "tgmm_simt": gm.tgmm.simt_launches},
                         {k: float(v.detach()) for k, v in metrics.items()},
                         (routing.flips, routing.worst_gap))
         del trainer, leaves, loss, grads, metrics
@@ -1240,7 +1364,8 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
 
     checks = {"grouped_vs_scatter": compare("grouped", "scatter"),
               "grouped_vs_plain": compare("grouped", "grouped_plain")}
-    want = {"gmm": 4 * n_moe, "tgmm": 2 * n_moe}
+    want = {"gmm": 4 * n_moe, "tgmm": 2 * n_moe, "group_row_sum": 2 * n_moe,
+            "tgmm_tensor_core": 0, "tgmm_simt": 2 * n_moe}
     if step0["grouped"][2] != want:
         fail(f"moe step 0: launches {step0['grouped'][2]}, expected {want}")
     if any(step0[k][2][n] for k in ("scatter", "grouped_plain") for n in MOE_KERNELS):
@@ -1260,12 +1385,15 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
     for c in counters.values():
         c.launches = 0
     gm.gmm.tensor_core_launches = gm.gmm.simt_launches = 0
+    gm.tgmm.tensor_core_launches = gm.tgmm.simt_launches = 0
     t0 = time.perf_counter()
     trainer.fit(data, num_steps=TRAIN_STEPS)
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     launches["gmm_tensor_core"] = gm.gmm.tensor_core_launches
     launches["gmm_simt"] = gm.gmm.simt_launches
+    launches["tgmm_tensor_core"] = gm.tgmm.tensor_core_launches
+    launches["tgmm_simt"] = gm.tgmm.simt_launches
     hist = trainer.history
     losses = [h["loss"] for h in hist]
     if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1274,7 +1402,8 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
         fail(f"moe train: moe_drop / moe_aux / bad_step per step: "
              f"{[(h['moe_drop'], h['moe_aux'], h['bad_step']) for h in hist]}")
     for name, per_step in (("gmm", 4 * n_moe), ("gmm_tensor_core", 4 * n_moe), ("gmm_simt", 0),
-                           ("tgmm", 2 * n_moe), ("flash_fwd", base.num_layers),
+                           ("tgmm", 2 * n_moe), ("tgmm_tensor_core", 2 * n_moe), ("tgmm_simt", 0),
+                           ("group_row_sum", 2 * n_moe), ("flash_fwd", base.num_layers),
                            ("ce_fwd", 1), ("ce_bwd", 1)):
         if launches[name] != per_step * TRAIN_STEPS:
             fail(f"moe train: {name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
@@ -1299,6 +1428,10 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
     one_step()
     prof = device_split(torch, one_step)
     log(f"profile[moe train step] (ms): {json.dumps(prof)}")
+    if prof["indexing_backward_ms"] > 0:
+        fail(f"moe train: the profiled step ran indexing_backward_kernel for "
+             f"{prof['indexing_backward_ms']:.3f} ms: a row gather's backward left the "
+             "segmented sum")
     summary["profile"] = prof
     del trainer
     torch.cuda.empty_cache()
@@ -1346,7 +1479,8 @@ def phase_moe_generate(torch, counters, gm, workdir: str) -> dict:
                 0 <= t < cfg.vocab_size for t in toks):
             fail(f"moe generate[{label}]: step {step}, malformed stream {toks}")
         streams[label] = toks[64:]
-    if launches["kernels"] != {"gmm": 2 * n_moe * 32, "tgmm": 0} or any(launches["plain"].values()):
+    if launches["kernels"] != {"gmm": 2 * n_moe * 32, "tgmm": 0, "group_row_sum": 0} or any(
+            launches["plain"].values()):
         fail(f"moe generate: launches {launches}, expected {2 * n_moe * 32} gmm with the kernels, "
              "none with the plain versions")
     verdict = "exact"
@@ -1586,7 +1720,8 @@ def main() -> int:
                 "ce_fwd": cross_entropy.ce_fwd,
                 "ce_bwd": cross_entropy.ce_bwd,
                 "gmm": grouped_matmul.gmm,
-                "tgmm": grouped_matmul.tgmm}
+                "tgmm": grouped_matmul.tgmm,
+                "group_row_sum": grouped_matmul.group_row_sum}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         workdir = os.path.join(tmp, "run")
         training = phase_training(torch, counters, smi, workdir)
@@ -1603,6 +1738,14 @@ def main() -> int:
     summaries = phase_serving(torch, model, model_cfg, counters)
 
     rows["gmm"]["tensor_core_launches"] = moe["launches"]["gmm_tensor_core"]
+    rows["tgmm"]["tensor_core_launches"] = moe["launches"]["tgmm_tensor_core"]
+    # Not the port of a TPU kernel (the MoE bias gathers' backward): its own line.
+    log(json.dumps({"group_row_sum": {
+        "route": "cuda", "source": GMM_SOURCE,
+        "replaces": "PyTorch's indexing backward of b_in[srt_eid] / b_out[srt_eid] "
+                    "(tensorflow_examples_torch/parallel/moe.py, the port of "
+                    "tensorflow_examples_tpu/parallel/moe.py:374-377 jnp.take)",
+        "launches": moe["launches"]["group_row_sum"], **rows.pop("group_row_sum")}}))
     kernels = []
     for name, source, replaces, launches in (
         ("flash_decode", FLASH_SOURCE, "tensorflow_examples_tpu/ops/decode.py:78",
@@ -1628,7 +1771,7 @@ def main() -> int:
             "launches": launches, **{k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
             **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "library_fwd_bwd_ms", "library",
-                                   "all_shapes", "worst_abs_err_all_cases",
+                                   "all_shapes", "worst_abs_err_all_cases", "design",
                                    "head_dim_sweep_max_abs_err", "tensor_core_launches")
                if k in row},
         })

@@ -190,7 +190,9 @@ class Block(nn.Module):
 
 
 def _embed(model: "GPT2", tokens, positions):
-    return model.wte.embedding[tokens] + model.wpe.embedding[positions]
+    # F.embedding, not tensor indexing: its backward is PyTorch's
+    # embedding backward, not the general scatter-add of an indexed read.
+    return F.embedding(tokens, model.wte.embedding) + F.embedding(positions, model.wpe.embedding)
 
 
 def _layer_norm(x, ln, eps=1e-5):

@@ -21,16 +21,23 @@ read the sizes on the device: no call syncs with the host. The megablox
 tiling argument has no counterpart: the kernels pick their own tiles and
 take any m, k and n.
 
-:func:`gmm` has two kernels and picks one by what it is given, counting
-each beside ``gmm.launches``: bf16 with k and n multiples of 8 and
-16-byte-aligned operands (every gmm of the MoE step) runs on the tensor
-cores (``gmm.tensor_core_launches``); anything else, f32 included, runs
-the SIMT kernel (``gmm.simt_launches``).
+:func:`gmm` and :func:`tgmm` have two kernels each and pick one by what
+they are given, counting each beside ``launches``: bf16 with k and n
+multiples of 8 and 16-byte-aligned operands (every gmm and tgmm of the
+MoE step) runs on the tensor cores (``tensor_core_launches``); anything
+else, f32 included, runs the SIMT kernel (``simt_launches``).
 
 :func:`grouped_matmul` is the differentiable product, a
 ``torch.autograd.Function`` whose backward is megablox's ``_gmm_bwd``:
 ``dlhs = gmm(grad, rhs, transpose_rhs=not transpose_rhs)`` and
 ``drhs = tgmm(lhs.T, grad)`` in ``rhs``'s dtype.
+
+:func:`group_row_sum` (plain version :func:`group_row_sum_plain`) sums
+each segment's rows, ``x [m, n] -> [g, n]``: the backward of gathering
+one row per expert onto rows sorted by expert (the MoE biases, in
+``parallel/moe.py``). Not the port of a TPU kernel: its kernel replaces
+PyTorch's scatter-add backward of that gather, deterministic and without
+a host sync.
 """
 
 from __future__ import annotations
@@ -42,6 +49,14 @@ import torch
 from tensorflow_examples_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Rows of a group one tensor-core tgmm CTA sums at most: a larger group is
+# split into chunks whose f32 partials a second launch adds in order. At
+# 4096 a balanced 8-way MoE step (2048 rows a group) is never split, and
+# all 16384 rows in one group make 4 chunks (37.7 MB of partials at k 768,
+# n 3072).
+TGMM_CHUNK_ROWS = 4096
+# Rows of a group one group_row_sum CTA sums at most: 16 a warp.
+ROW_SUM_CHUNK_ROWS = 128
 
 
 def _offsets(group_sizes: torch.Tensor, m: int) -> list[tuple[int, int]]:
@@ -69,6 +84,17 @@ def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *
     return out.to(lhs.dtype)
 
 
+def group_row_sum_plain(x: torch.Tensor, group_sizes: torch.Tensor,
+                        num_groups: int | None = None) -> torch.Tensor:
+    """The group_row_sum kernel's function: each segment's rows summed in
+    f32, zeros for an empty one; [g, n] in ``x``'s dtype."""
+    g = group_sizes.shape[0] if num_groups is None else num_groups
+    out = torch.zeros(g, x.shape[1], dtype=torch.float32, device=x.device)
+    for i, (start, end) in enumerate(_offsets(group_sizes[:g], x.shape[0])):
+        out[i] = x[start:end].float().sum(dim=0)
+    return out.to(x.dtype)
+
+
 def tgmm_plain(lhs_t: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
                num_groups: int | None = None) -> torch.Tensor:
     """The tgmm kernel's function: one f32 product per segment, zeros for
@@ -83,12 +109,21 @@ def tgmm_plain(lhs_t: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor
 # ------------------------------------------------------- kernel wrappers
 
 
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# Each C entry's arguments (ops/csrc/grouped_matmul.cu).
+_SIGNATURES = {
+    "gmm": [_I, _I, _P, _P, _P, _P, _L, _L, _L, _I, _P],
+    "tgmm": [_I, _I, _P, _P, _P, _P, _L, _L, _L, _I, _P],
+    "gmm_tc": [_I, _P, _P, _P, _P, _L, _L, _L, _I, _P],
+    "tgmm_tc": [_I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _L, _P],
+    "group_row_sum": [_I, _P, _P, _P, _P, _L, _L, _I, _L, _P],
+}
+
+
 def _fn(name: str):
     fn = getattr(_build.library("grouped_matmul"), name)
     fn.restype = ctypes.c_int
-    ints = 1 if name == "gmm_tc" else 2  # gmm_tc takes no dtype
-    fn.argtypes = ([ctypes.c_int] * ints + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = _SIGNATURES[name]
     return fn
 
 
@@ -152,7 +187,8 @@ def tgmm(lhs_t: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     -> [g, k, n] in ``lhs_t``'s dtype, zeros for an empty segment.
     ``lhs_t`` may be contiguous or the transposed view of a contiguous
     [m, k] (``lhs.T``), which the kernel reads in place. ``num_groups``
-    (default: all of ``group_sizes``) takes the first segments only. CPU
+    (default: all of ``group_sizes``) takes the first segments only. On
+    the tensor cores where :func:`tgmm_uses_tensor_cores` says so. CPU
     tensors take :func:`tgmm_plain`."""
     if lhs_t.device.type == "cpu":
         return tgmm_plain(lhs_t, rhs, group_sizes, num_groups)
@@ -169,10 +205,69 @@ def tgmm(lhs_t: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
         lhs_t = lhs_t.contiguous()
     rhs = rhs.contiguous()
     out = torch.empty(g, k, n, dtype=lhs_t.dtype, device=lhs_t.device)
-    status = _fn("tgmm")(_DTYPES[lhs_t.dtype], int(lhs_mk), lhs_t.data_ptr(), rhs.data_ptr(),
-                         sizes.data_ptr(), out.data_ptr(), m, k, n, g, _stream(lhs_t))
-    _build.check(status, "tgmm")
+    if tgmm_uses_tensor_cores(lhs_t, rhs):
+        partial = torch.empty(_tgmm_partial_slots(m, g, TGMM_CHUNK_ROWS) * k * n,
+                              dtype=torch.float32, device=lhs_t.device)
+        status = _fn("tgmm_tc")(int(lhs_mk), lhs_t.data_ptr(), rhs.data_ptr(), sizes.data_ptr(),
+                                out.data_ptr(), partial.data_ptr(), m, k, n, g, TGMM_CHUNK_ROWS,
+                                _stream(lhs_t))
+        _build.check(status, "tgmm_tc")
+        tgmm.tensor_core_launches += 1
+    else:
+        status = _fn("tgmm")(_DTYPES[lhs_t.dtype], int(lhs_mk), lhs_t.data_ptr(),
+                             rhs.data_ptr(), sizes.data_ptr(), out.data_ptr(), m, k, n, g,
+                             _stream(lhs_t))
+        _build.check(status, "tgmm")
+        tgmm.simt_launches += 1
     tgmm.launches += 1
+    return out
+
+
+def tgmm_uses_tensor_cores(lhs_t: torch.Tensor, rhs: torch.Tensor) -> bool:
+    """Whether :func:`tgmm` takes its tensor-core kernel for ``lhs_t``
+    (``lhs.T`` or a contiguous [k, m]) and a contiguous ``rhs``: bf16, k
+    and n multiples of 8 and 16-byte-aligned bases, which its 16-byte
+    copies and stores need; a contiguous [k, m] also needs m a multiple
+    of 8, since its copies run along m."""
+    k, m = lhs_t.shape
+    lhs_mk = not lhs_t.is_contiguous()
+    return (lhs_t.dtype == torch.bfloat16 and k % 8 == 0 and rhs.shape[1] % 8 == 0
+            and (lhs_mk or m % 8 == 0)
+            and lhs_t.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0)
+
+
+def _tgmm_partial_slots(m: int, g: int, rows: int) -> int:
+    """The most [k, n] f32 partials a tensor-core tgmm can write: one per
+    chunk of each group of more than ``rows`` rows. There are at most
+    q = min(g, m // (rows + 1)) such groups, and their chunks number at
+    most (their rows + q (rows - 1)) // rows, with their rows <= m."""
+    q = min(g, m // (rows + 1))
+    return (m + q * (rows - 1)) // rows if q else 0
+
+
+def group_row_sum(x: torch.Tensor, group_sizes: torch.Tensor,
+                  num_groups: int | None = None) -> torch.Tensor:
+    """Kernel: ``x [m, n]`` -> [g, n], row i the f32 sum of segment i's
+    rows rounded once to ``x``'s dtype, zeros for an empty segment; rows
+    past the last segment count nowhere. Deterministic: no atomics, so a
+    rerun is bit-identical. CPU tensors take :func:`group_row_sum_plain`."""
+    if x.device.type == "cpu":
+        return group_row_sum_plain(x, group_sizes, num_groups)
+    sizes = _check("group_row_sum", x, x, group_sizes)
+    g = sizes.shape[0] if num_groups is None else int(num_groups)
+    if x.dim() != 2 or not 1 <= g <= sizes.shape[0]:
+        raise ValueError(f"group_row_sum: x {tuple(x.shape)} and {g} of {sizes.shape[0]} "
+                         "groups do not fit")
+    x = x.contiguous()
+    m, n = x.shape
+    out = torch.empty(g, n, dtype=x.dtype, device=x.device)
+    partial = torch.empty((-(-m // ROW_SUM_CHUNK_ROWS) + g) * n, dtype=torch.float32,
+                          device=x.device)
+    status = _fn("group_row_sum")(_DTYPES[x.dtype], x.data_ptr(), sizes.data_ptr(),
+                                  out.data_ptr(), partial.data_ptr(), m, n, g,
+                                  ROW_SUM_CHUNK_ROWS, _stream(x))
+    _build.check(status, "group_row_sum")
+    group_row_sum.launches += 1
     return out
 
 
@@ -180,6 +275,9 @@ gmm.launches = 0
 gmm.tensor_core_launches = 0
 gmm.simt_launches = 0
 tgmm.launches = 0
+tgmm.tensor_core_launches = 0
+tgmm.simt_launches = 0
+group_row_sum.launches = 0
 
 
 class _GroupedMatmul(torch.autograd.Function):

@@ -12,9 +12,12 @@ renormalizes) and two dispatch formulations:
   matmuls over the contiguous segments (:func:`_grouped_matmul`, the
   ``gmm``/``tgmm`` kernels of ``ops/grouped_matmul.py`` on the card), and
   restore pair order with the inverse permutation. Both permutation hops
-  are :class:`_PermuteRows`, whose backward is the inverse gather, and the
-  token replication is an ``expand`` whose backward is a contiguous sum:
-  no row scatter forward or backward. The drop fraction is 0.
+  are :class:`_PermuteRows`, whose backward is the inverse gather, the
+  token replication is an ``expand`` whose backward is a contiguous sum,
+  and the expert biases are gathered onto the sorted rows by
+  :class:`_TakeGroupRows`, whose backward sums each expert's segment
+  (``group_row_sum``): no row scatter forward or backward. The drop
+  fraction is 0.
 * ``impl="scatter"``: static per-expert capacity (Switch semantics), the
   reference: overflow falls through the residual and the dropped
   fraction is returned.
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from tensorflow_examples_torch.core import rng as rng_mod
+from tensorflow_examples_torch.ops import grouped_matmul as gm_ops
 from tensorflow_examples_torch.ops.grouped_matmul import grouped_matmul
 
 IMPLS = ("grouped", "scatter")
@@ -140,6 +144,30 @@ def _permute_rows(x, perm, inv_perm):
     return _PermuteRows.apply(x, perm, inv_perm)
 
 
+class _TakeGroupRows(torch.autograd.Function):
+    """``b[ids]`` for ``ids`` sorted into consecutive segments, segment i
+    holding ``sizes[i]`` copies of i (the reference's ``jnp.take(b, ids,
+    axis=0)`` on the expert-sorted rows). Its backward is ``db[i]`` = the
+    sum of segment i's gradient rows, f32 rounded to ``b``'s dtype, by
+    ``group_row_sum`` (looked up at each call, so the on-card comparison
+    with the plain version can rebind it): no scatter, no atomics."""
+
+    @staticmethod
+    def forward(ctx, b, ids, sizes):
+        ctx.save_for_backward(sizes)
+        ctx.rows = b.shape[0]
+        return b.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (sizes,) = ctx.saved_tensors
+        return gm_ops.group_row_sum(g, sizes, ctx.rows), None, None
+
+
+def _take_group_rows(b, ids, sizes):
+    return _TakeGroupRows.apply(b, ids, sizes)
+
+
 def _pair_sort(experts, e: int):
     """Flatten the (token, rank) pairs token-major (pair p = token p // k,
     rank p % k) and stable-sort them by expert. Returns (eid, order, inv,
@@ -166,8 +194,9 @@ def _moe_ffn_grouped(gate_w, w_in, b_in, w_out, b_out, x, *, top_k: int, rng, ji
     srt_tok = _permute_rows(replicated, order, inv)                     # [n*k, d]
     srt_eid = eid[order]
 
-    h = F.gelu(_grouped_matmul(srt_tok, w_in, sizes) + b_in[srt_eid], approximate="tanh")
-    y = _grouped_matmul(h, w_out, sizes) + b_out[srt_eid]
+    h = F.gelu(_grouped_matmul(srt_tok, w_in, sizes) + _take_group_rows(b_in, srt_eid, sizes),
+               approximate="tanh")
+    y = _grouped_matmul(h, w_out, sizes) + _take_group_rows(b_out, srt_eid, sizes)
 
     yw = y.float() * _permute_rows(gat, order, inv)[:, None]
     restored = _permute_rows(yw, inv, order)                            # pair order

@@ -13,8 +13,9 @@ gradients, 2e-6 for paged decode (fp32 and int8), the same at every
 head_dim the attention kernels take; for the fused
 cross-entropy kernels 1e-5 (f32) and 2e-2 (bf16) on the NLL and lse,
 and on dlogits 1e-6 (f32) or one bf16 ulp, 8e-3 relative, of each
-value (bf16); for the grouped-matmul kernels 1e-4 of the largest value
-(f32), plus one bf16 rounding of each value (bf16).
+value (bf16); for the grouped-matmul kernels and the MoE bias gathers'
+segmented sum (``group_row_sum``) 1e-4 of the largest value (f32), plus
+one bf16 rounding of each value (bf16).
 """
 
 import numpy as np
@@ -431,3 +432,110 @@ def test_gmm_variant_follows_dtype_and_shape(dev, dtype, k, n, tensor_cores):
     _gmm_close(grouped_matmul.gmm(lhs, rhs, sz), grouped_matmul.gmm_plain(lhs, rhs, sz), dtype)
     assert (grouped_matmul.gmm.tensor_core_launches, grouped_matmul.gmm.simt_launches) == (
         before[0] + tensor_cores, before[1] + (not tensor_cores))
+
+
+TGMM_CASES = [  # (k, n, sizes, rows past the last group)
+    (768, 3072, MOE_SIZES, 0),
+    (3072, 768, MOE_SIZES, 0),
+    (768, 3072, (0, 0, 0, 16384, 0, 0, 0, 0), 0),    # every row in one group: split in 4
+    (256, 128, (4099, 5003, 0, 4101), 5),            # chunk bounds off the 8-row grid
+    (64, 96, (1, 0, 300, 7, 0), 12),                 # one-row group, empty ones
+]
+
+
+@pytest.mark.parametrize("k,n,sizes,past", TGMM_CASES)
+def test_tensor_core_tgmm_matches_plain(dev, k, n, sizes, past):
+    """bf16 tgmm on the tensor cores through ``lhs.T`` (the backward's
+    view) and a contiguous ``lhs_t``, against the plain version; empty
+    groups are exact zeros and rows past the last group count nowhere."""
+    rng = np.random.default_rng(k + n + past)
+    m, g = sum(sizes) + past, len(sizes)
+    lhs = _randn(rng, (m, k), dev, torch.bfloat16)
+    grad = _randn(rng, (m, n), dev, torch.bfloat16)
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    ref = grouped_matmul.tgmm_plain(lhs.T, grad, sz)
+    assert m % 8 == 0  # a contiguous [k, m] takes the tensor cores too
+    for lhs_t in (lhs.T, lhs.T.contiguous()):
+        before = grouped_matmul.tgmm.tensor_core_launches, grouped_matmul.tgmm.simt_launches
+        dw = grouped_matmul.tgmm(lhs_t, grad, sz)
+        assert (grouped_matmul.tgmm.tensor_core_launches, grouped_matmul.tgmm.simt_launches) == (
+            before[0] + 1, before[1])
+        assert dw.dtype == torch.bfloat16 and dw.shape == (g, k, n)
+        _gmm_close(dw, ref, torch.bfloat16)
+        for i, size in enumerate(sizes):
+            if size == 0:
+                assert not dw[i].float().any()
+
+
+@pytest.mark.parametrize("dtype,k,n,tensor_cores", [
+    (torch.bfloat16, 768, 3072, True),
+    (torch.bfloat16, 100, 36, False),   # k and n not multiples of 8
+    (torch.float32, 768, 3072, False),  # f32 stays on the SIMT kernel
+])
+def test_tgmm_variant_follows_dtype_and_shape(dev, dtype, k, n, tensor_cores):
+    rng = np.random.default_rng(k + 1)
+    sizes = (40, 0, 300, 7)
+    lhs, grad = _randn(rng, (400, k), dev, dtype), _randn(rng, (400, n), dev, dtype)
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    assert grouped_matmul.tgmm_uses_tensor_cores(lhs.T, grad) == tensor_cores
+    before = grouped_matmul.tgmm.tensor_core_launches, grouped_matmul.tgmm.simt_launches
+    _gmm_close(grouped_matmul.tgmm(lhs.T, grad, sz), grouped_matmul.tgmm_plain(lhs.T, grad, sz),
+               dtype)
+    assert (grouped_matmul.tgmm.tensor_core_launches, grouped_matmul.tgmm.simt_launches) == (
+        before[0] + tensor_cores, before[1] + (not tensor_cores))
+
+
+def test_tgmm_and_group_row_sum_reruns_are_bit_identical(dev):
+    """No atomics: a split tgmm and a group_row_sum give the same bits on
+    every call."""
+    rng = np.random.default_rng(11)
+    sizes = torch.tensor((0, 9000, 0, 7384), dtype=torch.int32, device=dev)
+    lhs = _randn(rng, (16384, 256), dev, torch.bfloat16)
+    grad = _randn(rng, (16384, 384), dev, torch.bfloat16)
+    first = grouped_matmul.tgmm(lhs.T, grad, sizes), grouped_matmul.group_row_sum(grad, sizes)
+    for _ in range(3):
+        again = grouped_matmul.tgmm(lhs.T, grad, sizes), grouped_matmul.group_row_sum(grad, sizes)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+ROW_SUM_CASES = [  # (m, n, sizes)
+    (16384, 768, MOE_SIZES),
+    (16384, 3072, MOE_SIZES),
+    (1000, 100, (0, 1, 500, 0, 399)),      # n not a multiple of 8, rows past the groups
+    (64, 8, (64,)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,sizes", ROW_SUM_CASES)
+def test_group_row_sum_matches_plain(dev, dtype, m, n, sizes):
+    rng = np.random.default_rng(m + n)
+    x = _randn(rng, (m, n), dev, dtype)
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = grouped_matmul.group_row_sum.launches
+    out = grouped_matmul.group_row_sum(x, sz)
+    assert grouped_matmul.group_row_sum.launches == before + 1
+    assert out.dtype == dtype and out.shape == (len(sizes), n)
+    _gmm_close(out, grouped_matmul.group_row_sum_plain(x, sz), dtype)
+    for i, size in enumerate(sizes):
+        if size == 0:
+            assert not out[i].float().any()
+
+
+def test_bias_gather_grad_matches_autograd_of_the_index(dev):
+    """The MoE bias gather's backward (``group_row_sum``) against
+    autograd of ``b[srt_eid]`` (PyTorch's scatter-add)."""
+    from tensorflow_examples_torch.parallel import moe
+
+    rng = np.random.default_rng(2)
+    sizes = torch.tensor((700, 0, 1300, 48), dtype=torch.int32, device=dev)
+    ids = torch.repeat_interleave(torch.arange(4, device=dev), sizes.long())
+    b = _randn(rng, (4, 200), dev)
+    grad = _randn(rng, (ids.shape[0], 200), dev)
+    grads = []
+    for take in (lambda v: moe._take_group_rows(v, ids, sizes), lambda v: v[ids]):
+        leaf = b.clone().requires_grad_()
+        y = take(leaf)
+        grads.append((y, *torch.autograd.grad(y, leaf, grad)))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=0, atol=0)
+    _gmm_close(grads[0][1], grads[1][1], torch.float32)

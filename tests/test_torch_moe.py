@@ -5,7 +5,11 @@
   kernels and the autograd Function's gradients against megablox's
   ``gmm``/``tgmm`` in interpret mode (the TPU kernels the reference runs)
   and against ``lax.ragged_dot``, with empty groups and ``transpose_rhs``;
-  f32, atol 1e-5 (sums of at most 48 products of unit normals).
+  f32, atol 1e-5 (sums of at most 48 products of unit normals); the plain
+  ``group_row_sum`` and the bias gather ``parallel/moe.py``
+  ``_TakeGroupRows`` against ``jnp.take`` and its ``jax.vjp`` with empty
+  first, middle and last groups and one-row groups, f32, atol 1e-6; the
+  tensor-core ``tgmm``'s partial-sum scratch bound against every split.
 * ``parallel/moe.py``: ``moe_ffn`` against the JAX ``moe_ffn`` with the
   same ``impl`` pinned on both sides (the default resolves by device, and
   ``scatter`` drops at capacity where ``grouped`` never drops): outputs,
@@ -148,6 +152,110 @@ def test_gmm_zeroes_rows_past_the_last_group_and_keeps_the_dtype():
     ragged = jax.lax.ragged_dot(jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(sizes))
     np.testing.assert_allclose(gm.gmm(t(lhs), t(rhs), t(sizes)).numpy(), np.asarray(ragged),
                                atol=1e-5, rtol=0)
+
+
+ROW_SUM_SIZES = {
+    "empty_first": [0, 7, 3, 5],
+    "empty_middle": [4, 0, 0, 9],
+    "empty_last": [6, 2, 8, 0],
+    "one_row": [1, 10, 1, 3],
+}
+
+
+def _sorted_ids(sizes):
+    return np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", sorted(ROW_SUM_SIZES))
+def test_group_row_sum_plain_matches_the_vjp_of_jnp_take(case):
+    """The sorted-segment sum is the cotangent ``jax.vjp`` of
+    ``jnp.take(b, ids, axis=0)`` gives ``b`` (a scatter-add there), f32
+    at atol 1e-6 (sums of at most 10 unit normals)."""
+    sizes = np.asarray(ROW_SUM_SIZES[case], np.int32)
+    ids = _sorted_ids(sizes)
+    r = np.random.default_rng(len(ids))
+    b = r.standard_normal((len(sizes), 6)).astype(np.float32)
+    grad = r.standard_normal((len(ids), 6)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: jnp.take(v, jnp.asarray(ids), axis=0), jnp.asarray(b))
+    (theirs,) = vjp(jnp.asarray(grad))
+    ours = gm.group_row_sum(t(grad), t(sizes)).numpy()
+    np.testing.assert_allclose(ours, np.asarray(theirs), atol=1e-6, rtol=0)
+    for i, size in enumerate(sizes):
+        if size == 0:
+            assert not ours[i].any()
+
+
+@pytest.mark.parametrize("case", sorted(ROW_SUM_SIZES))
+def test_take_group_rows_matches_jnp_take_and_its_vjp(case):
+    sizes = np.asarray(ROW_SUM_SIZES[case], np.int32)
+    ids = _sorted_ids(sizes)
+    r = np.random.default_rng(len(ids) + 1)
+    b = r.standard_normal((len(sizes), 5)).astype(np.float32)
+    grad = r.standard_normal((len(ids), 5)).astype(np.float32)
+    theirs, vjp = jax.vjp(lambda v: jnp.take(v, jnp.asarray(ids), axis=0), jnp.asarray(b))
+    leaf = t(b).requires_grad_()
+    ours = moe._take_group_rows(leaf, t(ids).long(), t(sizes))
+    np.testing.assert_array_equal(ours.detach().numpy(), np.asarray(theirs))
+    (ours * t(grad)).sum().backward()
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(vjp(jnp.asarray(grad))[0]),
+                               atol=1e-6, rtol=0)
+
+
+def test_group_row_sum_plain_keeps_the_dtype_and_skips_rows_past_the_groups():
+    x = torch.arange(24, dtype=torch.float32).reshape(8, 3)
+    sizes = torch.tensor([2, 0, 3, 1], dtype=torch.int32)  # 6 of 8 rows covered
+    want = torch.stack([x[0:2].sum(0), torch.zeros(3), x[2:5].sum(0), x[5]])
+    torch.testing.assert_close(gm.group_row_sum(x, sizes), want, rtol=0, atol=0)
+    torch.testing.assert_close(gm.group_row_sum(x, sizes, 2), want[:2], rtol=0, atol=0)
+    out = gm.group_row_sum(x.bfloat16(), sizes)
+    assert out.dtype == torch.bfloat16 and out.shape == (4, 3)
+
+
+def test_grouped_moe_backward_sums_the_biases_through_group_row_sum(monkeypatch):
+    """Both bias gathers of the grouped dispatch take their gradient from
+    ``group_row_sum``, looked up at each call, and from nothing else."""
+    calls = []
+
+    def spy(x, sizes, num_groups=None):
+        calls.append((tuple(x.shape), num_groups))
+        return gm.group_row_sum_plain(x, sizes, num_groups)
+
+    monkeypatch.setattr(gm, "group_row_sum", spy)
+    leaves = [t(a).requires_grad_() for a in _moe_args()]
+    out, aux, _ = moe.moe_ffn(*leaves, top_k=2, impl="grouped")
+    (torch.sum(out ** 2) + 0.01 * aux).backward()
+    assert sorted(calls) == [((32, 16), 4), ((32, 32), 4)]  # b_out [E, d], b_in [E, ff]
+
+
+@pytest.mark.parametrize("dtype,k,m,n,layout,tensor_cores", [
+    (torch.bfloat16, 768, 16384, 3072, "mk", True),    # the MoE step's lhs.T
+    (torch.bfloat16, 768, 1554, 3072, "mk", True),     # lhs.T takes any m
+    (torch.bfloat16, 768, 1554, 3072, "km", False),    # a contiguous [k, m] needs m % 8 == 0
+    (torch.bfloat16, 768, 1552, 3072, "km", True),
+    (torch.bfloat16, 100, 1552, 36, "mk", False),      # k and n not multiples of 8
+    (torch.float32, 768, 16384, 3072, "mk", False),    # f32 stays SIMT
+])
+def test_tgmm_tensor_core_eligibility(dtype, k, m, n, layout, tensor_cores):
+    lhs_t = torch.zeros(m, k, dtype=dtype).T if layout == "mk" else torch.zeros(k, m, dtype=dtype)
+    assert gm.tgmm_uses_tensor_cores(lhs_t, torch.zeros(m, n, dtype=dtype)) == tensor_cores
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_tgmm_partial_slots_bound_every_split(rows):
+    """The scratch a tensor-core tgmm allocates holds one [k, n] partial
+    for every chunk of a group of more than ``rows`` rows, for every way
+    of cutting m rows into g groups, and is tight for some of them."""
+    import itertools
+
+    for m in range(0, 19):
+        for g in (1, 2, 3, 4):
+            most = 0
+            for cuts in itertools.combinations_with_replacement(range(m + 1), g - 1):
+                bounds = (0, *cuts, m)
+                sizes = [b - a for a, b in zip(bounds, bounds[1:])]
+                most = max(most, sum(-(-s // rows) for s in sizes if s > rows))
+            bound = gm._tgmm_partial_slots(m, g, rows)
+            assert most <= bound <= most + 1, (m, g, rows, most, bound)
 
 
 def test_permute_rows_backward_is_the_inverse_gather():
