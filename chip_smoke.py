@@ -19,13 +19,16 @@ non-zero:
    training flash kernels at the GPT-2 step's shape, B=16, H=12, S=1024,
    D=64, causal, bf16 and f32, plus seq_q < seq_kv, a length that is not
    a tile multiple, a key bias with masked keys and a nonzero lse
-   cotangent; the fused cross-entropy forward and backward at the
+   cotangent, each launch's variant read from its counters (bf16 on the
+   tensor cores, f32 SIMT) and each tensor-core kernel rerun on the same
+   inputs for the same bits; the fused cross-entropy forward and backward at the
    step's logits, N=16384 x V=50257, bf16 and f32, plus V 4099 and 1000,
    N=1, labels -1 and V, a row of all -1e30 and a non-unit cotangent,
    with ``torch.nn.functional.cross_entropy`` timed as a yardstick only;
    every attention kernel (flash forward, dK/dV, dQ, flash-decode, paged
    decode) at head_dim 8, 16, 32 and 128 against its plain version at
-   batch 2 with the head_dim-64 tolerances;
+   batch 2 with the head_dim-64 tolerances, the flash kernels' variants
+   held to the rule (tensor cores in bf16 from head_dim 16);
    the grouped-matmul kernels ``gmm``, ``gmm`` with ``transpose_rhs`` and
    ``tgmm`` at the MoE step's two expert products, [16384, 768] x
    [8, 768, 3072] and [16384, 3072] x [8, 3072, 768], with the skewed
@@ -50,10 +53,11 @@ non-zero:
    0 with the flash kernels are held to the plain attention path and
    with the fused cross-entropy to the plain one (f32, dropout 0); step
    time, tokens/s, MFU, peak memory, the loss falling, launches per step
-   (and twice the forward launches under remat at step 0), and one
-   profiled step's device time split into flash kernels, matmuls, the
-   rest and idle (cross-entropy and the optimizer update timed on their
-   own);
+   (every flash launch of the bf16 steps on the tensor cores, step 0's
+   f32 ones SIMT, and twice the forward launches under remat at step 0),
+   and one profiled step's device time split into flash kernels (forward,
+   dK/dV, dQ), matmuls, the rest and idle (cross-entropy and the
+   optimizer update timed on their own);
 4a. resume: a fresh ``Trainer`` restores the step-10 checkpoint and trains
    to 20; its losses at steps 11-20 against the uninterrupted run's, the
    checkpoint's bytes, the restore wall time and the training run's two
@@ -71,7 +75,9 @@ non-zero:
    drops) and to the plain gmm/tgmm/group_row_sum (step 0 takes the
    SIMT tgmm, 12 launches, and 12 ``group_row_sum``); loss falling,
    ``moe_drop`` 0, ``moe_aux`` finite, exactly 24 gmm and 12 tgmm
-   launches a step, all on the tensor cores, and 12 ``group_row_sum``,
+   launches a step, all on the tensor cores, 12 of each flash kernel, all
+   on the tensor cores (12 SIMT each at the f32 step 0), and 12
+   ``group_row_sum``,
    step time, tokens/s, peak memory and one profiled step, which must
    run no ``indexing_backward_kernel``;
 4d. MoE generate: 32 greedy tokens from a step-0 checkpoint of the MoE
@@ -97,6 +103,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -108,6 +115,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # f32 outside the tensor cores
 NEAR_TIE = 1e-4                # top-2 logit gap below which a greedy flip is a tie
+LEAD_CYCLES = 40_000_000       # cuda_ms's device sleep: ~20 ms at the H100's 1.98 GHz boost
 FLASH_SOURCE = "tensorflow_examples_torch/ops/csrc/decode.cu"
 PAGED_SOURCE = "tensorflow_examples_torch/ops/csrc/paged_decode.cu"
 ATTN_SOURCE = "tensorflow_examples_torch/ops/csrc/flash_attention.cu"
@@ -116,7 +124,8 @@ GMM_SOURCE = "tensorflow_examples_torch/ops/csrc/grouped_matmul.cu"
 GMM_REPLACES = "tensorflow_examples_tpu/parallel/moe.py:190 (megablox gmm.py:{})"
 BF16_DENSE_PEAK = 989.4e12     # H100 SXM bf16 tensor cores, dense: the MFU denominator
 TRAIN_STEPS = 20
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ce_fwd", "ce_bwd")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+TRAIN_KERNELS = (*FLASH_KERNELS, "ce_fwd", "ce_bwd")
 PLAIN_CE_PEAK_GIB = 25.1       # the same 20-step run at fused_ce=False, as PERF.md records it
 CE_SHAPE = (16384, 50257)      # the step's logits: batch 16 x 1024 tokens, GPT-2 vocab
 # Cross-entropy edge cases (label, N, V), each with labels -1 and V, a row
@@ -164,13 +173,59 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def reset_counts(counters) -> None:
+    """Every launch counter to 0, and the tensor-core and SIMT counters
+    beside it where a kernel has two variants."""
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "tensor_core_launches"):
+            c.tensor_core_launches = c.simt_launches = 0
+
+
+def flash_variants(counters) -> dict:
+    """The three training flash kernels' launches by variant, as
+    ``{"flash_fwd_tensor_core": n, "flash_fwd_simt": n, ...}``."""
+    return {f"{n}_{v}": getattr(counters[n], f"{v}_launches")
+            for n in FLASH_KERNELS for v in ("tensor_core", "simt")}
+
+
+def flash_want(n: int, variant: str) -> dict:
+    """The flash kernels' counters after ``n`` launches of each, all on
+    ``variant`` ("tensor_core" or "simt"), keyed as :func:`flash_variants`
+    and by kernel name."""
+    return {**{k: n for k in FLASH_KERNELS},
+            **{f"{k}_{v}": n if v == variant else 0
+               for k in FLASH_KERNELS for v in ("tensor_core", "simt")}}
+
+
+def ran(kernel, call):
+    """``call()``'s result and the variant ("tensor_core" or "simt") that
+    its one launch of ``kernel`` took, read from the kernel's counters."""
+    tc, simt = kernel.tensor_core_launches, kernel.simt_launches
+    out = call()
+    took = ("tensor_core" if (kernel.tensor_core_launches, kernel.simt_launches) == (tc + 1, simt)
+            else "simt" if (kernel.tensor_core_launches, kernel.simt_launches) == (tc, simt + 1)
+            else None)
+    return out, took
+
+
+def flash_variant(dtype_name: str, d: int) -> str:
+    """The flash kernels' variant by the rule they are held to: the tensor
+    cores in bf16 from head_dim 16 (the mma's k16 depth), SIMT otherwise."""
+    return "tensor_core" if dtype_name == "bfloat16" and d >= 16 else "simt"
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call over ``iters`` back-to-back calls."""
+    """Mean device milliseconds per call over ``iters`` back-to-back calls.
+    The calls are enqueued behind a device sleep of ~20 ms, so that a call
+    whose host side (autograd, Python) is slower than its kernels is still
+    timed on the device and not at the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -201,6 +256,20 @@ def phase_device(torch) -> str:
 # ---------------------------------------------------------------- phase 2
 
 
+def kernel_of(mangled: str) -> str:
+    """``name<template args>`` of a mangled kernel name, from its
+    ``<length><name>I<args>E`` part (the length may follow hash digits);
+    else the name cut to 60 characters."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):
+            n, at = int(mangled[i:m.end()]), m.end()
+            name = mangled[at:at + n]
+            if n and name.endswith("_kernel") and mangled.startswith("I", at + n):
+                args = re.match(r"I(\w*?)E", mangled[at + n:])
+                return f"{name}<{args.group(1) if args else ''}>"
+    return mangled[:60]
+
+
 def phase_build(build) -> None:
     t0 = time.perf_counter()
     try:
@@ -210,9 +279,13 @@ def phase_build(build) -> None:
     log(f"build: {', '.join(build.SOURCES)} in {time.perf_counter() - t0:.3f} s "
         f"(one nvcc per source, in parallel)")
     for name, text in sorted(build.build_logs.items()):
+        kernel = "?"
         for line in text.splitlines():
+            entry = re.search(r"entry function '([^']+)'", line)
+            if entry:
+                kernel = kernel_of(entry.group(1))
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {name} {kernel}: {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -408,15 +481,28 @@ def phase_flash_kernels(torch, attention) -> dict:
             kb[: b // 2, seq_kv // 3:] = bias  # half the batch rows mask 2/3 of their keys
         dlse = randn(b * h, seq_q) if with_dlse else torch.zeros(b * h, seq_q, device=dev)
         kw = dict(heads=h, causal=causal, sm_scale=d ** -0.5)
-        o, lse = attention.flash_fwd(q, k, v, kb, **kw)
+        (o, lse), v_fwd = ran(attention.flash_fwd, lambda: attention.flash_fwd(q, k, v, kb, **kw))
         o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, kb, **kw)
         delta = (do.float() * o_ref.float()).sum(-1)
         args = (q, k, v, do, lse_ref, delta, dlse, kb)
-        dk, dv = attention.flash_bwd_dkv(*args, **kw)
-        dq = attention.flash_bwd_dq(*args, **kw)
+        (dk, dv), v_dkv = ran(attention.flash_bwd_dkv, lambda: attention.flash_bwd_dkv(*args, **kw))
+        dq, v_dq = ran(attention.flash_bwd_dq, lambda: attention.flash_bwd_dq(*args, **kw))
         dk_ref, dv_ref = attention.flash_bwd_dkv_plain(*args, **kw)
         dq_ref = attention.flash_bwd_dq_plain(*args, **kw)
         torch.cuda.synchronize()
+        variants = {"fwd": v_fwd, "dkv": v_dkv, "dq": v_dq}
+        want = flash_variant(dname, d)
+        if any(took != want for took in variants.values()):
+            fail(f"flash[{label}] {dname} D={d}: variants {variants}, expected {want} for "
+                 "all three")
+        rerun = "not a tensor-core case"
+        if want == "tensor_core":  # one writer per element, no atomics: the same bits again
+            same = {"fwd": all(map(torch.equal, (o, lse), attention.flash_fwd(q, k, v, kb, **kw))),
+                    "dkv": all(map(torch.equal, (dk, dv), attention.flash_bwd_dkv(*args, **kw))),
+                    "dq": torch.equal(dq, attention.flash_bwd_dq(*args, **kw))}
+            if not all(same.values()):
+                fail(f"flash[{label}] {dname}: a rerun on the same inputs changed bits: {same}")
+            rerun = "bit-identical"
         fwd_tol = 2e-5 if dtype == torch.float32 else 2e-2
         errs = {"fwd": allclose_err(torch, o, o_ref, fwd_tol, fwd_tol)}
         lse_err = allclose_err(torch, lse, lse_ref, 1e-4, 1e-5)
@@ -435,7 +521,8 @@ def phase_flash_kernels(torch, attention) -> dict:
         bad = [k for k, (_, ok) in errs.items() if not ok] + ([] if lse_err[1] else ["lse"])
         log(f"flash[{label}] {dname} B={b} H={h} seq_q={seq_q} seq_kv={seq_kv} causal={causal} "
             f"bias={bias} dlse={with_dlse}: max_abs_err fwd {errs['fwd'][0]:.3e} lse "
-            f"{lse_err[0]:.3e} dkv {errs['dkv'][0]:.3e} dq {errs['dq'][0]:.3e}")
+            f"{lse_err[0]:.3e} dkv {errs['dkv'][0]:.3e} dq {errs['dq'][0]:.3e}; variants "
+            f"{variants}; rerun {rerun}")
         if bad:
             fail(f"flash[{label}] {dname}: {bad} outside tolerance (fwd {fwd_tol}, f32 grads "
                  f"5e-4, bf16 grads 2e-2 of max)")
@@ -460,6 +547,9 @@ def phase_flash_kernels(torch, attention) -> dict:
             torch.autograd.grad(out, (qg, kg, vg), do4)
 
         sdpa_both = cuda_ms(torch, sdpa_fwd_bwd, iters=10)
+        out4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(out4, (qg, kg, vg), do4,
+                                                              retain_graph=True), iters=10)
         for kind, (kernel, plain) in calls.items():
             ms = cuda_ms(torch, kernel)
             plain_ms = cuda_ms(torch, plain, iters=5, warmup=1)
@@ -469,11 +559,13 @@ def phase_flash_kernels(torch, attention) -> dict:
             log(f"flash_{kind} {dname} B={b} H={h} S={seq_q} D={d} causal: kernel_ms {ms:.4f} "
                 f"plain_ms {plain_ms:.4f} bytes_ms {t_bytes:.5f} ops_ms {t_ops:.5f} bound_ms "
                 f"{bound_ms:.5f} ({by}); library sdpa fwd_ms {sdpa_fwd:.4f} fwd+bwd_ms "
-                f"{sdpa_both:.4f}")
+                f"{sdpa_both:.4f} bwd_ms {sdpa_bwd:.4f}")
             rows.setdefault(f"{dname}/{kind}", dict(
                 shape=f"B={b} H={h} S={seq_q} D={d} causal {dname}", ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by,
                 library_ms=sdpa_fwd if kind == "fwd" else None, sdpa_fwd_bwd_ms=sdpa_both,
+                variant=variants[kind],
+                **({} if kind == "fwd" else {"sdpa_bwd_ms": sdpa_bwd}),
             ))
         return errs
 
@@ -505,7 +597,7 @@ def phase_head_dim_sweep(torch, attention, decode, paged, precision) -> dict:
     """Every attention kernel at the other head_dims it is built for,
     against its plain version at batch 2 with the head_dim-64 tolerances:
     the three training flash kernels (B=2, H=12, S=1024, causal, bf16 and
-    f32; the bf16 forward on the tensor cores from D=16), flash-decode
+    f32; in bf16 all three on the tensor cores from D=16), flash-decode
     (B=2, H=12, q_len=length=300, f32 and bf16) and paged decode (S=2,
     H=12, fp32 and int8; block 16, and block 64 at D=128, where a block
     takes two staged chunks). Returns the worst error per kernel and D."""
@@ -528,12 +620,18 @@ def phase_head_dim_sweep(torch, attention, decode, paged, precision) -> dict:
             q, k, v, do = (randn(b * h, seq, d, dtype=dtype) for _ in range(4))
             dlse = randn(b * h, seq)
             kw = dict(heads=h, causal=True, sm_scale=d ** -0.5)
-            o, lse = attention.flash_fwd(q, k, v, None, **kw)
+            (o, lse), v_fwd = ran(attention.flash_fwd,
+                                  lambda: attention.flash_fwd(q, k, v, None, **kw))
             o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, None, **kw)
             delta = (do.float() * o_ref.float()).sum(-1)
             args = (q, k, v, do, lse_ref, delta, dlse, None)
-            dk, dv = attention.flash_bwd_dkv(*args, **kw)
-            dq = attention.flash_bwd_dq(*args, **kw)
+            (dk, dv), v_dkv = ran(attention.flash_bwd_dkv,
+                                  lambda: attention.flash_bwd_dkv(*args, **kw))
+            dq, v_dq = ran(attention.flash_bwd_dq, lambda: attention.flash_bwd_dq(*args, **kw))
+            variants = {"flash_fwd": v_fwd, "flash_bwd_dkv": v_dkv, "flash_bwd_dq": v_dq}
+            if any(took != flash_variant(dname, d) for took in variants.values()):
+                fail(f"head_dim sweep: {dname} D={d} variants {variants}, expected "
+                     f"{flash_variant(dname, d)} for all three")
             dk_ref, dv_ref = attention.flash_bwd_dkv_plain(*args, **kw)
             dq_ref = attention.flash_bwd_dq_plain(*args, **kw)
             torch.cuda.synchronize()
@@ -552,7 +650,7 @@ def phase_head_dim_sweep(torch, attention, decode, paged, precision) -> dict:
             ms = cuda_ms(torch, lambda: attention.flash_fwd(q, k, v, None, **kw), iters=10)
             log(f"head_dim sweep flash {dname} B={b} H={h} S={seq} D={d} causal: max_abs_err "
                 + " ".join(f"{what} {err:.3e}" for (_, what), (err, _) in errs.items())
-                + f"; flash_fwd kernel_ms {ms:.4f}")
+                + f"; flash_fwd kernel_ms {ms:.4f}; variants {variants}")
             for (kernel, what), (err, ok) in errs.items():
                 note(kernel, d, err, ok, f"{dname} {what}")
             del q, k, v, do, o, o_ref, dk, dv, dq, dk_ref, dv_ref, dq_ref
@@ -946,6 +1044,7 @@ def device_split(torch, fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     split = {"flash": 0.0, "gmm": 0.0, "tgmm": 0.0, "group_row_sum": 0.0, "matmul": 0.0,
              "other": 0.0}
+    flash = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}  # the flash bucket by kernel
     launches = 0
     indexing_backward = 0.0
     top = {}
@@ -962,6 +1061,9 @@ def device_split(torch, fn) -> dict:
                 "matmul" if any(t in name for t in ("gemm", "cutlass", "xmma", "cublas", "sm90_"))
                 else "other")
         split[kind] += ms
+        if kind == "flash":
+            flash["dkv" if "flash_bwd_dkv" in name else "dq" if "flash_bwd_dq" in name
+                  else "fwd"] += ms
         launches += e.count
         if "indexing_backward" in name:
             indexing_backward += ms
@@ -969,6 +1071,7 @@ def device_split(torch, fn) -> dict:
     busy = sum(split.values())
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_ms": wall_ms - busy,
             "busy_share": busy / wall_ms, **{f"{k}_ms": v for k, v in split.items()},
+            **{f"flash_{k}_ms": v for k, v in flash.items()},
             "indexing_backward_ms": indexing_backward, "kernel_launches": launches,
             "top": sorted(top.items(), key=lambda kv: -kv[1])[:8]}
 
@@ -1002,14 +1105,14 @@ def phase_training(torch, counters, smi: str, workdir: str) -> dict:
                            fused_ce=fused)
         trainer = Trainer(gpt2.make_task(cfg), cfg)
         leaves = {k: p.detach().requires_grad_() for k, p in trainer.state.params.items()}
-        for c in counters.values():
-            c.launches = 0
+        reset_counts(counters)
         loss, _, _ = trainer.task.loss_fn(
             trainer.policy.cast_compute(leaves), {}, trainer.put_batch(batch0),
             rng=rng.step_rng(rng.PRNGKey(cfg.seed + 1), 0), train=True)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         step0[label] = (float(loss.detach()), dict(zip(leaves, grads)),
-                        {k: counters[k].launches for k in TRAIN_KERNELS})
+                        {**{k: counters[k].launches for k in TRAIN_KERNELS},
+                         **flash_variants(counters)})
         del trainer, leaves, loss, grads
         torch.cuda.empty_cache()
 
@@ -1029,8 +1132,8 @@ def phase_training(torch, counters, smi: str, workdir: str) -> dict:
     compare("flash+remat", "flash")
     compare("flash", "plain_ce")
     layers = base.num_layers
-    want = {"flash_fwd": layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers,
-            "ce_fwd": 1, "ce_bwd": 1}
+    # f32 takes the SIMT flash kernels: the tensor-core ones' oracle path.
+    want = {**flash_want(layers, "simt"), "ce_fwd": 1, "ce_bwd": 1}
     if step0["flash"][2] != want:
         fail(f"train step 0: launches {step0['flash'][2]}, expected {want}")
     if step0["flash+remat"][2]["flash_fwd"] != 2 * layers:
@@ -1048,20 +1151,20 @@ def phase_training(torch, counters, smi: str, workdir: str) -> dict:
     data = lambda start: train_iterator(train_ds, cfg.global_batch_size, seed=cfg.seed,
                                         start_step=start)
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     trainer.fit(data, num_steps=TRAIN_STEPS)
     wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {**{k: c.launches for k, c in counters.items()}, **flash_variants(counters)}
     hist = trainer.history
     losses = [h["loss"] for h in hist]
     if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train: losses not finite and falling over {len(hist)} steps: {losses}")
     if any(h["bad_step"] for h in hist):
         fail("train: the bad-step guard skipped a step")
-    for name in TRAIN_KERNELS:
-        per_step = base.num_layers if name.startswith("flash") else 1
+    # bf16: every flash launch on the tensor cores, none SIMT.
+    for name, per_step in {**flash_want(base.num_layers, "tensor_core"), "ce_fwd": 1,
+                           "ce_bwd": 1}.items():
         if launches[name] != per_step * TRAIN_STEPS:
             fail(f"train: {name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
                  f"expected {per_step} per step")
@@ -1187,8 +1290,7 @@ def phase_generate(torch, counters, workdir: str) -> dict:
     prompt = [int(t) for t in np.random.default_rng(3).integers(0, cfg.vocab_size, 64)]
     streams, launches, walls = {}, {}, {}
     for impl in ("flash", "xla"):
-        for c in counters.values():
-            c.launches = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         toks, step = generate.generate_from_workdir(cfg.replace(attention=impl), prompt,
                                                     num_tokens=32, temperature=0.0, top_k=0)
@@ -1326,9 +1428,7 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
         cfg = base.replace(precision="f32", moe_impl=impl)
         trainer = Trainer(gpt2.make_task(cfg, **overrides), cfg)
         leaves = {k: p.detach().requires_grad_() for k, p in trainer.state.params.items()}
-        for c in counters.values():
-            c.launches = 0
-        gm.tgmm.tensor_core_launches = gm.tgmm.simt_launches = 0
+        reset_counts(counters)
         with pinned_routing(moe_mod, recorded) as routing, \
                 plain_grouped_matmul(gm) if plain else contextlib.nullcontext():
             loss, metrics, _ = trainer.task.loss_fn(
@@ -1337,9 +1437,9 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
             grads = torch.autograd.grad(loss, list(leaves.values()))
         recorded = recorded or routing.calls
         step0[label] = (float(loss.detach()), dict(zip(leaves, grads)),
-                        {**{k: counters[k].launches for k in MOE_KERNELS},
+                        {**{k: counters[k].launches for k in (*MOE_KERNELS, *FLASH_KERNELS)},
                          "tgmm_tensor_core": gm.tgmm.tensor_core_launches,
-                         "tgmm_simt": gm.tgmm.simt_launches},
+                         "tgmm_simt": gm.tgmm.simt_launches, **flash_variants(counters)},
                         {k: float(v.detach()) for k, v in metrics.items()},
                         (routing.flips, routing.worst_gap))
         del trainer, leaves, loss, grads, metrics
@@ -1365,7 +1465,7 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
     checks = {"grouped_vs_scatter": compare("grouped", "scatter"),
               "grouped_vs_plain": compare("grouped", "grouped_plain")}
     want = {"gmm": 4 * n_moe, "tgmm": 2 * n_moe, "group_row_sum": 2 * n_moe,
-            "tgmm_tensor_core": 0, "tgmm_simt": 2 * n_moe}
+            "tgmm_tensor_core": 0, "tgmm_simt": 2 * n_moe, **flash_want(base.num_layers, "simt")}
     if step0["grouped"][2] != want:
         fail(f"moe step 0: launches {step0['grouped'][2]}, expected {want}")
     if any(step0[k][2][n] for k in ("scatter", "grouped_plain") for n in MOE_KERNELS):
@@ -1382,14 +1482,11 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
     data = lambda start: train_iterator(train_ds, cfg.global_batch_size, seed=cfg.seed,
                                         start_step=start)
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
-    gm.gmm.tensor_core_launches = gm.gmm.simt_launches = 0
-    gm.tgmm.tensor_core_launches = gm.tgmm.simt_launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     trainer.fit(data, num_steps=TRAIN_STEPS)
     wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {**{k: c.launches for k, c in counters.items()}, **flash_variants(counters)}
     launches["gmm_tensor_core"] = gm.gmm.tensor_core_launches
     launches["gmm_simt"] = gm.gmm.simt_launches
     launches["tgmm_tensor_core"] = gm.tgmm.tensor_core_launches
@@ -1403,7 +1500,8 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
              f"{[(h['moe_drop'], h['moe_aux'], h['bad_step']) for h in hist]}")
     for name, per_step in (("gmm", 4 * n_moe), ("gmm_tensor_core", 4 * n_moe), ("gmm_simt", 0),
                            ("tgmm", 2 * n_moe), ("tgmm_tensor_core", 2 * n_moe), ("tgmm_simt", 0),
-                           ("group_row_sum", 2 * n_moe), ("flash_fwd", base.num_layers),
+                           ("group_row_sum", 2 * n_moe),
+                           *flash_want(base.num_layers, "tensor_core").items(),
                            ("ce_fwd", 1), ("ce_bwd", 1)):
         if launches[name] != per_step * TRAIN_STEPS:
             fail(f"moe train: {name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
@@ -1466,8 +1564,7 @@ def phase_moe_generate(torch, counters, gm, workdir: str) -> dict:
     prompt = [int(t) for t in np.random.default_rng(5).integers(0, cfg.vocab_size, 64)]
     streams, launches, recorded = {}, {}, None
     for label in ("kernels", "plain"):
-        for c in counters.values():
-            c.launches = 0
+        reset_counts(counters)
         # The plain run replays the kernel run's routing (see pinned_routing).
         with pinned_routing(moe_mod, recorded) as routing, \
                 plain_grouped_matmul(gm) if label == "plain" else contextlib.nullcontext():
@@ -1634,8 +1731,7 @@ def phase_serving(torch, model, model_cfg, counters) -> list[dict]:
         frontend = ServingFrontend(batcher).start()
         try:
             post(frontend.url(), {"prompt": [1, 2, 3], "max_new_tokens": 2})  # first-call set-up
-            for c in counters.values():
-                c.launches = 0
+            reset_counts(counters)
             t0 = time.perf_counter()
             with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
                 replies = list(pool.map(lambda b: post(frontend.url(), b), requests))
@@ -1737,6 +1833,8 @@ def main() -> int:
         f"random init seed 0, f32, built in {time.perf_counter() - t0:.3f} s")
     summaries = phase_serving(torch, model, model_cfg, counters)
 
+    for name in FLASH_KERNELS:
+        rows[name]["tensor_core_launches"] = training["launches"][f"{name}_tensor_core"]
     rows["gmm"]["tensor_core_launches"] = moe["launches"]["gmm_tensor_core"]
     rows["tgmm"]["tensor_core_launches"] = moe["launches"]["tgmm_tensor_core"]
     # Not the port of a TPU kernel (the MoE bias gathers' backward): its own line.
@@ -1770,7 +1868,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
-            **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "library_fwd_bwd_ms", "library",
+            **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "sdpa_bwd_ms", "variant",
+                                   "library_fwd_bwd_ms", "library",
                                    "all_shapes", "worst_abs_err_all_cases", "design",
                                    "head_dim_sweep_max_abs_err", "tensor_core_launches")
                if k in row},

@@ -15,11 +15,15 @@ contract are the reference's:
 * a row that sees no key gives 0 (``l`` is clamped at 1e-30).
 
 Three kernels carry it, hand-written for Hopper in
-``ops/csrc/flash_attention.cu``: :func:`flash_fwd` (O and lse; in bf16 on
-the tensor cores for head_dim 16 to 128), :func:`flash_bwd_dkv` and
-:func:`flash_bwd_dq`, each on the folded [batch*heads, seq, head_dim]
-layout for a head_dim in :data:`SUPPORTED_HEAD_DIMS`, each with a launch
-counter. Beside each is its plain PyTorch version (``*_plain``), the same
+``ops/csrc/flash_attention.cu``: :func:`flash_fwd` (O and lse),
+:func:`flash_bwd_dkv` and :func:`flash_bwd_dq`, each on the folded
+[batch*heads, seq, head_dim] layout for a head_dim in
+:data:`SUPPORTED_HEAD_DIMS`. Each runs on the tensor cores (``mma.sync``)
+in bf16 at head_dim 16 to 128 and as a SIMT kernel otherwise (f32, and
+bf16 at head_dim 8): :func:`uses_tensor_cores`, fixed by dtype and
+head_dim alone. Each counts its launches (``launches``) and, beside
+them, which variant ran (``tensor_core_launches``, ``simt_launches``).
+Beside each is its plain PyTorch version (``*_plain``), the same
 two-kernel math written with whole-matrix ops; a wrapper given CPU
 tensors runs the plain version, given CUDA tensors it launches the
 kernel or raises.
@@ -170,6 +174,23 @@ def _check_qkv(q, k, v, kb, heads):
     return bh, seq_q, seq_kv
 
 
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the flash kernels take their tensor-core variants: bf16 at
+    head_dim 16 to 128 (8 is under the mma's k16 depth). The C entry
+    points choose by the same rule; nothing else switches the variant,
+    and a failed launch raises rather than falling back."""
+    return dtype == torch.bfloat16 and head_dim >= 16
+
+
+def _count(kernel, q: torch.Tensor) -> None:
+    """One launch of ``kernel`` on q's dtype and head_dim, by variant."""
+    if uses_tensor_cores(q.dtype, q.shape[-1]):
+        kernel.tensor_core_launches += 1
+    else:
+        kernel.simt_launches += 1
+    kernel.launches += 1
+
+
 def _fn(name: str, n_ptrs: int):
     fn = getattr(_build.library("flash_attention"), name)
     fn.restype = ctypes.c_int
@@ -207,7 +228,7 @@ def flash_fwd(q, k, v, kb=None, *, heads: int = 1, causal: bool = True,
         float(sm_scale), _stream(q),
     )
     _build.check(status, "flash_fwd")
-    flash_fwd.launches += 1
+    _count(flash_fwd, q)
     return o, lse
 
 
@@ -222,7 +243,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, dlse, kb=None, *, heads: int = 1,
                   causal: bool = True, sm_scale: float | None = None):
     """dK/dV kernel: (dK, dV) from the forward's inputs, dO (q's dtype),
     lse, delta = rowsum(dO * O) and the lse cotangent (f32 [BH, seq_q]).
-    CPU tensors take :func:`flash_bwd_dkv_plain`."""
+    bf16 at D >= 16 runs on the tensor cores, which round p and ds to
+    bf16 for their products. CPU tensors take
+    :func:`flash_bwd_dkv_plain`."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -238,14 +261,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, dlse, kb=None, *, heads: int = 1,
         _stream(q),
     )
     _build.check(status, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, q)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, dlse, kb=None, *, heads: int = 1,
                  causal: bool = True, sm_scale: float | None = None):
-    """dQ kernel: dQ from the same inputs as :func:`flash_bwd_dkv`. CPU
-    tensors take :func:`flash_bwd_dq_plain`."""
+    """dQ kernel: dQ from the same inputs as :func:`flash_bwd_dkv`, on
+    the tensor cores by the same rule. CPU tensors take
+    :func:`flash_bwd_dq_plain`."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -260,13 +284,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dlse, kb=None, *, heads: int = 1,
         bh, heads, seq_q, seq_kv, q.shape[2], int(causal), float(sm_scale), _stream(q),
     )
     _build.check(status, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, q)
     return dq
 
 
-flash_fwd.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dq.launches = 0
+for _kernel in (flash_fwd, flash_bwd_dkv, flash_bwd_dq):
+    _kernel.launches = _kernel.tensor_core_launches = _kernel.simt_launches = 0
 
 
 # ------------------------------------------------------------ autograd

@@ -27,9 +27,9 @@
 // seq 1024, D = 64, causal) the forward does ~26 GFLOP on ~100 MB and the
 // backward ~2.5x that, i.e. ~250 operations per byte: past the f32 ridge
 // (67 TFLOP/s over 3.35 TB/s) and, counted against the bf16 tensor cores
-// (989 TFLOP/s), near theirs. So the bf16 forward runs on the tensor
-// cores; the f32 kernels and the two backward kernels are SIMT, bound by
-// FMA throughput on the CUDA cores.
+// (989 TFLOP/s), near theirs. So in bf16 all three run on the tensor
+// cores (head_dim 16 to 128); the f32 kernels, and bf16 at D = 8, are
+// SIMT, bound by FMA throughput on the CUDA cores.
 //
 // The bf16 forward (flash_fwd_mma_kernel, D = 16..128), FlashAttention-2's
 // design on mma.sync: one CTA of 4 warps takes 64 query rows of one
@@ -58,11 +58,41 @@
 // p, so the lse is unchanged). D = 8 is under the mma's k16 depth and
 // takes the SIMT kernel in bf16 as well.
 //
-// The SIMT kernels (f32 at every D; bf16 at D = 8; both backward
-// kernels): TILE rows per CTA, PARTS threads per row (2 at D = 8, 8 at
-// D = 128, else 4), each holding D / PARTS of the row's dims in float4
-// groups, interleaved so the PARTS threads of a row read contiguous bytes
-// of a shared row and a warp's rows read the same address (a broadcast).
+// The bf16 backward (flash_bwd_dkv_mma_kernel, flash_bwd_dq_mma_kernel,
+// D = 16..128) recomputes p from the forward's lse on the same mma.sync
+// machinery. Each output element has one writer, with no atomics and no
+// second pass, so a rerun gives the same bits.
+//   dK/dV is the forward transposed: one CTA of 4 warps takes 64 key rows
+//     of one (batch*head), 16 a warp, keeps them as A fragments (K for
+//     S^T = K Q^T, V for dP^T = V dO^T) and walks the query tiles (64
+//     rows; 32 at D = 128) from the first that reaches the diagonal,
+//     double-buffering Q, dO and the rows' lse, delta and dlse by
+//     cp.async; causal key tile 0 walks them all, so the low key tiles
+//     launch first. On each tile P^T = exp(S^T sm_scale + bias - lse) and
+//     dS^T = P^T (dP^T - delta + dlse) are formed on the C fragments (the
+//     bias by the thread's key rows, lse, delta and dlse by its columns),
+//     packed to bf16 as A fragments, and dV += P^T dO, dK += dS^T Q take
+//     dO and Q as B fragments by ldmatrix.trans. No warp reads another's
+//     rows, so nothing is reduced across warps. dK is scaled by sm_scale
+//     in the epilogue, and both leave as bf16 through shared memory with
+//     16-byte stores.
+//   dQ has the forward's shape: 64 query rows a CTA with Q and dO as A
+//     fragments and each row's lse, delta and dlse in registers, walking
+//     the key tiles to the diagonal with K and V double-buffered, longest
+//     causal tiles first; S = Q K^T, dP = dO V^T, dS on the fragments,
+//     dQ += dS K with K by ldmatrix.trans.
+// At D = 128 the loop-invariant A operands are re-read from shared memory
+// on each step and dK/dV takes 32-row query tiles, to stay within 255
+// registers a thread without spills. As in the forward, the one
+// difference from the reference: the JAX kernels multiply f32 p and ds by
+// f32 operands, these kernels round p and ds to bf16 once for their
+// products; scores, p, ds and every accumulator stay f32.
+//
+// The SIMT kernels (f32 at every D; bf16 at D = 8): TILE rows per CTA,
+// PARTS threads per row (2 at D = 8, 8 at D = 128, else 4), each holding
+// D / PARTS of the row's dims in float4 groups, interleaved so the PARTS
+// threads of a row read contiguous bytes of a shared row and a warp's
+// rows read the same address (a broadcast).
 // Dot products reduce over the row's threads with shuffles. A loop inside
 // the CTA walks the other operand's tiles (KT rows: 64, or 32 at D = 128
 // to stay within 48 KB of static shared memory) staged as f32 (this loop
@@ -74,11 +104,11 @@
 // computed in 64 bits.
 //   flash_fwd (SIMT): one CTA per (batch*head, 64-row query tile); online
 //     softmax with (m, l, acc) in registers; one tile's scores per thread.
-//   flash_bwd_dkv: one CTA per (batch*head, 64-row key tile); walks query
-//     tiles from the first one that reaches the diagonal, recomputes
-//     p = exp(s - lse), accumulates dV += p dO and dK += ds q.
-//   flash_bwd_dq: one CTA per (batch*head, 64-row query tile); walks key
-//     tiles up to the diagonal, accumulates dQ += ds k.
+//   flash_bwd_dkv (SIMT): one CTA per (batch*head, 64-row key tile);
+//     walks query tiles from the first one that reaches the diagonal,
+//     recomputes p = exp(s - lse), accumulates dV += p dO and dK += ds q.
+//   flash_bwd_dq (SIMT): one CTA per (batch*head, 64-row query tile);
+//     walks key tiles up to the diagonal, accumulates dQ += ds k.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -336,19 +366,34 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows [row0, row0 + 64) of one head's [rows, D] bf16 matrix into a padded
-// shared tile by cp.async; rows at or past `end` are zero-filled.
-template <int D>
+// Rows [row0, row0 + ROWS) of one head's [rows, D] bf16 matrix into a
+// padded shared tile by cp.async; rows at or past `end` are zero-filled.
+template <int D, int ROWS = 64>
 __device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int row0, int end) {
   constexpr int PER_ROW = D / 8;  // 16-byte chunks in a row
-  static_assert(64 * PER_ROW % FA_THREADS == 0, "whole chunks per thread");
+  static_assert(ROWS * PER_ROW % FA_THREADS == 0, "whole chunks per thread");
 #pragma unroll
-  for (int t = 0; t < 64 * PER_ROW / FA_THREADS; ++t) {
+  for (int t = 0; t < ROWS * PER_ROW / FA_THREADS; ++t) {
     const int c = threadIdx.x + t * FA_THREADS;
     const int r = c / PER_ROW, col = (c % PER_ROW) * 8;
     const bool in = row0 + r < end;
     cp_async16(smem_u32(dst + r * FaSmem<D>::LD + col),
                in ? src + (size_t)(row0 + r) * D + col : src, in);
+  }
+}
+
+// Rows [row0, row0 + 64) of a padded shared tile to one head's [rows, D]
+// bf16 matrix with 16-byte stores; rows at or past `end` are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const bf16* tile, int row0, int end) {
+  constexpr int PER_ROW = D / 8;
+#pragma unroll
+  for (int t = 0; t < 64 * PER_ROW / FA_THREADS; ++t) {
+    const int c = threadIdx.x + t * FA_THREADS;
+    const int r = c / PER_ROW, col = (c % PER_ROW) * 8;
+    if (row0 + r < end)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + col) =
+          *reinterpret_cast<const uint4*>(tile + r * FaSmem<D>::LD + col);
   }
 }
 
@@ -525,16 +570,384 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
   }
   __syncthreads();
-  bf16* op = o + (size_t)bh * seq_q * D;
-  constexpr int PER_ROW = D / 8;
-#pragma unroll
-  for (int t = 0; t < FA_ROWS * PER_ROW / FA_THREADS; ++t) {
-    const int c = tid + t * FA_THREADS;
-    const int r = c / PER_ROW, col = (c % PER_ROW) * 8;
-    if (q0 + r < seq_q)
-      *reinterpret_cast<uint4*>(op + (size_t)(q0 + r) * D + col) =
-          *reinterpret_cast<const uint4*>(qs + r * LD + col);
+  store_rows<D>(o + (size_t)bh * seq_q * D, qs, q0, seq_q);
+}
+
+// ------------------------------------ bf16 backward on the tensor cores
+
+// Shapes of the two tensor-core backward kernels for head_dim D.
+template <int D>
+struct BwdMma {
+  static constexpr int LD = D + 8;
+  // Query rows of a dK/dV step: 32 at D = 128, where the two 16 x D f32
+  // accumulators take 128 registers a thread and leave no room for
+  // 64-column score tiles.
+  static constexpr int QT = D == 128 ? 32 : 64;
+  // Whether the loop-invariant A operands (K and V in dK/dV, Q and dO in
+  // dQ) stay in registers; at D = 128 they are read from shared memory
+  // on every step instead.
+  static constexpr bool A_IN_REGS = D <= 64;
+  // dK/dV: K, V, two stages of Q and of dO, two of (lse, delta, dlse).
+  static constexpr int DKV_BYTES =
+      (2 * 64 + 4 * QT) * LD * (int)sizeof(bf16) + 2 * 3 * QT * (int)sizeof(float);
+  // dQ: Q, dO, two stages of K and of V.
+  static constexpr int DQ_BYTES = 6 * 64 * LD * (int)sizeof(bf16);
+};
+
+// 4 bytes from global to shared; `full` false zero-fills the destination.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
+  const int src_bytes = full ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+// lse, delta and dlse of rows [row0, row0 + ROWS) into dst[3][ROWS]
+// (rows at or past `end` zero-filled). The rows start at any float, so
+// the copies are 4 bytes each.
+template <int ROWS>
+__device__ __forceinline__ void stage_rowvecs(float* dst, const float* lse, const float* delta,
+                                              const float* dlse, int row0, int end) {
+  for (int i = threadIdx.x; i < 3 * ROWS; i += FA_THREADS) {
+    const int which = i / ROWS, r = i % ROWS;
+    const float* src = which == 0 ? lse : (which == 1 ? delta : dlse);
+    const bool in = row0 + r < end;
+    cp_async4(smem_u32(dst + i), in ? src + row0 + r : src, in);
   }
+}
+
+// The A fragment (16 x 16, k16 step `ks`) of this warp's 16 rows of a
+// padded shared tile.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int warp, int lane,
+                                       int ks) {
+  ldmatrix_x4(r, smem_u32(tile + (warp * 16 + (lane & 15)) * (D + 8) + ks * 16 + (lane >> 4) * 8));
+}
+
+// acc (16 x NT*8) += A x B^T over D, where B's rows are the first NT*8
+// rows of a padded [rows][D] shared tile: B fragments by ldmatrix.
+// A is `af` (registers) or, when A_IN_REGS is false, the warp's rows of
+// the shared tile `a_tile`.
+template <int D, int NT, bool A_IN_REGS, int FR>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const uint32_t (&af)[FR][4],
+                                        const bf16* a_tile, const bf16* b_tile, int warp,
+                                        int lane) {
+  const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4];
+    if constexpr (A_IN_REGS) {
+      a[0] = af[ks][0], a[1] = af[ks][1], a[2] = af[ks][2], a[3] = af[ks][3];
+    } else {
+      load_a<D>(a, a_tile, warp, lane, ks);
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, smem_u32(b_tile + (np * 16 + mr + (mi >> 1) * 8) * (D + 8) + ks * 16 +
+                              (mi & 1) * 8));
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x D) += A x B, A the bf16 fragments `af` of a 16 x KSTEPS*16
+// matrix, B the first KSTEPS*16 rows of a padded row-major [rows][D]
+// shared tile: B fragments by ldmatrix.trans.
+template <int D, int KSTEPS>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&af)[KSTEPS][4],
+                                       const bf16* b_tile, int lane) {
+  const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, smem_u32(b_tile + (ks * 16 + mr + (mi & 1) * 8) * (D + 8) + dp * 16 +
+                                    (mi >> 1) * 8));
+      mma_bf16(acc[2 * dp], af[ks], b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], af[ks], b[2], b[3]);
+    }
+  }
+}
+
+// A warp's 16 x D f32 accumulator, times `scale`, as bf16 into its rows
+// of a padded shared tile.
+template <int D>
+__device__ __forceinline__ void stage_acc(bf16* tile, const float (&acc)[D / 8][4], float scale,
+                                          int warp, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + 2 * tig;
+    *reinterpret_cast<uint32_t*>(tile + (warp * 16 + g) * (D + 8) + col) =
+        pack_bf16(acc[dt][0] * scale, acc[dt][1] * scale);
+    *reinterpret_cast<uint32_t*>(tile + (warp * 16 + g + 8) * (D + 8) + col) =
+        pack_bf16(acc[dt][2] * scale, acc[dt][3] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const float* __restrict__ dlse, const float* __restrict__ kb,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int seq_q,
+                         int seq_kv, int causal, float sm_scale) {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "the mma backward takes D = 16..128");
+  using T = BwdMma<D>;
+  constexpr int LD = T::LD, QT = T::QT;
+  constexpr int NT = QT / 8;       // n8 tiles of a warp's S^T row block (queries)
+  constexpr int QSTEPS = QT / 16;  // k16 steps of dV += P^T dO and dK += dS^T Q
+  constexpr int DTILES = D / 8;
+  constexpr int FR = T::A_IN_REGS ? D / 16 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks_ = reinterpret_cast<bf16*>(smem_raw);  // K rows of this CTA, then dK
+  bf16* vs_ = ks_ + 64 * LD;                      // V rows, then dV
+  bf16* qst = vs_ + 64 * LD;                      // two Q stages
+  bf16* dost = qst + 2 * QT * LD;                 // two dO stages
+  float* vec = reinterpret_cast<float*>(dost + 2 * QT * LD);  // two [lse | delta | dlse] stages
+
+  const int bh = blockIdx.x;
+  const int kv0 = blockIdx.y * 64;  // causal key tile 0 walks every query tile: it goes first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int offset = seq_kv - seq_q;
+  // The first query row that sees key kv0 is kv0 - offset; start at its tile.
+  const int q_begin = causal ? max(0, kv0 - offset) / QT * QT : 0;
+  const int n_tiles = max(0, (seq_q - q_begin + QT - 1) / QT);
+
+  const size_t qrow0 = (size_t)bh * seq_q;
+  const bf16* qp = q + qrow0 * D;
+  const bf16* dop = dout + qrow0 * D;
+  const float* lp = lse + qrow0;
+  const float* dlp = delta + qrow0;
+  const float* dlsep = dlse + qrow0;
+
+  stage_bf16<D>(ks_, k + (size_t)bh * seq_kv * D, kv0, seq_kv);
+  stage_bf16<D>(vs_, v + (size_t)bh * seq_kv * D, kv0, seq_kv);
+  if (n_tiles > 0) {
+    stage_bf16<D, QT>(qst, qp, q_begin, seq_q);
+    stage_bf16<D, QT>(dost, dop, q_begin, seq_q);
+    stage_rowvecs<QT>(vec, lp, dlp, dlsep, q_begin, seq_q);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t kf[FR][4], vf[FR][4];  // K and V A fragments of the warp's 16 key rows
+  if constexpr (T::A_IN_REGS) {
+#pragma unroll
+    for (int s = 0; s < D / 16; ++s) {
+      load_a<D>(kf[s], ks_, warp, lane, s);
+      load_a<D>(vf[s], vs_, warp, lane, s);
+    }
+  }
+  const int key_g = kv0 + warp * 16 + g;  // this thread's key rows: key_g and key_g + 8
+  const float* bp = kb ? kb + (size_t)(bh / heads) * seq_kv : nullptr;
+  const float bias0 = (bp && key_g < seq_kv) ? bp[key_g] : 0.f;
+  const float bias1 = (bp && key_g + 8 < seq_kv) ? bp[key_g + 8] : 0.f;
+
+  float dka[DTILES][4], dva[DTILES][4];
+#pragma unroll
+  for (int dt = 0; dt < DTILES; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int q0 = q_begin + j * QT;
+    if (j + 1 < n_tiles) {  // the next query tile flies during this tile's products
+      const int nb = (j + 1) & 1;
+      stage_bf16<D, QT>(qst + nb * QT * LD, qp, q0 + QT, seq_q);
+      stage_bf16<D, QT>(dost + nb * QT * LD, dop, q0 + QT, seq_q);
+      stage_rowvecs<QT>(vec + nb * 3 * QT, lp, dlp, dlsep, q0 + QT, seq_q);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qt = qst + (j & 1) * QT * LD;
+    const bf16* dot = dost + (j & 1) * QT * LD;
+    const float* lse_t = vec + (j & 1) * 3 * QT;
+    const float* delta_t = lse_t + QT;
+    const float* dlse_t = lse_t + 2 * QT;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x QT queries per warp.
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+    mma_abt<D, NT, T::A_IN_REGS>(st, kf, ks_, qt, warp, lane);
+    mma_abt<D, NT, T::A_IN_REGS>(dpt, vf, vs_, dot, warp, lane);
+
+    // P^T = exp(S^T sm_scale + bias - lse) and dS^T = P^T (dP^T - delta +
+    // dlse) on the fragments, packed to bf16 as A operands; the mask only
+    // where the tile reaches the diagonal or the end of the queries.
+    const bool edge = q0 + QT > seq_q || (causal && kv0 + 63 > q0 + offset);
+    uint32_t pf[QSTEPS][4], dsf[QSTEPS][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * tig + e;  // query column in the tile
+        const float l = lse_t[c], dd = delta_t[c], dl = dlse_t[c];
+        float p0 = expf(st[nt][e] * sm_scale + bias0 - l);      // key row g
+        float p1 = expf(st[nt][2 + e] * sm_scale + bias1 - l);  // key row g + 8
+        if (edge) {
+          const int qi = q0 + c;
+          if (qi >= seq_q || (causal && key_g > qi + offset)) p0 = 0.f;
+          if (qi >= seq_q || (causal && key_g + 8 > qi + offset)) p1 = 0.f;
+        }
+        p[e] = p0;
+        p[2 + e] = p1;
+        ds[e] = p0 * (dpt[nt][e] - dd + dl);
+        ds[2 + e] = p1 * (dpt[nt][2 + e] - dd + dl);
+      }
+      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      dsf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      dsf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, B fragments by ldmatrix.trans.
+    mma_ab<D, QSTEPS>(dva, pf, dot, lane);
+    mma_ab<D, QSTEPS>(dka, dsf, qt, lane);
+    __syncthreads();  // this stage is consumed before the next prefetch overwrites it
+  }
+  cp_async_wait<0>();
+
+  // dK (times sm_scale) and dV as bf16 through the K and V tiles, then
+  // 16-byte stores. Each warp wrote and read only its own rows so far.
+  __syncthreads();
+  stage_acc<D>(ks_, dka, sm_scale, warp, lane);
+  stage_acc<D>(vs_, dva, 1.f, warp, lane);
+  __syncthreads();
+  store_rows<D>(dk + (size_t)bh * seq_kv * D, ks_, kv0, seq_kv);
+  store_rows<D>(dv + (size_t)bh * seq_kv * D, vs_, kv0, seq_kv);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const float* __restrict__ dlse, const float* __restrict__ kb,
+                        bf16* __restrict__ dq, int heads, int seq_q, int seq_kv, int causal,
+                        float sm_scale) {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "the mma backward takes D = 16..128");
+  using T = BwdMma<D>;
+  constexpr int LD = T::LD;
+  constexpr int TE = 64 * LD;
+  constexpr int DTILES = D / 8;
+  constexpr int FR = T::A_IN_REGS ? D / 16 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // Q rows of this CTA, then dQ
+  bf16* dos = qs + TE;                           // dO rows
+  bf16* kst = qs + 2 * TE;                       // two K stages
+  bf16* vst = qs + 4 * TE;                       // two V stages
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FA_ROWS;  // longest causal tiles first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int offset = seq_kv - seq_q;
+  const int kv_end = kv_reach(min(q0 + FA_ROWS, seq_q) - 1, offset, seq_kv, causal);
+  const int n_tiles = (kv_end + FA_KV - 1) / FA_KV;
+
+  const size_t qrow0 = (size_t)bh * seq_q;
+  const bf16* kp = k + (size_t)bh * seq_kv * D;
+  const bf16* vp = v + (size_t)bh * seq_kv * D;
+  const float* bp = kb ? kb + (size_t)(bh / heads) * seq_kv : nullptr;
+
+  stage_bf16<D>(qs, q + qrow0 * D, q0, seq_q);
+  stage_bf16<D>(dos, dout + qrow0 * D, q0, seq_q);
+  if (n_tiles > 0) {
+    stage_bf16<D>(kst, kp, 0, kv_end);
+    stage_bf16<D>(vst, vp, 0, kv_end);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t qf[FR][4], dof[FR][4];  // Q and dO A fragments of the warp's 16 query rows
+  if constexpr (T::A_IN_REGS) {
+#pragma unroll
+    for (int s = 0; s < D / 16; ++s) {
+      load_a<D>(qf[s], qs, warp, lane, s);
+      load_a<D>(dof[s], dos, warp, lane, s);
+    }
+  }
+  const int row_g = q0 + warp * 16 + g;  // this thread's query rows: row_g and row_g + 8
+  float row_lse[2], row_delta[2], row_dlse[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool live = row_g + 8 * r < seq_q;
+    row_lse[r] = live ? lse[qrow0 + row_g + 8 * r] : 0.f;
+    row_delta[r] = live ? delta[qrow0 + row_g + 8 * r] : 0.f;
+    row_dlse[r] = live ? dlse[qrow0 + row_g + 8 * r] : 0.f;
+  }
+
+  float acc[DTILES][4];
+#pragma unroll
+  for (int dt = 0; dt < DTILES; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * FA_KV;
+    if (j + 1 < n_tiles) {  // the next key tile flies during this tile's products
+      stage_bf16<D>(kst + ((j + 1) & 1) * TE, kp, kv0 + FA_KV, kv_end);
+      stage_bf16<D>(vst + ((j + 1) & 1) * TE, vp, kv0 + FA_KV, kv_end);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kt = kst + (j & 1) * TE;
+    const bf16* vt = vst + (j & 1) * TE;
+
+    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys per warp.
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    mma_abt<D, 8, T::A_IN_REGS>(s, qf, qs, kt, warp, lane);
+    mma_abt<D, 8, T::A_IN_REGS>(dp, dof, dos, vt, warp, lane);
+
+    // P and dS on the fragments, dS packed to bf16 as the A operand.
+    const bool edge = kv0 + FA_KV > seq_kv || (causal && kv0 + FA_KV - 1 > q0 + offset);
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = kv0 + nt * 8 + 2 * tig + e;
+        const float b = (bp && col < seq_kv) ? __ldg(bp + col) : 0.f;
+        float p0 = expf(s[nt][e] * sm_scale + b - row_lse[0]);      // row g
+        float p1 = expf(s[nt][2 + e] * sm_scale + b - row_lse[1]);  // row g + 8
+        if (edge) {
+          if (col >= seq_kv || (causal && col > row_g + offset)) p0 = 0.f;
+          if (col >= seq_kv || (causal && col > row_g + 8 + offset)) p1 = 0.f;
+        }
+        ds[e] = p0 * (dp[nt][e] - row_delta[0] + row_dlse[0]);
+        ds[2 + e] = p1 * (dp[nt][2 + e] - row_delta[1] + row_dlse[1]);
+      }
+      dsf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      dsf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS K, K fragments by ldmatrix.trans from the row-major tile.
+    mma_ab<D, 4>(acc, dsf, kt, lane);
+    __syncthreads();  // this stage is consumed before the next prefetch overwrites it
+  }
+  cp_async_wait<0>();
+
+  // dQ (times sm_scale) as bf16 through the Q tile, then 16-byte stores.
+  __syncthreads();
+  stage_acc<D>(qs, acc, sm_scale, warp, lane);
+  __syncthreads();
+  store_rows<D>(dq + qrow0 * D, qs, q0, seq_q);
 }
 
 // ------------------------------------------------------------- dK and dV
@@ -666,6 +1079,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 dim3 grid_for(int rows, int bh) { return dim3((rows + TILE - 1) / TILE, bh); }
 
+// Opts a kernel into `bytes` of dynamic shared memory past the default
+// 48 KB; returns the cudaError_t.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 bool bad_shape(int bh, int heads, int seq_q, int seq_kv) {
   return bh < 1 || bh > 65535 || heads < 1 || bh % heads || seq_q < 1 || seq_kv < 1;
 }
@@ -686,11 +1107,8 @@ int launch_fwd(int dtype, const void* q, const void* k, const void* v, const flo
           kb, static_cast<bf16*>(o), lse, heads, seq_q, seq_kv, causal, sm_scale);
     } else {
       constexpr int bytes = FaSmem<D>::BYTES;
-      if (bytes > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-        if (err != cudaSuccess) return (int)err;
-      }
+      const int err = allow_smem(flash_fwd_mma_kernel<D>, bytes);
+      if (err) return err;
       const dim3 grid(bh, (seq_q + FA_ROWS - 1) / FA_ROWS);
       flash_fwd_mma_kernel<D><<<grid, FA_THREADS, bytes, st>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -715,10 +1133,21 @@ int launch_dkv(int dtype, const void* q, const void* k, const void* v, const voi
         static_cast<float*>(dk), static_cast<float*>(dv), heads, seq_q, seq_kv, causal,
         sm_scale);
   } else if (dtype == 1) {
-    flash_bwd_dkv_kernel<bf16, D><<<grid, Simt<D>::THREADS, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, dlse, kb, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), heads, seq_q, seq_kv, causal, sm_scale);
+    if constexpr (D == 8) {  // under the mma's k16 depth: the SIMT kernel
+      flash_bwd_dkv_kernel<bf16, D><<<grid, Simt<D>::THREADS, 0, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), lse, delta, dlse, kb, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), heads, seq_q, seq_kv, causal, sm_scale);
+    } else {
+      constexpr int bytes = BwdMma<D>::DKV_BYTES;
+      const int err = allow_smem(flash_bwd_dkv_mma_kernel<D>, bytes);
+      if (err) return err;
+      const dim3 mma_grid(bh, (seq_kv + 63) / 64);
+      flash_bwd_dkv_mma_kernel<D><<<mma_grid, FA_THREADS, bytes, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), lse, delta, dlse, kb, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), heads, seq_q, seq_kv, causal, sm_scale);
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -737,10 +1166,21 @@ int launch_dq(int dtype, const void* q, const void* k, const void* v, const void
         static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, dlse, kb,
         static_cast<float*>(dq), heads, seq_q, seq_kv, causal, sm_scale);
   } else if (dtype == 1) {
-    flash_bwd_dq_kernel<bf16, D><<<grid, Simt<D>::THREADS, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, dlse, kb, static_cast<bf16*>(dq), heads,
-        seq_q, seq_kv, causal, sm_scale);
+    if constexpr (D == 8) {  // under the mma's k16 depth: the SIMT kernel
+      flash_bwd_dq_kernel<bf16, D><<<grid, Simt<D>::THREADS, 0, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), lse, delta, dlse, kb, static_cast<bf16*>(dq), heads,
+          seq_q, seq_kv, causal, sm_scale);
+    } else {
+      constexpr int bytes = BwdMma<D>::DQ_BYTES;
+      const int err = allow_smem(flash_bwd_dq_mma_kernel<D>, bytes);
+      if (err) return err;
+      const dim3 mma_grid(bh, (seq_q + FA_ROWS - 1) / FA_ROWS);
+      flash_bwd_dq_mma_kernel<D><<<mma_grid, FA_THREADS, bytes, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), lse, delta, dlse, kb, static_cast<bf16*>(dq), heads,
+          seq_q, seq_kv, causal, sm_scale);
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -763,9 +1203,9 @@ int launch_dq(int dtype, const void* q, const void* k, const void* v, const void
 // dtype: 0 = float32, 1 = bfloat16; head_dim in {8, 16, 32, 64, 128}. kb
 // may be NULL (no key bias). Each entry point returns cudaGetLastError()
 // after its launch (0 on success), launches on `stream` and does not
-// synchronise. The grid's query-tile axis is the slow one for the bf16
-// forward, so seq_q / 64 is bounded by 65535 there and bh by 65535 in the
-// SIMT kernels.
+// synchronise. The tile axis is the grid's slow one in the tensor-core
+// kernels, so seq_q / 64 (forward, dQ) and seq_kv / 64 (dK/dV) are bounded
+// by 65535, and bh by 65535 in the SIMT kernels.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
                          const float* kb, void* o, float* lse, int bh, int heads, int seq_q,
                          int seq_kv, int head_dim, int causal, float sm_scale, void* stream) {
@@ -781,7 +1221,8 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k, const void
                              const float* dlse, const float* kb, void* dk, void* dv, int bh,
                              int heads, int seq_q, int seq_kv, int head_dim, int causal,
                              float sm_scale, void* stream) {
-  if (bad_shape(bh, heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(bh, heads, seq_q, seq_kv) || (seq_kv + TILE - 1) / TILE > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   FLASH_HEAD_DIMS(head_dim, launch_dkv<D>(dtype, q, k, v, dout, lse, delta, dlse, kb, dk, dv, bh,
                                           heads, seq_q, seq_kv, causal, sm_scale, st))
@@ -792,7 +1233,8 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k, const void*
                             const float* dlse, const float* kb, void* dq, int bh, int heads,
                             int seq_q, int seq_kv, int head_dim, int causal, float sm_scale,
                             void* stream) {
-  if (bad_shape(bh, heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(bh, heads, seq_q, seq_kv) || (seq_q + TILE - 1) / TILE > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   FLASH_HEAD_DIMS(head_dim, launch_dq<D>(dtype, q, k, v, dout, lse, delta, dlse, kb, dq, bh,
                                          heads, seq_q, seq_kv, causal, sm_scale, st))

@@ -9,7 +9,9 @@ it; ``tests/conftest.py`` does import jax, hence on the card:
 
 Tolerances are the JAX suite's for the same kernels: atol 2e-5 for f32
 flash-decode and flash forward, 2e-2 for bf16, 5e-4 for f32 flash
-gradients, 2e-6 for paged decode (fp32 and int8), the same at every
+gradients (bf16: 5e-2 of the largest gradient, since the tensor-core
+backward rounds p and ds to bf16 for its products), 2e-6 for paged
+decode (fp32 and int8), the same at every
 head_dim the attention kernels take; for the fused
 cross-entropy kernels 1e-5 (f32) and 2e-2 (bf16) on the NLL and lse,
 and on dlogits 1e-6 (f32) or one bf16 ulp, 8e-3 relative, of each
@@ -247,6 +249,84 @@ def test_flash_bf16_row_with_no_visible_key_is_zero(dev):
                                                sm_scale=0.125)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse[:, 50:], lse_ref[:, 50:], atol=1e-4, rtol=1e-5)
+
+
+FLASH_KERNELS = (attention.flash_fwd, attention.flash_bwd_dkv, attention.flash_bwd_dq)
+TENSOR_CORE_HEAD_DIMS = [d for d in HEAD_DIMS if attention.uses_tensor_cores(torch.bfloat16, d)]
+
+
+def _variant_counts():
+    return [(f.tensor_core_launches, f.simt_launches) for f in FLASH_KERNELS]
+
+
+@pytest.mark.parametrize("head_dim", TENSOR_CORE_HEAD_DIMS)
+@pytest.mark.parametrize("seq_q,seq_kv,causal,bias", FLASH_CASES)
+def test_tensor_core_backward_matches_plain(dev, head_dim, seq_q, seq_kv, causal, bias):
+    """bf16 dK/dV and dQ on the tensor cores at every head_dim they take,
+    over every flash case, within 5e-2 of the largest gradient (p and ds
+    are rounded to bf16 for their products); all three launches take the
+    tensor-core variant."""
+    before = _variant_counts()
+    _check_flash_kernels(dev, torch.bfloat16, 2e-2, seq_q, seq_kv, causal, bias,
+                         head_dim=head_dim)
+    assert _variant_counts() == [(tc + 1, simt) for tc, simt in before]
+
+
+@pytest.mark.parametrize("head_dim", TENSOR_CORE_HEAD_DIMS)
+def test_tensor_core_backward_row_with_no_visible_key(dev, head_dim):
+    """Below the public check (causal with seq_q 80 > seq_kv 30): query
+    rows 0-49 see no key, so their dQ is exactly 0 and they add nothing to
+    dK and dV; every value is finite and the rest matches the plain
+    versions."""
+    rng = np.random.default_rng(head_dim + 5)
+    q, do = (_randn(rng, (2, 80, head_dim), dev, torch.bfloat16) for _ in range(2))
+    k, v = (_randn(rng, (2, 30, head_dim), dev, torch.bfloat16) for _ in range(2))
+    dlse = _randn(rng, (2, 80), dev)
+    o, lse = attention.flash_fwd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, dlse, None)
+    kw = dict(heads=1, causal=True, sm_scale=head_dim ** -0.5)
+    dk, dv = attention.flash_bwd_dkv(*args, **kw)
+    dq = attention.flash_bwd_dq(*args, **kw)
+    assert all(torch.isfinite(t.float()).all() for t in (dk, dv, dq))
+    assert float(dq[:, :50].float().abs().max()) == 0.0
+    ref = (*attention.flash_bwd_dkv_plain(*args, **kw), attention.flash_bwd_dq_plain(*args, **kw))
+    for name, a, b in zip(("dk", "dv", "dq"), (dk, dv, dq), ref):
+        scale = max(float(b.float().abs().max()), 1.0)
+        torch.testing.assert_close(a.float() / scale, b.float() / scale, atol=5e-2, rtol=5e-2,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_flash_variant_follows_dtype_and_head_dim(dev, dtype, head_dim):
+    """bf16 at head_dim 16-128 takes the tensor-core variant of all three
+    flash kernels; f32, and bf16 at head_dim 8, the SIMT one."""
+    tensor_cores = dtype == torch.bfloat16 and head_dim >= 16
+    assert attention.uses_tensor_cores(dtype, head_dim) == tensor_cores
+    h, q, k, v, do, kb, dlse = _flash_inputs(dev, dtype, 100, 260, None, head_dim=head_dim)
+    before = _variant_counts()
+    o, lse = attention.flash_fwd(q, k, v, heads=h)
+    delta = (do.float() * o.float()).sum(-1)
+    attention.flash_bwd_dkv(q, k, v, do, lse, delta, dlse, heads=h)
+    attention.flash_bwd_dq(q, k, v, do, lse, delta, dlse, heads=h)
+    assert _variant_counts() == [(tc + tensor_cores, simt + (not tensor_cores))
+                                 for tc, simt in before]
+
+
+@pytest.mark.parametrize("head_dim", TENSOR_CORE_HEAD_DIMS)
+def test_tensor_core_backward_reruns_are_bit_identical(dev, head_dim):
+    """One writer per output element and no atomics: the same inputs give
+    the same dK, dV and dQ bits on every call."""
+    h, q, k, v, do, kb, dlse = _flash_inputs(dev, torch.bfloat16, 777, 777, -1e9, seed=4,
+                                             head_dim=head_dim)
+    o, lse = attention.flash_fwd(q, k, v, kb, heads=h)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, dlse, kb)
+    first = (*attention.flash_bwd_dkv(*args, heads=h), attention.flash_bwd_dq(*args, heads=h))
+    for _ in range(3):
+        again = (*attention.flash_bwd_dkv(*args, heads=h), attention.flash_bwd_dq(*args, heads=h))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_flash_kernels_refuse_what_they_cannot_launch(dev):

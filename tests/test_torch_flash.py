@@ -5,12 +5,14 @@ The same inputs, made with numpy from a seed, go through the JAX
 ``tests/test_kernels.py`` runs them on the CPU) and the port's
 ``flash_attention`` on the CPU, where each kernel wrapper runs its plain
 PyTorch version. Mirrors ``TestFlashAttention``: forward f32 and bf16,
-causal and not, gradients, uneven and cross lengths, the lse output and
-its exact cotangent, the key bias and its zero cotangent, and the
-``seq_q > seq_kv`` rejection; plus each plain kernel version against the
-JAX kernel function it stands for (``_flash_fwd`` / ``_flash_bwd``).
+causal and not, gradients in f32 and bf16, uneven and cross lengths, the
+lse output and its exact cotangent, the key bias and its zero cotangent,
+and the ``seq_q > seq_kv`` rejection; plus each plain kernel version
+against the JAX kernel function it stands for (``_flash_fwd`` /
+``_flash_bwd``).
 Tolerances are the JAX suite's: atol 2e-5 (f32 forward), 2e-2 (bf16),
-5e-4 (gradients).
+5e-4 (gradients); bf16 gradients: one bf16 rounding (2^-7) of each value
+plus 1e-3 of the largest.
 """
 
 import jax
@@ -90,6 +92,30 @@ def test_gradients_match_jax_flash(causal):
     ours, theirs = _grads_both(q, k, v, causal=causal)
     for a, b, name in zip(ours, theirs, "qkv"):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4, rtol=5e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq", [256, 200])
+def test_gradients_bf16_match_jax_flash(causal, seq):
+    """bf16 q, k, v and cotangent: dq, dk, dv through the port's plain
+    path against the JAX kernels (interpret mode). Both compute in f32
+    from the same bf16 values and round O and each gradient to bf16, in
+    sums of different order, so a value may land one bf16 rounding away:
+    the tolerance is 2^-7 of each value plus 1e-3 of the largest
+    gradient."""
+    q, k, v = _inputs((1, 2, seq, 64), seed=13)
+    do = np.random.default_rng(14).standard_normal((1, 2, seq, 64)).astype(np.float32)
+    tq, tk, tv = _torch(q, k, v, dtype=torch.bfloat16, grad=True)
+    out = attention.flash_attention(tq, tk, tv, causal=causal)
+    ours = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do).to(torch.bfloat16))
+    _, vjp = jax.vjp(lambda a, b, c: jax_attention.flash_attention(a, b, c, causal=causal),
+                     *_jax(q, k, v, dtype=jnp.bfloat16))
+    theirs = vjp(jnp.asarray(do, jnp.bfloat16))
+    for a, b, name in zip(ours, theirs, "qkv"):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        np.testing.assert_allclose(a, b, atol=1e-3 * np.abs(b).max(), rtol=2**-7,
                                    err_msg=f"d{name}")
 
 
