@@ -13,9 +13,14 @@ non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes, with kernel, plain and bound times, and
    ``scaled_dot_product_attention`` timed as a yardstick only
-   (flash-decode: B=1, H=12, D=64, q_len=length in {16, 100, 512, 1024},
-   f32 and bf16, plus a q_len=1 step into a longer cache; paged-decode:
-   S=8, H=12, BS=16, nb=64 with ragged lengths, fp32 and int8; the three
+   (flash-decode: B=1, H=12, D=64, q_len=length in {16, 128, 512, 1024}
+   timed and 100 unaligned, plus generate's q_len=1 step over 300 rows
+   of a 1024-row cache whose tail is NaN, f32 and bf16, each launch's
+   route and split read from its counters and held to ``decode_plan``,
+   each case rerun on the same inputs for the same bits; paged decode:
+   S=8, H=12, BS=16, nb=64 with ragged lengths and with every slot at
+   1024 rows, fp32 and int8, the rows past each length NaN, 8 splits,
+   rerun bit-identical; the three
    training flash kernels at the GPT-2 step's shape, B=16, H=12, S=1024,
    D=64, causal, bf16 and f32, plus seq_q < seq_kv, a length that is not
    a tile multiple, a key bias with masked keys and a nonzero lse
@@ -27,8 +32,9 @@ non-zero:
    with ``torch.nn.functional.cross_entropy`` timed as a yardstick only;
    every attention kernel (flash forward, dK/dV, dQ, flash-decode, paged
    decode) at head_dim 8, 16, 32 and 128 against its plain version at
-   batch 2 with the head_dim-64 tolerances, the flash kernels' variants
-   held to the rule (tensor cores in bf16 from head_dim 16);
+   batch 2 with the head_dim-64 tolerances, the flash and flash-decode
+   kernels' variants held to the rule (tensor cores in bf16 from head_dim
+   16), both decode kernels on their split routes;
    the grouped-matmul kernels ``gmm``, ``gmm`` with ``transpose_rhs`` and
    ``tgmm`` at the MoE step's two expert products, [16384, 768] x
    [8, 768, 3072] and [16384, 3072] x [8, 3072, 768], with the skewed
@@ -160,6 +166,12 @@ TGMM_CHUNK_SWEEP = (2048, 4096, 8192)  # tgmm's rows per chunk, timed around the
 ROW_SUM_WIDTHS = (3072, 768)           # the bias gradients: b_in [8, ff], b_out [8, d]
 MOE_KERNELS = ("gmm", "tgmm", "group_row_sum")
 SWEEP_HEAD_DIMS = (8, 16, 32, 128)  # head_dim 64 is the main path's, checked above
+# Flash-decode cases (q_len, length, max_len, timed): the engine's prefill
+# buckets (q_len == length), an unaligned length, generate's decode step.
+FLASH_DECODE_CASES = ((16, 16, 16, True), (128, 128, 128, True), (512, 512, 512, True),
+                      (1024, 1024, 1024, True), (100, 100, 100, False), (1, 300, 1024, True))
+# Paged-decode shapes at S=8: ragged lengths, and every slot full.
+PAGED_SHAPES = (("ragged", [0, 1, 16, 17, 77, 300, 511, 1024]), ("full", [1024] * 8))
 MIN_DISTINCT = 8                    # distinct tokens a compared 32-token stream needs
 MOE_GENERATE_SEED = 0               # the MoE generate phase's init (the serving phase's seed)
 
@@ -174,12 +186,14 @@ def log(msg: str) -> None:
 
 
 def reset_counts(counters) -> None:
-    """Every launch counter to 0, and the tensor-core and SIMT counters
-    beside it where a kernel has two variants."""
+    """Every launch counter to 0, and the tensor-core, SIMT and split
+    counters beside it where a kernel has them."""
     for c in counters.values():
         c.launches = 0
         if hasattr(c, "tensor_core_launches"):
             c.tensor_core_launches = c.simt_launches = 0
+        if hasattr(c, "split_launches"):
+            c.split_launches = 0
 
 
 def flash_variants(counters) -> dict:
@@ -265,7 +279,7 @@ def kernel_of(mangled: str) -> str:
             n, at = int(mangled[i:m.end()]), m.end()
             name = mangled[at:at + n]
             if n and name.endswith("_kernel") and mangled.startswith("I", at + n):
-                args = re.match(r"I(\w*?)E", mangled[at + n:])
+                args = re.match(r"I(\w*?)EE?v", mangled[at + n:])
                 return f"{name}<{args.group(1) if args else ''}>"
     return mangled[:60]
 
@@ -321,7 +335,50 @@ def paged_times(lengths, block_size, h, d, kv_itemsize, quantized):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S["float32"] * 1e3
 
 
+def decode_ran(decode, call):
+    """``call()``'s result and (variant, split) of its one flash-decode
+    launch, read from the wrapper's counters."""
+    fn = decode.flash_decode_attention
+    split = fn.split_launches
+    out, took = ran(fn, call)
+    return out, (took, fn.split_launches == split + 1)
+
+
+def paged_tables(torch, gen, lengths_l, bs, nb):
+    """Block tables [S, nb] int32 for these lengths: each slot's blocks drawn
+    from a shuffled pool of S * nb blocks numbered from 1, padded with the
+    unused block 0."""
+    s = len(lengths_l)
+    perm = torch.randperm(s * nb, generator=gen) + 1
+    tables = torch.zeros(s, nb, dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(lengths_l):
+        need = -(-n // bs)
+        tables[i, :need] = perm[used:used + need].int()
+        used += need
+    return tables
+
+
+def poison_tails(torch, pools, tables, lengths_l, bs):
+    """Copies of the pools with NaN in every row the kernel must not read:
+    rows at or past a slot's length in its last block, and block 0 (the
+    tables' padding). ``pools`` holds f32 tensors [NB, H, BS, D] (blocks)
+    or [NB, H, BS] (int8 row scales)."""
+    out = []
+    for pool in pools:
+        p = pool.clone()
+        p[0] = float("nan")
+        for i, n in enumerate(lengths_l):
+            if n % bs:
+                p[int(tables[i, n // bs]), :, n % bs:] = float("nan")
+        out.append(p)
+    return out
+
+
 def phase_kernels(torch, decode, paged, precision) -> dict:
+    """Both decode kernels at their main paths' shapes against their plain
+    versions, with kernel, plain, library and bound times, the variant
+    counters held to the plan, and every case rerun for the same bits."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -332,97 +389,119 @@ def phase_kernels(torch, decode, paged, precision) -> dict:
 
     rows = {}
 
-    # Flash-decode at the engine's prefill shapes: q_len == length == cache.
-    flash_err = 0.0
+    # Flash-decode at the engine's prefill shapes (q_len == length == cache,
+    # 100 an unaligned correctness case) and generate's decode step (one
+    # query over 300 rows of a 1024-row cache whose tail is NaN: the kernel
+    # must read nothing past the populated length).
+    flash_err, shapes = 0.0, []
     for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         dname = str(dtype).replace("torch.", "")
-        for n in (16, 100, 512, 1024):
-            q, k, v = (randn(1, 12, n, 64, dtype=dtype) for _ in range(3))
-            out = decode.flash_decode_attention(q, k, v, n)
-            ref = decode.decode_attention_reference(q, k, v, n)
+        want_route = "tensor_core" if dtype == torch.bfloat16 else "simt"
+        for q_len, length, max_len, timed in FLASH_DECODE_CASES:
+            q = randn(1, 12, q_len, 64, dtype=dtype)
+            k, v = randn(1, 12, max_len, 64, dtype=dtype), randn(1, 12, max_len, 64, dtype=dtype)
+            kp, vp = k[:, :, :length], v[:, :, :length]  # the populated rows
+            if max_len > length:
+                k[:, :, length:] = float("nan")
+                v[:, :, length:] = float("nan")
+            plan = decode.decode_plan(dtype, q_len, length, max_len, 12, 64)
+            label = f"{dname} B=1 H=12 q_len={q_len} length={length} max_len={max_len} D=64"
+            out, took = decode_ran(decode, lambda: decode.flash_decode_attention(q, k, v, length))
+            if took != (want_route, plan.splits > 1) or plan.route != want_route:
+                fail(f"flash_decode {label}: took {took}, plan {plan}; expected {want_route}")
+            ref = decode.decode_attention_reference(q, kp, vp, length)
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
             if not torch.isfinite(out.float()).all() or err > atol:
-                fail(f"flash_decode {dname} q_len=length={n}: max_abs_err {err:.3e} > {atol}")
+                fail(f"flash_decode {label}: max_abs_err {err:.3e} > {atol}")
+            for _ in range(2):
+                if not torch.equal(out, decode.flash_decode_attention(q, k, v, length)):
+                    fail(f"flash_decode {label}: a rerun on the same inputs changed the bits")
             if dtype == torch.float32:
                 flash_err = max(flash_err, err)
-            ms = cuda_ms(torch, lambda: decode.flash_decode_attention(q, k, v, n))
-            plain = cuda_ms(torch, lambda: decode.decode_attention_reference(q, k, v, n))
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-            t_bytes, t_ops = flash_times(n, n, n, 12, 64, dname, q.element_size())
+            line = (f"flash_decode {label}: max_abs_err {err:.3e} (atol {atol}), route "
+                    f"{plan.route}, block_q {plan.block_q}, splits {plan.splits}, rerun "
+                    f"bit-identical")
+            if not timed:
+                log(line)
+                continue
+            ms = cuda_ms(torch, lambda: decode.flash_decode_attention(q, k, v, length))
+            plain = cuda_ms(torch, lambda: decode.decode_attention_reference(q, kp, vp, length))
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, kp, vp, is_causal=q_len > 1))
+            t_bytes, t_ops = flash_times(q_len, length, max_len, 12, 64, dname, q.element_size())
             bound_ms, by = bound(t_bytes, t_ops)
-            log(f"flash_decode {dname} B=1 H=12 q_len=length={n} D=64: max_abs_err {err:.3e} "
-                f"(atol {atol}) kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms(sdpa) "
-                f"{lib:.4f} bytes_ms {t_bytes:.5f} (at 3.35 TB/s) ops_ms {t_ops:.5f} "
-                f"bound_ms {bound_ms:.5f} ({by})")
-            if dtype == torch.float32 and n == 1024:
-                rows["flash_decode"] = dict(
-                    shape="B=1 H=12 q_len=length=1024 D=64 float32", ms=ms,
-                    plain_ms=plain, bound_ms=bound_ms, bound_by=by, library_ms=lib,
-                )
-    # One new query into a longer cache whose tail past `length` is NaN:
-    # the kernel must read nothing past the populated length.
-    q = randn(1, 12, 1, 64)
-    k, v = randn(1, 12, 1024, 64), randn(1, 12, 1024, 64)
-    k[:, :, 300:] = float("nan")
-    v[:, :, 300:] = float("nan")
-    out = decode.flash_decode_attention(q, k, v, 300)
-    ref = decode.decode_attention_reference(q, k[:, :, :300], v[:, :, :300], 300)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    if not torch.isfinite(out).all() or err > 2e-5:
-        fail(f"flash_decode q_len=1 length=300 max_len=1024: max_abs_err {err:.3e}")
-    flash_err = max(flash_err, err)
-    log(f"flash_decode float32 q_len=1 length=300 max_len=1024 (NaN tail): max_abs_err {err:.3e}")
-    rows["flash_decode"]["max_abs_err"] = flash_err
+            log(f"{line}; kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms(sdpa) {lib:.4f} "
+                f"bytes_ms {t_bytes:.5f} (at 3.35 TB/s) ops_ms {t_ops:.5f} bound_ms "
+                f"{bound_ms:.5f} ({by})")
+            shape = dict(shape=label, route=plan.route, block_q=plan.block_q,
+                         splits=plan.splits, max_abs_err=err, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bound_ms, bound_by=by)
+            shapes.append(shape)
+            if dtype == torch.float32 and q_len == length == 1024:
+                rows["flash_decode"] = {k: shape[k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    rows["flash_decode"].update(max_abs_err=flash_err, all_shapes=shapes)
 
-    # Paged decode: S=8, H=12, BS=16, nb=64; ragged lengths with an empty
-    # slot, a length-1 slot, a full block, ragged last blocks, a full table.
+    # Paged decode: S=8, H=12, BS=16, nb=64; ragged lengths (an empty slot,
+    # a length-1 slot, a full block, ragged last blocks, a full table) and
+    # every slot full, where bytes should set the time. The rows past each
+    # slot's length and the unused block are NaN in the kernel's pools.
     s, h, bs, nb, d = 8, 12, 16, 64, 64
-    lengths_l = [0, 1, 16, 17, 77, 300, 511, 1024]
-    num_blocks = s * nb + 1
-    perm = torch.randperm(num_blocks - 1, generator=gen) + 1
-    tables = torch.zeros(s, nb, dtype=torch.int32)
-    used = 0
-    for i, n in enumerate(lengths_l):
-        need = -(-n // bs)
-        tables[i, :need] = perm[used:used + need].int()
-        used += need
-    tables = tables.to(dev)
-    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
-    q = randn(s, h, d)
-    kb, vb = randn(num_blocks, h, bs, d), randn(num_blocks, h, bs, d)
-    qk, ks = precision.quantize_int8_rows(kb)
-    qv, vs = precision.quantize_int8_rows(vb)
-    live = lengths > 0
-    paged_err = 0.0
-    for label, args, kw, itemsize in (
-        ("fp32", (kb, vb), {}, 4),
-        ("int8", (qk, qv), {"k_scale": ks, "v_scale": vs}, 1),
-    ):
-        out = paged.paged_decode_attention(q, *args, lengths, tables, **kw)
-        ref = paged.paged_decode_reference(q, *args, lengths, tables, **kw)
-        torch.cuda.synchronize()
-        err = float((out[live] - ref[live]).abs().max())
-        empty = float(out[~live].abs().max())
-        if not torch.isfinite(out).all() or err > 2e-6 or empty > 1e-30:
-            fail(f"paged_decode {label}: max_abs_err {err:.3e} (atol 2e-6), "
-                 f"length-0 slot max {empty:.3e}")
-        paged_err = max(paged_err, err)
-        ms = cuda_ms(torch, lambda: paged.paged_decode_attention(q, *args, lengths, tables, **kw))
-        plain = cuda_ms(torch, lambda: paged.paged_decode_reference(q, *args, lengths, tables, **kw))
-        t_bytes, t_ops = paged_times(lengths_l, bs, h, d, itemsize, bool(kw))
-        bound_ms, by = bound(t_bytes, t_ops)
-        log(f"paged_decode {label} S={s} H={h} BS={bs} nb={nb} lengths={lengths_l}: max_abs_err "
-            f"{err:.3e} (atol 2e-6), length-0 slot writes zeros; kernel_ms {ms:.4f} "
-            f"plain_ms {plain:.4f} bytes_ms {t_bytes:.5f} (at 3.35 TB/s) ops_ms {t_ops:.5f} "
-            f"bound_ms {bound_ms:.5f} ({by})")
-        if label == "fp32":
-            rows["paged_decode"] = dict(
-                shape=f"S={s} H={h} BS={bs} nb={nb} D={d} fp32 lengths={lengths_l}",
-                ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by, library_ms=None,
-            )
-    rows["paged_decode"]["max_abs_err"] = paged_err
+    per, splits = paged.paged_plan(bs, nb)
+    paged_err, shapes = 0.0, []
+    fn = paged.paged_decode_attention
+    for shape_label, lengths_l in PAGED_SHAPES:
+        tables = paged_tables(torch, gen, lengths_l, bs, nb)
+        lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+        q = randn(s, h, d)
+        kb, vb = randn(s * nb + 1, h, bs, d), randn(s * nb + 1, h, bs, d)
+        qk, ks = precision.quantize_int8_rows(kb)
+        qv, vs = precision.quantize_int8_rows(vb)
+        kb_nan, vb_nan, ks_nan, vs_nan = poison_tails(torch, (kb, vb, ks, vs), tables,
+                                                      lengths_l, bs)
+        tables = tables.to(dev)
+        live = lengths > 0
+        for label, clean, poisoned, itemsize in (
+            ("fp32", ((kb, vb), {}), ((kb_nan, vb_nan), {}), 4),
+            ("int8", ((qk, qv), {"k_scale": ks, "v_scale": vs}),
+             ((qk, qv), {"k_scale": ks_nan, "v_scale": vs_nan}), 1),
+        ):
+            args, kw = poisoned
+            before = (fn.launches, fn.split_launches)
+            out = fn(q, *args, lengths, tables, **kw)
+            took = (fn.launches - before[0], fn.split_launches - before[1])
+            if took != (1, int(splits > 1)):
+                fail(f"paged_decode {label} {shape_label}: (launches, split launches) {took}, "
+                     f"plan {splits} splits")
+            ref = paged.paged_decode_reference(q, *clean[0], lengths, tables, **clean[1])
+            torch.cuda.synchronize()
+            err = float((out[live] - ref[live]).abs().max())
+            empty = float(out[~live].abs().max()) if bool((~live).any()) else 0.0
+            if not torch.isfinite(out).all() or err > 2e-6 or empty != 0.0:
+                fail(f"paged_decode {label} {shape_label}: max_abs_err {err:.3e} (atol 2e-6), "
+                     f"length-0 slot max {empty:.3e}")
+            for _ in range(2):
+                if not torch.equal(out, fn(q, *args, lengths, tables, **kw)):
+                    fail(f"paged_decode {label} {shape_label}: a rerun changed the bits")
+            paged_err = max(paged_err, err)
+            ms = cuda_ms(torch, lambda: fn(q, *args, lengths, tables, **kw))
+            plain = cuda_ms(torch, lambda: paged.paged_decode_reference(
+                q, *clean[0], lengths, tables, **clean[1]))
+            t_bytes, t_ops = paged_times(lengths_l, bs, h, d, itemsize, bool(kw))
+            bound_ms, by = bound(t_bytes, t_ops)
+            shape = f"S={s} H={h} BS={bs} nb={nb} D={d} {label} lengths={lengths_l}"
+            log(f"paged_decode {label} {shape_label} {shape}: max_abs_err {err:.3e} (atol 2e-6), "
+                f"length-0 slot exact zeros, NaN tails unread, {splits} splits of {per} blocks, "
+                f"rerun bit-identical; kernel_ms {ms:.4f} plain_ms {plain:.4f} bytes_ms "
+                f"{t_bytes:.5f} (at 3.35 TB/s) ops_ms {t_ops:.5f} bound_ms {bound_ms:.5f} ({by}), "
+                f"{bound_ms / ms:.1%} of bound")
+            shapes.append(dict(shape=shape, splits=splits, max_abs_err=err, ms=ms,
+                               plain_ms=plain, bound_ms=bound_ms, bound_by=by))
+            if label == "fp32" and shape_label == "ragged":
+                rows["paged_decode"] = dict(shape=shape, ms=ms, plain_ms=plain,
+                                            bound_ms=bound_ms, bound_by=by, library_ms=None)
+    rows["paged_decode"].update(max_abs_err=paged_err, all_shapes=shapes)
     return rows
 
 
@@ -598,9 +677,10 @@ def phase_head_dim_sweep(torch, attention, decode, paged, precision) -> dict:
     against its plain version at batch 2 with the head_dim-64 tolerances:
     the three training flash kernels (B=2, H=12, S=1024, causal, bf16 and
     f32; in bf16 all three on the tensor cores from D=16), flash-decode
-    (B=2, H=12, q_len=length=300, f32 and bf16) and paged decode (S=2,
-    H=12, fp32 and int8; block 16, and block 64 at D=128, where a block
-    takes two staged chunks). Returns the worst error per kernel and D."""
+    (B=2, H=12, q_len=length=300 and q_len=1 over 300 rows of a 1024-row
+    cache, f32 and bf16, both split, its route held to the same rule) and
+    paged decode (S=2, H=12, fp32 and int8; block 16, and block 64 at
+    D=128; both split). Returns the worst error per kernel and D."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(6)
     worst = {}
@@ -655,15 +735,21 @@ def phase_head_dim_sweep(torch, attention, decode, paged, precision) -> dict:
                 note(kernel, d, err, ok, f"{dname} {what}")
             del q, k, v, do, o, o_ref, dk, dv, dq, dk_ref, dv_ref, dq_ref
 
-            n = 300
-            q, kc, vc = (randn(b, h, n, d, dtype=dtype) for _ in range(3))
-            out = decode.flash_decode_attention(q, kc, vc, n)
-            ref = decode.decode_attention_reference(q, kc, vc, n)
-            torch.cuda.synchronize()
-            err, ok = allclose_err(torch, out, ref, fwd_tol, 0.0)
-            log(f"head_dim sweep flash_decode {dname} B={b} H={h} q_len=length={n} D={d}: "
-                f"max_abs_err {err:.3e} (atol {fwd_tol})")
-            note("flash_decode", d, err, ok, dname)
+            for q_len, n, max_len in ((300, 300, 300), (1, 300, 1024)):
+                q = randn(b, h, q_len, d, dtype=dtype)
+                kc, vc = (randn(b, h, max_len, d, dtype=dtype) for _ in range(2))
+                plan = decode.decode_plan(dtype, q_len, n, max_len, b * h, d)
+                out, took = decode_ran(decode, lambda: decode.flash_decode_attention(q, kc, vc, n))
+                if took != (flash_variant(dname, d), plan.splits > 1):
+                    fail(f"head_dim sweep: flash_decode {dname} D={d} q_len={q_len} took {took}, "
+                         f"plan {plan}")
+                ref = decode.decode_attention_reference(q, kc, vc, n)
+                torch.cuda.synchronize()
+                err, ok = allclose_err(torch, out, ref, fwd_tol, 0.0)
+                log(f"head_dim sweep flash_decode {dname} B={b} H={h} q_len={q_len} length={n} "
+                    f"max_len={max_len} D={d}: max_abs_err {err:.3e} (atol {fwd_tol}); route "
+                    f"{took[0]}, block_q {plan.block_q}, splits {plan.splits}")
+                note("flash_decode", d, err, ok, f"{dname} q_len={q_len}")
 
         for bs in ((16, 64) if d == 128 else (16,)):
             lengths_l = [77, 16 * bs - 3]
@@ -683,7 +769,8 @@ def phase_head_dim_sweep(torch, attention, decode, paged, precision) -> dict:
                 torch.cuda.synchronize()
                 err, ok = allclose_err(torch, out, ref, 2e-6, 0.0)
                 log(f"head_dim sweep paged_decode {label} S=2 H={h} BS={bs} D={d} "
-                    f"lengths={lengths_l}: max_abs_err {err:.3e} (2e-6)")
+                    f"lengths={lengths_l}: max_abs_err {err:.3e} (2e-6); "
+                    f"{paged.paged_plan(bs, nb)[1]} splits")
                 note("paged_decode", d, err, ok, f"{label} BS={bs}")
     return worst
 
@@ -1296,6 +1383,8 @@ def phase_generate(torch, counters, workdir: str) -> dict:
                                                     num_tokens=32, temperature=0.0, top_k=0)
         walls[impl] = time.perf_counter() - t0
         launches[impl] = counters["flash_decode"].launches
+        if impl == "flash":
+            flash_splits = counters["flash_decode"].split_launches
         if step != TRAIN_STEPS or toks[:64] != prompt or len(toks) != 96 or not all(
                 0 <= t < cfg.vocab_size for t in toks):
             fail(f"generate[{impl}]: step {step}, malformed stream {toks}")
@@ -1314,7 +1403,8 @@ def phase_generate(torch, counters, workdir: str) -> dict:
             verdict = ("tie", i, gap) if gap < NEAR_TIE else ("mismatch", i, gap)
             break
     summary = dict(checkpoint_step=TRAIN_STEPS, prompt_len=64, new_tokens=32, verdict=verdict,
-                   flash_decode_launches=launches["flash"], wall_s=walls,
+                   flash_decode_launches=launches["flash"],
+                   flash_decode_split_launches=flash_splits, wall_s=walls,
                    stream=streams["flash"][:8])
     log(f"generate: {json.dumps(summary)}")
     if verdict != "exact" and verdict[0] != "tie":
@@ -1692,7 +1782,8 @@ def device_breakdown(torch, engine, requests, steps: int = 8) -> dict:
             key=lambda r: -r[1],
         )
         busy = sum(ms for _, ms, _ in kernels)
-        ours = sum(ms for name, ms, _ in kernels if "decode_kernel" in name)
+        ours = sum(ms for name, ms, _ in kernels if any(
+            k in name for k in ("flash_decode_", "paged_decode_kernel", "merge_splits_kernel")))
         result[label] = {
             "wall_ms": wall_ms, "device_ms": busy,
             "busy_share": busy / wall_ms if wall_ms else None,
@@ -1737,11 +1828,18 @@ def phase_serving(torch, model, model_cfg, counters) -> list[dict]:
                 replies = list(pool.map(lambda b: post(frontend.url(), b), requests))
             wall = time.perf_counter() - t0
             launches = {k: c.launches for k, c in counters.items()}
+            launches.update({f"{k}_{v}": getattr(counters[k], f"{v}_launches")
+                             for k in ("flash_decode", "paged_decode")
+                             for v in ("tensor_core", "simt", "split")
+                             if hasattr(counters[k], f"{v}_launches")})
         finally:
             frontend.close()
             batcher.close(drain=False)
         if launches[kernel] < 1:
             fail(f"serve[{name}]: the {kernel} kernel was launched no time while serving")
+        if kernel == "flash_decode" and (launches["flash_decode_simt"], launches[
+                "flash_decode_tensor_core"]) != (launches["flash_decode"], 0):
+            fail(f"serve[{name}]: f32 flash-decode launches off the SIMT route: {launches}")
         exact = ties = 0
         for body, reply in zip(requests, replies):
             toks = reply["tokens"]
@@ -1835,6 +1933,18 @@ def main() -> int:
 
     for name in FLASH_KERNELS:
         rows[name]["tensor_core_launches"] = training["launches"][f"{name}_tensor_core"]
+    for name in ("flash_decode", "paged_decode"):
+        for v in ("tensor_core", "simt", "split"):
+            if f"{name}_{v}" in summaries[0]["launches"]:
+                rows[name][f"{v}_launches"] = sum(s["launches"][f"{name}_{v}"] for s in summaries)
+    rows["flash_decode"].update(
+        design="split-KV over CTAs with an in-order merge of (acc, m, l)",
+        variant="f32 (and bf16 at D=8): register-tiled SIMT flash_decode_simt_kernel; bf16 "
+                "D>=16: mma.sync flash_decode_mma_kernel; merge_splits_kernel when split")
+    rows["paged_decode"].update(
+        design="grid (head, slot, split), warp-level online softmax over "
+               "16-byte lane vectors, in-order merge of the splits",
+        variant="paged_decode_kernel, merge_splits_kernel when split")
     rows["gmm"]["tensor_core_launches"] = moe["launches"]["gmm_tensor_core"]
     rows["tgmm"]["tensor_core_launches"] = moe["launches"]["tgmm_tensor_core"]
     # Not the port of a TPU kernel (the MoE bias gathers' backward): its own line.
@@ -1871,7 +1981,8 @@ def main() -> int:
             **{k: row[k] for k in ("float32", "sdpa_fwd_bwd_ms", "sdpa_bwd_ms", "variant",
                                    "library_fwd_bwd_ms", "library",
                                    "all_shapes", "worst_abs_err_all_cases", "design",
-                                   "head_dim_sweep_max_abs_err", "tensor_core_launches")
+                                   "head_dim_sweep_max_abs_err", "tensor_core_launches",
+                                   "simt_launches", "split_launches")
                if k in row},
         })
     log(json.dumps({"kernels": kernels}))

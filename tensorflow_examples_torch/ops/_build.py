@@ -3,8 +3,9 @@
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with :mod:`ctypes`. Libraries
 live in ``build/torch_kernels/`` at the checkout root (``build/`` is
-git-ignored), named by a hash of the source and the compiler flags, so an
-edited kernel rebuilds and an unchanged one is reused. Nothing is built
+git-ignored), named by a hash of the source, of every ``csrc`` header it
+includes and of the compiler flags, so an edited kernel or header rebuilds
+and an unchanged one is reused. Nothing is built
 at import: the first kernel launch builds every missing library, one
 ``nvcc`` process per source, all started together. The CPU tests never
 get here, because a wrapper only launches a kernel for a CUDA tensor.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,9 +50,24 @@ def nvcc() -> str:
     return path
 
 
+def _local_headers(src: bytes) -> list[str]:
+    """The ``csrc`` headers that a source (or header) includes by
+    ``#include "name"``, followed through nested includes, sorted."""
+    seen: set[str] = set()
+    todo = [src]
+    while todo:
+        for name in re.findall(rb'^\s*#\s*include\s*"([^"]+)"', todo.pop(), re.M):
+            header = name.decode()
+            if header not in seen:
+                seen.add(header)
+                todo.append((CSRC / header).read_bytes())
+    return sorted(seen)
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    parts = [src] + [(CSRC / h).read_bytes() for h in _local_headers(src)]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -89,7 +89,7 @@ def test_flash_decode_matches_plain_at_every_head_dim(dev, dtype, atol, head_dim
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("head_dim,block_size", [(d, 16) for d in HEAD_DIMS] + [(128, 64)])
 def test_paged_decode_matches_plain_at_every_head_dim(dev, quantized, head_dim, block_size):
-    """Block 64 at head_dim 128 takes two staged chunks a block."""
+    """Block 64 at head_dim 128: two blocks a split."""
     rng = np.random.default_rng(head_dim + block_size)
     lengths = torch.tensor([0, 1, block_size, 3 * block_size - 5], dtype=torch.int32, device=dev)
     tables = torch.tensor([[0, 0, 0], [1, 0, 0], [2, 0, 0], [3, 4, 5]], dtype=torch.int32,
@@ -113,6 +113,108 @@ def test_kernels_refuse_what_they_cannot_launch(dev):
     q = torch.zeros(1, 2, 4, 64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         decode.flash_decode_attention(q, q.transpose(2, 3).contiguous().transpose(2, 3), q, 4)
+
+
+def _decode_counts():
+    fn = decode.flash_decode_attention
+    return fn.launches, fn.tensor_core_launches, fn.simt_launches, fn.split_launches
+
+
+# Shapes where the plan splits the KV walk: generate's q_len=1 steps into
+# a longer cache, and a short bucket over a long cache.
+DECODE_SPLIT_CASES = [(1, 1024, 300), (1, 1024, 1024), (16, 1024, 1024)]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("q_len,max_len,length", DECODE_SPLIT_CASES)
+def test_flash_decode_split_route_matches_plain(dev, dtype, atol, q_len, max_len, length):
+    """The split route: one launch counted as a split, on the variant
+    the plan names, equal to the plain version; the cache past `length`
+    is NaN and must never be read."""
+    rng = np.random.default_rng(length + q_len)
+    q = _randn(rng, (1, 12, q_len, 64), dev, dtype)
+    k, v = (_randn(rng, (1, 12, max_len, 64), dev, dtype) for _ in range(2))
+    k[:, :, length:] = float("nan")
+    v[:, :, length:] = float("nan")
+    plan = decode.decode_plan(dtype, q_len, length, max_len, 12, 64)
+    assert plan.splits > 1
+    n, tc, simt, split = _decode_counts()
+    out = decode.flash_decode_attention(q, k, v, length)
+    tensor_cores = plan.route == "tensor_core"
+    assert _decode_counts() == (n + 1, tc + tensor_cores, simt + (not tensor_cores), split + 1)
+    assert tensor_cores == (dtype == torch.bfloat16)
+    ref = decode.decode_attention_reference(q, k[:, :, :length], v[:, :, :length], length)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+@pytest.mark.parametrize("q_len", [64, 100, 512])
+def test_flash_decode_bf16_takes_the_tensor_cores(dev, q_len, head_dim):
+    """bf16 at q_len >= 64 runs on the tensor cores from head_dim 16 (SIMT
+    at 8, under the mma's k16 depth), at every head_dim within 2e-2."""
+    rng = np.random.default_rng(q_len + head_dim)
+    q, k, v = (_randn(rng, (1, 12, q_len, head_dim), dev, torch.bfloat16) for _ in range(3))
+    n, tc, simt, split = _decode_counts()
+    out = decode.flash_decode_attention(q, k, v, q_len)
+    tensor_cores = head_dim >= 16
+    plan = decode.decode_plan(torch.bfloat16, q_len, q_len, q_len, 12, head_dim)
+    assert _decode_counts() == (n + 1, tc + tensor_cores, simt + (not tensor_cores),
+                                split + (plan.splits > 1))
+    ref = decode.decode_attention_reference(q, k, v, q_len)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_len,max_len,length",
+                         [(1, 1024, 300), (512, 512, 512), (1024, 1024, 1024)])
+def test_flash_decode_reruns_are_bit_identical(dev, dtype, q_len, max_len, length):
+    """No atomics on either route, split or not: the same inputs give the
+    same bits on every call."""
+    rng = np.random.default_rng(q_len)
+    q = _randn(rng, (1, 12, q_len, 64), dev, dtype)
+    k, v = (_randn(rng, (1, 12, max_len, 64), dev, dtype) for _ in range(2))
+    first = decode.flash_decode_attention(q, k, v, length)
+    for _ in range(3):
+        assert torch.equal(first, decode.flash_decode_attention(q, k, v, length))
+
+
+def _full_pool(dev, quantized, s=8, h=12, bs=16, nb=64, seed=11):
+    """Every slot at nb * bs rows, blocks in a shuffled order, block 0 unused."""
+    rng = np.random.default_rng(seed)
+    tables = torch.from_numpy(rng.permutation(s * nb).reshape(s, nb) + 1).int().to(dev)
+    lengths = torch.full((s,), nb * bs, dtype=torch.int32, device=dev)
+    q = _randn(rng, (s, h, 64), dev)
+    kb, vb = (_randn(rng, (s * nb + 1, h, bs, 64), dev) for _ in range(2))
+    kw = {}
+    if quantized:
+        (kb, ks), (vb, vs) = precision.quantize_int8_rows(kb), precision.quantize_int8_rows(vb)
+        kw = {"k_scale": ks, "v_scale": vs}
+    return q, kb, vb, lengths, tables, kw
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_decode_full_cache_splits_and_matches_plain(dev, quantized):
+    """Every slot at 1024 rows: the table's 64 blocks go to 8 splits, and
+    one launch is counted as a split."""
+    q, kb, vb, lengths, tables, kw = _full_pool(dev, quantized)
+    assert paged_decode.paged_plan(16, 64) == (8, 8)
+    fn = paged_decode.paged_decode_attention
+    n, split = fn.launches, fn.split_launches
+    out = fn(q, kb, vb, lengths, tables, **kw)
+    assert (fn.launches, fn.split_launches) == (n + 1, split + 1)
+    ref = paged_decode.paged_decode_reference(q, kb, vb, lengths, tables, **kw)
+    torch.testing.assert_close(out, ref, atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_decode_reruns_are_bit_identical(dev, quantized):
+    q, kb, vb, lengths, tables, kw = _full_pool(dev, quantized, seed=12)
+    lengths[:4] = torch.tensor([0, 1, 129, 700], dtype=torch.int32, device=dev)
+    first = paged_decode.paged_decode_attention(q, kb, vb, lengths, tables, **kw)
+    assert float(first[0].abs().max()) == 0.0
+    for _ in range(3):
+        assert torch.equal(first, paged_decode.paged_decode_attention(q, kb, vb, lengths, tables,
+                                                                      **kw))
 
 
 @pytest.mark.parametrize("attention_impl,kernel", [("flash", "flash_decode"),

@@ -212,6 +212,130 @@ class TestPagedDecodeParity:
             )
 
 
+class TestSplitMerge:
+    """The plain versions of the decode kernels' split-KV route: the
+    partition a plan picks from shapes, each split's (acc, m, l) alone,
+    and the in-order merge, against the JAX kernels in interpret mode and
+    the references (atol 2e-5 flash-decode f32, 2e-2 bf16, 2e-6 paged)."""
+
+    @pytest.mark.parametrize("q_len,length,max_len,head_dim,dtype,atol", [
+        (1, 1000, 1024, 64, "float32", 2e-5),   # q_len=1 over a long cache: 16 splits
+        (1, 200, 256, 64, "float32", 2e-5),     # the last split ends in a partly populated tile
+        (40, 200, 256, 64, "float32", 2e-5),    # causal rows across a partial last tile
+        (128, 128, 128, 64, "float32", 2e-5),   # query tile 0 has one KV tile: an empty split
+        (16, 300, 512, 8, "float32", 2e-5),     # head_dim 8: block_q 64
+        (1, 300, 512, 128, "float32", 2e-5),
+        (64, 300, 512, 64, "bfloat16", 2e-2),   # tensor-core plan, P cast to bf16
+    ])
+    def test_decode_split_matches_jax_kernel_and_reference(self, q_len, length, max_len,
+                                                           head_dim, dtype, atol):
+        rng = np.random.default_rng(q_len + length + head_dim)
+        q = _rand(rng, (1, 2, q_len, head_dim))
+        k, v = _rand(rng, (1, 2, max_len, head_dim)), _rand(rng, (1, 2, max_len, head_dim))
+        tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+        plan = decode.decode_plan(tdt, q_len, length, max_len, 2, head_dim)
+        assert plan.splits > 1
+        ours = decode.decode_split_reference(_t(q, tdt), _t(k, tdt), _t(v, tdt), length,
+                                             block_q=plan.block_q, splits=plan.splits)
+        assert ours.dtype == tdt
+        kw = {"block_q": 8, "block_kv": 128} if q_len % 8 == 0 and max_len % 128 == 0 else {}
+        kernel = jax_decode.flash_decode_attention(
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt), length, **kw)
+        ref = decode.decode_attention_reference(_t(q, tdt), _t(k, tdt), _t(v, tdt), length)
+        ours = ours.float().numpy()
+        np.testing.assert_allclose(ours, np.asarray(kernel.astype(jnp.float32)),
+                                   atol=atol, rtol=atol)
+        np.testing.assert_allclose(ours, ref.float().numpy(), atol=atol, rtol=atol)
+
+    @pytest.mark.parametrize("splits", [1, 2, 3, 7, 32])
+    def test_any_split_count_gives_the_same_attention(self, splits):
+        """The merge is exact up to rounding whatever the partition,
+        including more splits than KV tiles (empty splits)."""
+        rng = np.random.default_rng(splits)
+        q = _t(_rand(rng, (1, 2, 70, 32)))
+        k, v = (_t(_rand(rng, (1, 2, 300, 32))) for _ in range(2))
+        ours = decode.decode_split_reference(q, k, v, 250, block_q=64, splits=splits)
+        ref = decode.decode_attention_reference(q, k, v, 250)
+        np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=2e-5, rtol=2e-5)
+
+    def test_merge_weighs_an_empty_split_exactly_zero(self):
+        rng = np.random.default_rng(0)
+        acc, m, l = (_t(rng.standard_normal(shape)) for shape in ((2, 5, 8), (2, 5), (2, 5)))
+        l = l.abs()
+        empty = (torch.zeros(1, 5, 8), torch.full((1, 5), attention.NEG_INF), torch.zeros(1, 5))
+        with_empty = decode.merge_partials(*(torch.cat([e, x]) for e, x in zip(empty, (acc, m, l))))
+        np.testing.assert_array_equal(with_empty.numpy(), decode.merge_partials(acc, m, l).numpy())
+        nothing = decode.merge_partials(*(x.repeat(3, *[1] * (x.dim() - 1)) for x in empty))
+        assert not nothing.any()  # a slot that saw no key comes out as exact zeros
+
+    def test_split_count_depends_only_on_shapes(self):
+        """The plans are functions of host-known shapes (no tensor, no
+        length on the device), pinned at the main paths' shapes."""
+        import inspect
+
+        assert list(inspect.signature(decode.decode_plan).parameters) == [
+            "dtype", "q_len", "length", "max_len", "bh", "head_dim"]
+        assert list(inspect.signature(paged_decode.paged_plan).parameters) == [
+            "block_size", "nb"]
+        f32, bf16 = torch.float32, torch.bfloat16
+        plans = {
+            (f32, 16, 16, 16, 12, 64): ("simt", 16, 1),        # one KV tile: nothing to split
+            (f32, 128, 128, 128, 12, 64): ("simt", 64, 2),
+            (f32, 512, 512, 512, 12, 64): ("simt", 64, 3),
+            (f32, 1024, 1024, 1024, 12, 64): ("simt", 64, 2),
+            (f32, 1, 300, 1024, 12, 64): ("simt", 16, 5),      # generate's decode step
+            (f32, 1, 96, 1024, 12, 64): ("simt", 16, 2),
+            (f32, 1, 300, 1024, 12, 8): ("simt", 64, 5),
+            (f32, 1024, 1024, 1024, 192, 64): ("simt", 64, 1),  # a full grid
+            (bf16, 16, 16, 16, 12, 64): ("tensor_core", 16, 1),
+            (bf16, 32, 32, 32, 12, 64): ("tensor_core", 32, 1),
+            (bf16, 1024, 1024, 1024, 12, 64): ("tensor_core", 64, 1),  # prefills never split
+            (bf16, 1, 300, 1024, 12, 64): ("tensor_core", 16, 3),      # two KV tiles a split
+            (bf16, 1, 96, 1024, 12, 64): ("tensor_core", 16, 1),
+            (bf16, 16, 1024, 1024, 12, 64): ("tensor_core", 16, 8),
+            (bf16, 100, 100, 100, 12, 8): ("simt", 64, 2),
+        }
+        for args, want in plans.items():
+            assert tuple(decode.decode_plan(*args)) == want, args
+        assert paged_decode.paged_plan(16, 64) == (8, 8)   # S=8 full cache: 8 splits
+        assert paged_decode.paged_plan(16, 4) == (8, 1)    # the 64-row KV bucket: no split
+        assert paged_decode.paged_plan(64, 16) == (2, 8)
+        assert paged_decode.paged_plan(5, 30) == (25, 2)
+
+    @pytest.mark.parametrize("quantized", [False, True])
+    def test_paged_split_matches_jax_kernel_and_reference(self, quantized):
+        """Splits of 16 blocks of 8 rows: a boundary inside a slot (130
+        rows), a split holding one row (129), a full table (160), a
+        length-0 slot (exact zeros) and a single row."""
+        bs, nb, h, d = 8, 20, 2, 16
+        lengths = [130, 0, 129, 160, 1]
+        rng = np.random.default_rng(20 + quantized)
+        tables = (rng.permutation(len(lengths) * nb) + 1).reshape(len(lengths), nb)
+        shape = (len(lengths) * nb + 1, h, bs, d)
+        q = _rand(rng, (len(lengths), h, d))
+        k, v = _rand(rng, shape), _rand(rng, shape)
+        scales = {}
+        if quantized:
+            k, ks = (np.asarray(x) for x in jax_precision.quantize_int8_rows(jnp.asarray(k)))
+            v, vs = (np.asarray(x) for x in jax_precision.quantize_int8_rows(jnp.asarray(v)))
+            scales = {"k_scale": ks, "v_scale": vs}
+        assert paged_decode.paged_plan(bs, nb) == (16, 2)
+        j = dict(q=jnp.asarray(q), k_blocks=jnp.asarray(k), v_blocks=jnp.asarray(v),
+                 lengths=jnp.asarray(lengths, jnp.int32),
+                 block_tables=jnp.asarray(tables, jnp.int32),
+                 **{n: jnp.asarray(x) for n, x in scales.items()})
+        kernel = np.asarray(jax_paged.paged_decode_attention(**j))
+        ref = np.asarray(jax_paged.paged_decode_reference(**j))
+        kv_dtype = torch.int8 if quantized else torch.float32
+        ours = paged_decode.paged_split_reference(
+            _t(q), _t(k, kv_dtype), _t(v, kv_dtype), _t(lengths, torch.int32),
+            _t(tables, torch.int32), **{n: _t(x) for n, x in scales.items()}).numpy()
+        live = np.asarray(lengths) > 0
+        np.testing.assert_allclose(ours[live], kernel[live], atol=2e-6, rtol=2e-6)
+        np.testing.assert_allclose(ours[live], ref[live], atol=2e-6, rtol=2e-6)
+        assert not ours[~live].any()
+
+
 def test_int8_row_quantization_matches_jax():
     rng = np.random.default_rng(0)
     x = _rand(rng, (4, 3, 16)) * 3
@@ -282,6 +406,24 @@ class TestWrappers:
         match = "CUDA tensor" if supported else r"head_dim %d unsupported .*\(8, 16, 32, 64, 128\)" % d
         with pytest.raises(ValueError, match=match):
             calls[kernel]()
+
+    def test_an_edited_header_changes_the_library_path(self, monkeypatch, tmp_path):
+        """A library is named by its source and every csrc header the
+        source includes: editing common.cuh renames (so rebuilds) the
+        libraries that include it and no other."""
+        import shutil
+
+        csrc = tmp_path / "csrc"
+        shutil.copytree(_build.CSRC, csrc)
+        monkeypatch.setattr(_build, "CSRC", csrc)
+        before = {n: _build.library_path(n) for n in _build.SOURCES}
+        assert _build._local_headers((csrc / "decode.cu").read_bytes()) == ["common.cuh"]
+        with open(csrc / "common.cuh", "a") as f:
+            f.write("// edited\n")
+        after = {n: _build.library_path(n) for n in _build.SOURCES}
+        includes = {n for n in _build.SOURCES if "common.cuh" in (csrc / f"{n}.cu").read_text()}
+        assert includes == {"decode", "paged_decode", "flash_attention", "grouped_matmul"}
+        assert {n for n in _build.SOURCES if after[n] != before[n]} == includes
 
     def test_kernel_modules_import_and_build_nothing_without_nvcc(self, monkeypatch):
         """Importing the kernel modules builds nothing; a build with no
