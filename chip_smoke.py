@@ -93,12 +93,26 @@ non-zero:
    at least 8 distinct tokens, the two streams held to each other, and
    the logits of the whole sequence held within 1e-4 of their max;
 5. serving: GPT-2 124M at full width, random weights from seed 0, f32,
-   through ``ContinuousBatcher`` + ``ServingFrontend`` over real HTTP in
-   three engine configurations (dense pool with ``attention="flash"``;
-   paged pool, block 16, ``attention="paged_flash"``; the same with int8
-   KV), 8 concurrent greedy requests each, every stream checked against
-   the cacheless ``reference_generate`` on the card and the kernels'
-   launch counters read around the served requests;
+   through ``ContinuousBatcher`` + ``ServingFrontend`` over real HTTP, 8
+   concurrent greedy requests each, in seven engine configurations: dense
+   pool with ``attention="flash"``; paged pool, block 16,
+   ``attention="paged_flash"``; the same with int8 KV; and, each warmed
+   before traffic (every rung run once, each decode and verify rung
+   captured as a CUDA graph) and serving prompts that repeat a motif, 32
+   new tokens each: paged_flash with int8 KV, ``spec_decode_k=4`` and
+   ``prefill_chunk_tokens=64``; dense flash with ``spec_decode_k=4``;
+   int8 weights; fp8 weights with fp8 KV (paged, block 16), the last two
+   under ``attention="xla"``. Every stream is checked against the
+   engine's own cacheless ``reference_generate`` on the card (quantized
+   weights: the same dequantized weights; a quantized KV cache: first
+   token exact, >= 75% agreement), the kernels' launch counters read
+   around the served requests (a replayed graph adds its capture's
+   tally), ``post_warmup_recompiles()`` 0 and drafts accepted where
+   speculation is on; the warmed configurations are served again by an
+   eager engine of the same config (``cuda_graphs=False``) for tokens/s
+   and host wall per decode step with graphs and without; each
+   configuration's profiled decode steps hold the paged kernel's
+   replay-counted launches to the profiler's count;
 6. the ``{"group_row_sum": {...}}`` line (not the port of a TPU kernel),
    the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
@@ -1740,12 +1754,17 @@ def stream_verdict(torch, engine, prompt, served, ref):
 
 def device_breakdown(torch, engine, requests, steps: int = 8) -> dict:
     """Where a step's time goes, from torch.profiler: one prefill of the
-    longest prompt and ``steps`` decode steps over every request's slot.
-    For each: host wall time, summed kernel time on the card (its share
-    of the wall is the busy share; the rest is the card idle, waiting on
-    the host), the port's own kernels' share, and the top kernels."""
+    longest prompt and ``steps`` decode steps over every request's slot
+    (replays of the rung's CUDA graph). For each: host wall time, summed
+    kernel time on the card (its share of the wall is the busy share; the
+    rest is the card idle, waiting on the host), the port's own kernels'
+    share, and the top kernels. For the decode steps also the paged
+    kernel's launches as the profiler saw them and as its counter, added
+    up from the graph replays' tallies, says."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from tensorflow_examples_torch.ops.paged_decode import paged_decode_attention
 
     # Shifted token ids: prompts the prefix cache has not seen, so the
     # profiled prefill is a full one, not a prefix hit.
@@ -1769,18 +1788,18 @@ def device_breakdown(torch, engine, requests, steps: int = 8) -> dict:
         if label == "decode":
             decode()  # warm
         torch.cuda.synchronize()
+        counted = paged_decode_attention.launches
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        kernels = sorted(
-            ((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-             and e.self_device_time_total > 0),
-            key=lambda r: -r[1],
-        )
+        counted = paged_decode_attention.launches - counted
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+                          for e in events), key=lambda r: -r[1])
         busy = sum(ms for _, ms, _ in kernels)
         ours = sum(ms for name, ms, _ in kernels if any(
             k in name for k in ("flash_decode_", "paged_decode_kernel", "merge_splits_kernel")))
@@ -1789,6 +1808,9 @@ def device_breakdown(torch, engine, requests, steps: int = 8) -> dict:
             "busy_share": busy / wall_ms if wall_ms else None,
             "port_kernel_ms": ours,
             "launches": sum(c for _, _, c in kernels),
+            "paged_kernel_launches_profiled": sum(
+                e.count for e in events if "paged_decode_kernel" in e.key),
+            "paged_kernel_launches_counted": counted,
             "top": [[name[:70], ms, c] for name, ms, c in kernels[:6]],
         }
     for slot in slots:
@@ -1796,10 +1818,90 @@ def device_breakdown(torch, engine, requests, steps: int = 8) -> dict:
     return result
 
 
-def phase_serving(torch, model, model_cfg, counters) -> list[dict]:
+def decode_wall(torch, engine, prompts, steps: int = 16) -> float:
+    """Host wall milliseconds a plain decode step over every prompt's slot
+    (each step ends in its device -> host sync), after two warm steps."""
+    slots = [engine.pool.alloc() for _ in prompts]
+    entries = [[slot, engine.prefill(slot, p)[0], 0, 0.0, 0] for slot, p in zip(slots, prompts)]
+    for i in range(steps + 2):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = engine.decode([tuple(e) for e in entries])
+        for e in entries:
+            e[1] = out[e[0]]
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    for slot in slots:
+        engine.pool.free(slot)
+    return wall
+
+
+def serve_http(engine, requests, counters):
+    """The requests, all at once, over HTTP through ContinuousBatcher and
+    ServingFrontend: (replies, wall seconds, launch counters read around
+    them, the batcher's serving line)."""
     from tensorflow_examples_torch.serving.batcher import ContinuousBatcher
-    from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
     from tensorflow_examples_torch.serving.frontend import ServingFrontend
+
+    batcher = ContinuousBatcher(engine).start()
+    frontend = ServingFrontend(batcher).start()
+    try:
+        if not engine.warmed:
+            post(frontend.url(), {"prompt": [1, 2, 3], "max_new_tokens": 2})  # first-call set-up
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
+            replies = list(pool.map(lambda b: post(frontend.url(), b), requests))
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        launches.update({f"{k}_{v}": getattr(counters[k], f"{v}_launches")
+                         for k in ("flash_decode", "paged_decode")
+                         for v in ("tensor_core", "simt", "split")
+                         if hasattr(counters[k], f"{v}_launches")})
+        health = json.loads(urllib.request.urlopen(frontend.url("/health"), timeout=60).read())
+        line = batcher.stats_line()
+    finally:
+        frontend.close()
+        batcher.close(drain=False)
+    if health["post_warmup_recompiles"] != engine.post_warmup_recompiles():
+        fail(f"/health post_warmup_recompiles {health['post_warmup_recompiles']} != the engine's")
+    return replies, wall, launches, line
+
+
+def check_streams(torch, name, engine, requests, replies, vocab) -> tuple[int, int]:
+    """Every stream against the engine's own cacheless reference_generate
+    on the card (quantized weights: the same dequantized weights): exact,
+    or first differing at a near-tie; with a quantized KV cache (which the
+    cacheless reference does not have), first token exact and >= 75%
+    agreement. Returns (exact, near-tie) counts."""
+    exact = ties = 0
+    for body, reply in zip(requests, replies):
+        toks = reply["tokens"]
+        if len(toks) != body["max_new_tokens"] or not all(0 <= t < vocab for t in toks):
+            fail(f"serve[{name}]: malformed stream {toks!r}")
+        ref = engine.reference_generate(body["prompt"], max_new=body["max_new_tokens"],
+                                        seed=body["seed"])
+        if getattr(engine.pool, "quantized", False):
+            agree = sum(a == b for a, b in zip(toks, ref)) / len(ref)
+            if toks[0] != ref[0] or agree < 0.75:
+                fail(f"serve[{name}] prompt_len={len(body['prompt'])}: quantized-KV stream "
+                     f"first token {toks[0]} vs {ref[0]}, agreement {agree:.3f} < 0.75")
+            exact += toks == ref
+            continue
+        verdict = stream_verdict(torch, engine, body["prompt"], toks, ref)
+        if verdict == "exact":
+            exact += 1
+        elif verdict[0] == "tie":
+            ties += 1
+        else:
+            fail(f"serve[{name}] prompt_len={len(body['prompt'])}: stream differs from "
+                 f"reference_generate at token {verdict[1]} (top-2 gap {verdict[2]})")
+    return exact, ties
+
+
+def phase_serving(torch, model, model_cfg, counters, smi: str) -> list[dict]:
+    from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
+    from tensorflow_examples_torch.telemetry.registry import MetricsRegistry
 
     rng = np.random.default_rng(0)
     prompt_lens = [5, 17, 40, 64, 100, 150, 230, 300]
@@ -1808,75 +1910,103 @@ def phase_serving(torch, model, model_cfg, counters) -> list[dict]:
          "max_new_tokens": int(rng.integers(16, 33)), "seed": i}
         for i, n in enumerate(prompt_lens)
     ]
-    configs = (
-        ("dense_flash", ServeConfig(max_slots=8, attention="flash"), "flash_decode"),
+    # Prompts that repeat a motif (3-8 tokens), so the n-gram drafter's
+    # drafts are accepted; 32 new tokens each.
+    motif_requests = []
+    for i, n in enumerate(prompt_lens):
+        motif = [int(t) for t in rng.integers(0, model_cfg.vocab_size, 3 + i % 6)]
+        motif_requests.append({"prompt": (motif * (n // len(motif) + 1))[:n],
+                               "max_new_tokens": 32, "seed": i})
+    configs = (  # name, config, kernel launched while serving, warmed before traffic
+        ("dense_flash", ServeConfig(max_slots=8, attention="flash"), "flash_decode", False),
         ("paged_flash", ServeConfig(max_slots=8, kv_block_size=16, attention="paged_flash"),
-         "paged_decode"),
+         "paged_decode", False),
         ("paged_flash_int8", ServeConfig(max_slots=8, kv_block_size=16, attention="paged_flash",
-                                         kv_dtype="int8"), "paged_decode"),
+                                         kv_dtype="int8"), "paged_decode", False),
+        ("paged_flash_int8_spec_chunked", ServeConfig(
+            max_slots=8, kv_block_size=16, attention="paged_flash", kv_dtype="int8",
+            spec_decode_k=4, prefill_chunk_tokens=64), "paged_decode", True),
+        ("dense_flash_spec", ServeConfig(max_slots=8, attention="flash", spec_decode_k=4),
+         "flash_decode", True),
+        ("weights_int8", ServeConfig(max_slots=8, weight_dtype="int8"), None, True),
+        ("weights_fp8_kv_fp8", ServeConfig(max_slots=8, kv_block_size=16, weight_dtype="fp8",
+                                           kv_dtype="fp8"), None, True),
     )
     summaries = []
-    for name, serve_cfg, kernel in configs:
-        engine = InferenceEngine(model_cfg, model, cfg=serve_cfg)
-        batcher = ContinuousBatcher(engine).start()
-        frontend = ServingFrontend(batcher).start()
-        try:
-            post(frontend.url(), {"prompt": [1, 2, 3], "max_new_tokens": 2})  # first-call set-up
-            reset_counts(counters)
+    for name, serve_cfg, kernel, warmed in configs:
+        reqs = motif_requests if warmed else requests
+        engine = InferenceEngine(model_cfg, model, cfg=serve_cfg, registry=MetricsRegistry())
+        summary = dict(config=name)
+        if warmed:
             t0 = time.perf_counter()
-            with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
-                replies = list(pool.map(lambda b: post(frontend.url(), b), requests))
-            wall = time.perf_counter() - t0
-            launches = {k: c.launches for k, c in counters.items()}
-            launches.update({f"{k}_{v}": getattr(counters[k], f"{v}_launches")
-                             for k in ("flash_decode", "paged_decode")
-                             for v in ("tensor_core", "simt", "split")
-                             if hasattr(counters[k], f"{v}_launches")})
-        finally:
-            frontend.close()
-            batcher.close(drain=False)
-        if launches[kernel] < 1:
+            counts = engine.warmup()
+            if sum(counts.values()) != engine.expected_compiles():
+                fail(f"serve[{name}]: warmup ran {counts}, expected {engine.expected_compiles()}")
+            summary.update(warmup_s=time.perf_counter() - t0, rungs=sum(counts.values()),
+                           graphs_captured=sum(len(t) for t in engine.graph_tallies().values()))
+        replies, wall, launches, line = serve_http(engine, reqs, counters)
+        if kernel is not None and launches[kernel] < 1:
             fail(f"serve[{name}]: the {kernel} kernel was launched no time while serving")
         if kernel == "flash_decode" and (launches["flash_decode_simt"], launches[
                 "flash_decode_tensor_core"]) != (launches["flash_decode"], 0):
             fail(f"serve[{name}]: f32 flash-decode launches off the SIMT route: {launches}")
-        exact = ties = 0
-        for body, reply in zip(requests, replies):
-            toks = reply["tokens"]
-            if len(toks) != body["max_new_tokens"] or not all(
-                    0 <= t < model_cfg.vocab_size for t in toks):
-                fail(f"serve[{name}]: malformed stream {toks!r}")
-            ref = engine.reference_generate(body["prompt"], max_new=body["max_new_tokens"],
-                                            seed=body["seed"])
-            if serve_cfg.kv_dtype == "int8":
-                agree = sum(a == b for a, b in zip(toks, ref)) / len(ref)
-                if toks[0] != ref[0] or agree < 0.75:
-                    fail(f"serve[{name}] prompt_len={len(body['prompt'])}: int8 stream "
-                         f"first token {toks[0]} vs {ref[0]}, agreement {agree:.3f} < 0.75")
-                exact += toks == ref
-                continue
-            verdict = stream_verdict(torch, engine, body["prompt"], toks, ref)
-            if verdict == "exact":
-                exact += 1
-            elif verdict[0] == "tie":
-                ties += 1
-            else:
-                fail(f"serve[{name}] prompt_len={len(body['prompt'])}: stream differs from "
-                     f"reference_generate at token {verdict[1]} (top-2 gap {verdict[2]})")
+        exact, ties = check_streams(torch, name, engine, reqs, replies, model_cfg.vocab_size)
+        generated = sum(len(r["tokens"]) for r in replies)
         ttft = [r["ttft_s"] for r in replies]
         tpot = [(r["total_s"] - r["ttft_s"]) / (len(r["tokens"]) - 1) for r in replies]
-        generated = sum(len(r["tokens"]) for r in replies)
-        summary = dict(
-            config=name, requests=len(requests), generated_tokens=generated,
-            wall_s=wall, tok_per_s=generated / wall, ttft_p50_s=float(np.median(ttft)),
+        counters_now = engine.registry.counter_values()
+        summary.update(
+            requests=len(reqs), generated_tokens=generated, wall_s=wall,
+            tok_per_s=generated / wall, ttft_p50_s=float(np.median(ttft)),
             tpot_p50_s=float(np.median(tpot)), exact_streams=exact, near_tie_streams=ties,
-            launches=launches,
+            launches=launches, post_warmup_recompiles=engine.post_warmup_recompiles(),
+            decode_steps=counters_now.get("serving/decode_steps", 0),
+            spec_accepted=counters_now.get("serving/spec_accepted_total", 0),
+            spec_drafted=counters_now.get("serving/spec_drafted_total", 0),
+            chunked_prefills=counters_now.get("serving/chunked_prefills", 0),
         )
+        if warmed:
+            if engine.post_warmup_recompiles() != 0:
+                fail(f"serve[{name}]: {engine.post_warmup_recompiles()} recompiles after warmup")
+            if serve_cfg.spec_decode_k and not summary["spec_accepted"] > 0:
+                fail(f"serve[{name}]: no draft was accepted")
+            if serve_cfg.prefill_chunk_tokens and not summary["chunked_prefills"] > 0:
+                fail(f"serve[{name}]: no prefill was chunked")
+            if serve_cfg.weight_dtype:
+                summary["byte_breakdown"] = engine.byte_breakdown()
+                summary["serving_line_precision"] = {
+                    k: line["serving"][k] for k in ("weight_bits", "param_bytes",
+                                                    "param_bytes_f32", "quantized_params")}
+            # The same config eager: every rung without a CUDA graph.
+            eager = InferenceEngine(model_cfg, model, cfg=serve_cfg, registry=MetricsRegistry(),
+                                    cuda_graphs=False)
+            eager.warmup()
+            e_replies, e_wall, _, _ = serve_http(eager, reqs, counters)
+            if [r["tokens"] for r in e_replies] != [r["tokens"] for r in replies]:
+                check_streams(torch, name + "/eager", eager, reqs, e_replies,
+                              model_cfg.vocab_size)
+            prompts = [b["prompt"] for b in reqs]
+            summary.update(
+                eager_tok_per_s=sum(len(r["tokens"]) for r in e_replies) / e_wall,
+                decode_step_wall_ms_graphs=decode_wall(torch, engine, prompts),
+                decode_step_wall_ms_eager=decode_wall(torch, eager, prompts),
+                eager_post_warmup_recompiles=eager.post_warmup_recompiles(),
+                card=smi,
+            )
+            del eager
         log(f"serve[{name}]: {json.dumps(summary)}")
-        log(f"profile[{name}] (per prefill / per decode step, ms): "
-            f"{json.dumps(device_breakdown(torch, engine, requests))}")
+        profile = device_breakdown(torch, engine, reqs)
+        step = profile["decode"]
+        if engine.cuda_graphs and step["paged_kernel_launches_profiled"] != \
+                step["paged_kernel_launches_counted"]:
+            fail(f"serve[{name}]: the graph replays' paged-kernel tally "
+                 f"{step['paged_kernel_launches_counted']} != the profiler's "
+                 f"{step['paged_kernel_launches_profiled']}")
+        if kernel == "paged_decode" and not step["paged_kernel_launches_counted"] > 0:
+            fail(f"serve[{name}]: no paged-kernel launch counted from the graph replays")
+        log(f"profile[{name}] (per prefill / per decode step, ms): {json.dumps(profile)}")
         summaries.append(summary)
-        del engine, batcher, frontend
+        del engine
         torch.cuda.empty_cache()
     return summaries
 
@@ -1929,7 +2059,7 @@ def main() -> int:
     model = transformer.GPT2(model_cfg, seed=0).to("cuda")
     log(f"model: GPT-2 124M, {sum(p.numel() for p in model.parameters())} params, "
         f"random init seed 0, f32, built in {time.perf_counter() - t0:.3f} s")
-    summaries = phase_serving(torch, model, model_cfg, counters)
+    summaries = phase_serving(torch, model, model_cfg, counters, smi)
 
     for name in FLASH_KERNELS:
         rows[name]["tensor_core_launches"] = training["launches"][f"{name}_tensor_core"]

@@ -69,6 +69,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tensorflow_examples_torch.core import rng as rng_mod
+from tensorflow_examples_torch.core.precision import materialize as _w
+from tensorflow_examples_torch.core.precision import take_rows as _rows
 from tensorflow_examples_torch.ops.attention import NEG_INF, attention_reference, flash_attention
 from tensorflow_examples_torch.ops.decode import decode_attention_reference, flash_decode_attention
 from tensorflow_examples_torch.parallel.moe import moe_ffn
@@ -187,12 +189,14 @@ class Block(nn.Module):
 #
 # Plain functions over the GPT2 module's parameters (the reference's
 # names), shared by the training forward here and the serving engine.
+# Every matmul weight is read through ``core/precision.materialize``
+# (``_w``) and every embedding table through ``take_rows`` (``_rows``):
+# the identity (``F.embedding`` for a table) on a plain tensor, a
+# dequantization where the serving engine holds a QuantizedWeight.
 
 
 def _embed(model: "GPT2", tokens, positions):
-    # F.embedding, not tensor indexing: its backward is PyTorch's
-    # embedding backward, not the general scatter-add of an indexed read.
-    return F.embedding(tokens, model.wte.embedding) + F.embedding(positions, model.wpe.embedding)
+    return _rows(model.wte.embedding, tokens) + _rows(model.wpe.embedding, positions)
 
 
 def _layer_norm(x, ln, eps=1e-5):
@@ -206,8 +210,8 @@ def _layer_norm(x, ln, eps=1e-5):
 
 
 def _block_mlp(x, blk):
-    h = F.gelu(x @ blk.mlp_fc.kernel + blk.mlp_fc.bias, approximate="tanh")
-    return h @ blk.mlp_proj.kernel + blk.mlp_proj.bias
+    h = F.gelu(x @ _w(blk.mlp_fc.kernel) + blk.mlp_fc.bias, approximate="tanh")
+    return h @ _w(blk.mlp_proj.kernel) + blk.mlp_proj.bias
 
 
 def _mlp(x, blk, cfg: TransformerConfig, layer: int, moe_key: np.ndarray | None):
@@ -224,7 +228,7 @@ def _mlp(x, blk, cfg: TransformerConfig, layer: int, moe_key: np.ndarray | None)
 
 def _qkv(x, attn):
     """[..., d] -> q, k, v each [..., H, hd]."""
-    w = attn.qkv.kernel  # [d, 3, H, hd]
+    w = _w(attn.qkv.kernel)  # [d, 3, H, hd]
     y = (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
     y = y + attn.qkv.bias
     return y[..., 0, :, :], y[..., 1, :, :], y[..., 2, :, :]
@@ -232,7 +236,7 @@ def _qkv(x, attn):
 
 def _attn_out(att, attn):
     """[..., H, hd] attention output -> [..., d] residual contribution."""
-    w = attn.proj.kernel  # [H, hd, d]
+    w = _w(attn.proj.kernel)  # [H, hd, d]
     return att.reshape(*att.shape[:-2], -1) @ w.reshape(-1, w.shape[-1]) + attn.proj.bias
 
 

@@ -8,8 +8,13 @@ checkpoint a training run wrote there, ``train/checkpoint.py``), from
 ``--params_npz`` (the JAX param tree flattened with ``/``-joined keys,
 ``models/convert.py``) or, without either, a random init from
 ``--init_seed``. The width flags must be the checkpoint's. The model defaults to GPT-2 124M. Runs on ``cuda``
-unless ``--device cpu``; serves ``POST /generate``, ``GET /health`` and
-``GET /metrics`` until SIGINT or SIGTERM.
+unless ``--device cpu``. Every ``ServeConfig`` field is a flag
+(``--weight_dtype int8|fp8``, ``--kv_dtype int8|fp8``,
+``--spec_decode_k``, ``--draft_ngram``, ``--prefill_chunk_tokens`` ...).
+The engine warms every rung of its ladder before the first request (on
+the card, capturing each decode and verify rung's CUDA graph) and logs
+how many it expected; then it serves ``POST /generate``, ``GET /health``
+and ``GET /metrics`` until SIGINT or SIGTERM.
 """
 
 from __future__ import annotations
@@ -54,6 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                            default=default)
         elif f.name == "attention":
             p.add_argument("--attention", choices=ATTENTION_IMPLS, default=default)
+        elif f.name in ("weight_dtype", "kv_dtype"):
+            p.add_argument(f"--{f.name}", choices=("", "int8", "fp8"), default=default)
         else:
             p.add_argument(f"--{f.name}", type=type(default), default=default)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -75,6 +82,9 @@ def main(argv=None) -> int:
     else:
         params = transformer.GPT2(model_cfg, seed=args.init_seed)
     engine = InferenceEngine(model_cfg, params, cfg=serve_cfg, device=args.device)
+    counts = engine.warmup()
+    logging.info("warm: %d of %d expected rungs (%s)", sum(counts.values()),
+                 engine.expected_compiles(), ", ".join(sorted(counts)))
     batcher = ContinuousBatcher(engine).start()
     frontend = ServingFrontend(batcher, port=args.port, bind_host=args.host).start()
     stop = threading.Event()

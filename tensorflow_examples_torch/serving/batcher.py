@@ -1,10 +1,30 @@
 """Continuous-batching request queue over the inference engine.
 
 The port of ``tensorflow_examples_tpu/serving/batcher.py`` (one SLO
-class; no speculation, chunked prefill, brownout or tracing yet). The
-decode step always runs at the engine's fixed ``[max_slots]`` shape, and
-requests join (prefill into a free slot) and leave (retire at eos, limit
-or deadline) between steps.
+class; no brownout, preemption or tracing yet). The decode step always
+runs at the engine's fixed ``[max_slots]`` shape, and requests join
+(prefill into a free slot) and leave (retire at eos, limit or deadline)
+between steps.
+
+Two decode-loop modes, the reference's:
+
+* **Speculation** (``spec_decode_k`` > 0): each step a draft source
+  (``serving/speculative.py``; ``draft=`` injects one) proposes up to k
+  tokens a request, capped at its remaining budget less one, and one
+  ``engine.verify`` step commits the agreeing prefix; a step where no
+  request has a draft runs the plain ``engine.decode``. Tokens past an
+  eos inside a window are dropped, so streams equal the non-speculative
+  ones. Each request tallies ``spec_drafted`` / ``spec_accepted``; the
+  ``serving/spec_*`` counters and the serving line's ``spec_k``,
+  ``draft_hit_rate`` and ``accepted_per_step`` measure the verify steps.
+* **Chunk turns** (``prefill_chunk_tokens`` > 0): a prompt whose cold
+  tail is longer than a chunk is admitted with ``engine.prefill_open``
+  and prefilled one chunk a loop iteration, oldest admission first, so
+  decode steps run between its chunks.
+
+A step that fails with ``EngineStepError`` took the KV pool with it
+(the engine reallocated it): every in-flight request fails, decoding and
+mid-prefill alike.
 
 Flow control, outermost first:
 
@@ -40,7 +60,10 @@ import queue
 import threading
 import time
 
+from tensorflow_examples_torch.serving.engine import EngineStepError
 from tensorflow_examples_torch.serving.paged_kv import BlockExhausted
+from tensorflow_examples_torch.serving.speculative import make_draft
+from tensorflow_examples_torch.telemetry.schema import SERVING_KEYS_V11
 
 log = logging.getLogger(__name__)
 
@@ -80,11 +103,15 @@ class Result:
     queue_wait_s: float = 0.0
     ttft_s: float | None = None
     total_s: float = 0.0
+    # Speculation (zeros with it off): drafts offered to verify steps and
+    # drafts accepted; len(tokens) - 1 - spec_accepted came one a step.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
 
 class _InFlight:
     __slots__ = ("req", "future", "slot", "t_submit", "t_admit", "t_first",
-                 "deadline", "tokens", "last_token")
+                 "deadline", "tokens", "last_token", "spec_drafted", "spec_accepted")
 
     def __init__(self, req: Request, future, t_submit: float):
         self.req = req
@@ -96,18 +123,26 @@ class _InFlight:
         self.deadline = t_submit + req.deadline_s if req.deadline_s is not None else None
         self.tokens: list[int] = []
         self.last_token: int | None = None
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
 
 class ContinuousBatcher:
-    def __init__(self, engine, *, registry=None):
+    def __init__(self, engine, *, registry=None, draft=None):
         self.engine = engine
         cfg = engine.cfg
         self.max_batch = min(cfg.max_batch or cfg.max_slots, cfg.max_slots)
         self.max_delay_s = cfg.max_delay_s
+        self.spec_k = int(cfg.spec_decode_k)
+        self._draft = (draft or make_draft(cfg)) if self.spec_k > 0 else None
         self.registry = registry if registry is not None else engine.registry
+        self._start_unix = time.time()
         self._queue: queue.Queue = queue.Queue(maxsize=cfg.max_queue)
         self._arrival = threading.Event()
         self._active: dict[int, _InFlight] = {}  # loop thread only
+        # Mid chunked prefill, oldest admission first: slot -> (item,
+        # engine ChunkedPrefill). Loop thread only.
+        self._prefilling: dict[int, tuple] = {}
         # Dequeued but not yet admitted: close(drain=True) must count them.
         self._staged = 0
         self._draining = False
@@ -188,7 +223,8 @@ class ContinuousBatcher:
             deadline = time.monotonic() + timeout
 
             def busy():
-                return bool(self._active or self._staged or self.queue_depth())
+                return bool(self._active or self._prefilling or self._staged
+                            or self.queue_depth())
 
             while (time.monotonic() < deadline and self._thread is not None
                    and self._thread.is_alive()):
@@ -208,6 +244,12 @@ class ContinuousBatcher:
                     Draining("serving shut down before drain"))
             except queue.Empty:
                 break
+        for item, _ in list(self._prefilling.values()):
+            self._prefilling.pop(item.slot, None)
+            self.engine.pool.free(item.slot)
+            item.slot = None
+            if not item.future.done():
+                item.future.set_exception(Draining("serving shut down mid-prefill"))
         for item in list(self._active.values()):
             self._retire(item, truncated="shutdown")
 
@@ -228,22 +270,27 @@ class ContinuousBatcher:
                     if not isinstance(e, BlockExhausted):
                         log.exception("prefill failed; failing request")
                     if item.slot is not None:
+                        self._prefilling.pop(item.slot, None)
                         self.engine.pool.free(item.slot)
+                        self._drop_draft(item.slot)
                         item.slot = None
                     if not item.future.done():
                         item.future.set_exception(e)
                     reg.counter("serving/errors_total").inc()
+                    if isinstance(e, EngineStepError):
+                        self._fail_active(e)  # the pool went with the step
                 finally:
                     self._staged -= 1
+            if self._prefilling:
+                # One chunk a loop iteration: the decode step below runs
+                # between chunks.
+                self._chunk_step()
             if not self._active:
                 continue
             t0 = time.perf_counter()
+            drafts_by_slot: dict[int, int] = {}
             try:
-                out = self.engine.decode([
-                    (it.slot, it.last_token, it.req.seed, it.req.temperature,
-                     it.req.top_k)
-                    for it in self._active.values()
-                ])
+                out = self._decode_step(drafts_by_slot)
             except BlockExhausted as e:
                 # Host-side, before the device step: only the slots that
                 # could not grow fail; freeing them returns their blocks.
@@ -255,37 +302,70 @@ class ContinuousBatcher:
                     if item is None:
                         continue
                     self.engine.pool.free(slot)
+                    self._drop_draft(slot)
                     if not item.future.done():
                         item.future.set_exception(e)
                 continue
             except Exception as e:  # noqa: BLE001 — fail the batch, keep serving
                 log.exception("decode step failed; failing active batch")
                 reg.counter("serving/errors_total").inc()
-                for it in list(self._active.values()):
-                    del self._active[it.slot]
-                    self.engine.pool.free(it.slot)
-                    if not it.future.done():
-                        it.future.set_exception(e)
+                self._fail_active(e)
                 continue
             dt = time.perf_counter() - t0
             reg.histogram("serving/decode_step").record(dt)
             tpot = reg.histogram("serving/tpot")
-            for slot, token in out.items():
+            for slot, toks in out.items():
                 item = self._active[slot]
-                item.tokens.append(token)
-                item.last_token = token
-                tpot.record(dt)
+                item.spec_drafted += drafts_by_slot.get(slot, 0)
+                item.spec_accepted += len(toks) - 1
+                committed: list[int] = []
+                for token in toks:
+                    item.tokens.append(token)
+                    item.last_token = token
+                    committed.append(token)
+                    tpot.record(dt / len(toks))
+                    if item.req.eos_id is not None and token == item.req.eos_id:
+                        break  # tokens past eos in a window are dropped
+                if self._draft is not None:
+                    if drafts_by_slot:  # a verify step, not a fallback
+                        reg.histogram("serving/accepted_per_step").record(float(len(toks)))
+                    self._draft.extend(slot, committed)
                 self._maybe_finish(item)
             reg.gauge("serving/active_requests").set(len(self._active))
+
+    def _decode_step(self, drafts_by_slot: dict[int, int]) -> dict[int, list[int]]:
+        """One device step over the active set: {slot: committed tokens}.
+        Speculation on: propose each request's drafts (at most its budget
+        less the token the verify samples) and verify; a step where no
+        request has a draft takes the plain decode rung, same tokens."""
+        if self._draft is None:
+            out = self.engine.decode([
+                (it.slot, it.last_token, it.req.seed, it.req.temperature, it.req.top_k)
+                for it in self._active.values()
+            ])
+            return {slot: [tok] for slot, tok in out.items()}
+        entries, proposed = [], {}
+        for it in self._active.values():
+            k_eff = min(self.spec_k, it.req.max_new_tokens - len(it.tokens) - 1)
+            drafts = self._draft.propose(it.slot, k_eff) if k_eff > 0 else []
+            proposed[it.slot] = len(drafts)
+            entries.append((it.slot, it.last_token, drafts, it.req.seed,
+                            it.req.temperature, it.req.top_k))
+        if not any(e[2] for e in entries):
+            out = self.engine.decode([(slot, tok, seed, temp, tk)
+                                      for slot, tok, _, seed, temp, tk in entries])
+            return {slot: [tok] for slot, tok in out.items()}
+        drafts_by_slot.update(proposed)
+        return self.engine.verify(entries)
 
     def _gather(self) -> list[_InFlight]:
         """Pull admissible requests without over-committing slots. Idle:
         block briefly for the first arrival, then hold ``max_delay_s`` so
         a burst prefills together. Busy: take what is queued, no wait."""
-        free = min(self.max_batch - len(self._active),
+        free = min(self.max_batch - len(self._active) - len(self._prefilling),
                    self.engine.pool.num_slots - self.engine.pool.active_slots)
         staged: list[_InFlight] = []
-        if not self._active:
+        if not self._active and not self._prefilling:
             if not self._take(staged, timeout=0.05):
                 return staged
             window_end = time.monotonic() + self.max_delay_s
@@ -343,16 +423,94 @@ class ContinuousBatcher:
         item.t_admit = now
         reg.histogram("serving/queue_wait").record(now - item.t_submit)
         req = item.req
+        state = self.engine.prefill_open(slot, req.prompt, seed=req.seed,
+                                         temperature=req.temperature, top_k=req.top_k)
+        if state is not None and len(state.spans) > 1:
+            # Chunked admission: the slot's blocks are claimed; the loop
+            # runs one chunk an iteration and the last one finishes it.
+            self._prefilling[slot] = (item, state)
+            return
         t0 = time.perf_counter()
-        first, _ = self.engine.prefill(slot, req.prompt, seed=req.seed,
-                                       temperature=req.temperature, top_k=req.top_k)
+        if state is not None:
+            # The cold tail fits one chunk: run it inline.
+            _, first, _ = self.engine.prefill_step(state)
+        else:
+            first, _ = self.engine.prefill(slot, req.prompt, seed=req.seed,
+                                           temperature=req.temperature, top_k=req.top_k)
         reg.histogram("serving/prefill").record(time.perf_counter() - t0)
+        self._finish_prefill(item, first)
+
+    def _finish_prefill(self, item: _InFlight, first: int) -> None:
+        """Single-shot and chunked prefill's shared tail: TTFT, then the
+        request joins the decode set."""
         item.t_first = time.monotonic()
-        reg.histogram("serving/ttft").record(item.t_first - item.t_submit)
+        self.registry.histogram("serving/ttft").record(item.t_first - item.t_submit)
         item.tokens.append(first)
         item.last_token = first
-        self._active[slot] = item
+        if self._draft is not None:
+            self._draft.begin(item.slot, list(item.req.prompt) + [first])
+        self._active[item.slot] = item
         self._maybe_finish(item)
+
+    def _chunk_step(self) -> None:
+        """Run one chunk of the oldest in-flight chunked prefill; after the
+        last one the request joins the decode set as a single-shot
+        admission would (the last chunk samples with the unchunked key)."""
+        reg = self.registry
+        slot = next(iter(self._prefilling))
+        item, state = self._prefilling[slot]
+        if item.deadline is not None and time.monotonic() > item.deadline:
+            # Abandon a dead stream now rather than stall decode steps for
+            # its remaining chunks.
+            del self._prefilling[slot]
+            self.engine.pool.free(slot)
+            item.slot = None
+            reg.counter("serving/expired_total").inc()
+            if not item.future.done():
+                item.future.set_exception(DeadlineExceeded(
+                    f"deadline ({item.req.deadline_s:.3f}s) passed mid-chunked-prefill"))
+            return
+        try:
+            done, first, _ = self.engine.prefill_step(state)
+        except Exception as e:  # noqa: BLE001 — one bad chunk must not
+            # take the serve loop down
+            log.exception("prefill chunk failed; failing request")
+            self._prefilling.pop(slot, None)
+            self.engine.pool.free(slot)
+            item.slot = None
+            if not item.future.done():
+                item.future.set_exception(e)
+            reg.counter("serving/errors_total").inc()
+            if isinstance(e, EngineStepError):
+                self._fail_active(e)
+            return
+        if not done:
+            return
+        del self._prefilling[slot]
+        # Chunked prefill wall: admission to the last chunk, decode steps
+        # interleaved inside it.
+        reg.histogram("serving/prefill").record(time.monotonic() - item.t_admit)
+        self._finish_prefill(item, first)
+
+    def _fail_active(self, exc: Exception) -> None:
+        """Fail and free every in-flight request, decoding and mid chunked
+        prefill: their KV state went with the failed step."""
+        for it, _ in list(self._prefilling.values()):
+            del self._prefilling[it.slot]
+            self.engine.pool.free(it.slot)
+            it.slot = None
+            if not it.future.done():
+                it.future.set_exception(exc)
+        for it in list(self._active.values()):
+            del self._active[it.slot]
+            self.engine.pool.free(it.slot)
+            self._drop_draft(it.slot)
+            if not it.future.done():
+                it.future.set_exception(exc)
+
+    def _drop_draft(self, slot: int | None) -> None:
+        if self._draft is not None and slot is not None:
+            self._draft.end(slot)
 
     # ----------------------------------------------------------- retire
 
@@ -371,6 +529,7 @@ class ContinuousBatcher:
         if item.slot is not None:
             self._active.pop(item.slot, None)
             self.engine.pool.free(item.slot)
+            self._drop_draft(item.slot)
             item.slot = None
         now = time.monotonic()
         result = Result(
@@ -378,6 +537,7 @@ class ContinuousBatcher:
             queue_wait_s=(item.t_admit or now) - item.t_submit,
             ttft_s=item.t_first - item.t_submit if item.t_first else None,
             total_s=now - item.t_submit,
+            spec_drafted=item.spec_drafted, spec_accepted=item.spec_accepted,
         )
         reg = self.registry
         reg.histogram("serving/e2e").record(result.total_s)
@@ -385,3 +545,54 @@ class ContinuousBatcher:
         reg.counter("serving/generated_tokens_total").inc(len(result.tokens))
         if item.future.set_running_or_notify_cancel():
             item.future.set_result(result)
+
+    # ------------------------------------------------------------- stats
+
+    def stats_line(self) -> dict:
+        """A ``kind="serving"`` line: the registry's serving counters,
+        gauges and latency percentiles, and the ``serving`` object (pool
+        occupancy, ``post_warmup_recompiles``, the paged pool's fields,
+        the speculation keys ``SERVING_KEYS_V8`` when speculation is on
+        and the precision keys ``SERVING_KEYS_V11`` when the weights are
+        quantized), as the reference's ``stats_line`` writes them
+        (``telemetry/schema.SERVING_KEYS_V8`` and ``SERVING_KEYS_V11``)."""
+        reg = self.registry
+        counters = {k: v for k, v in reg.counter_values().items()
+                    if k.startswith(("serving/", "compile/"))}
+        gauges = {k: v for k, v in reg.gauge_values().items() if k.startswith("serving/")}
+        hists = reg.histogram_summaries()
+        derived = {}
+        for name in ("queue_wait", "prefill", "ttft", "tpot", "e2e"):
+            h = hists.get(f"serving/{name}")
+            if h and h["count"]:
+                derived[f"{name}_p50"] = h["p50"]
+                derived[f"{name}_p95"] = h["p95"]
+        serving = {
+            "active_requests": len(self._active) + len(self._prefilling),
+            "queue_depth": self.queue_depth(),
+            "slots": self.engine.pool.num_slots,
+            "kv_occupancy": self.engine.pool.occupancy,
+            "post_warmup_recompiles": self.engine.post_warmup_recompiles(),
+            "draining": 1 if self._draining else 0,
+        }
+        if self.spec_k > 0:
+            steps = counters.get("serving/spec_request_steps", 0)
+            drafted = counters.get("serving/spec_drafted_total", 0)
+            accepted = counters.get("serving/spec_accepted_total", 0)
+            serving.update({
+                "spec_k": self.spec_k,
+                "draft_hit_rate": accepted / drafted if drafted else 0.0,
+                "accepted_per_step": (steps + accepted) / steps if steps else 0.0,
+            })
+        paged = getattr(self.engine.pool, "paged_stats", None)
+        if callable(paged):
+            serving.update(paged())
+        pstats = self.engine.precision_stats()
+        if pstats:
+            serving.update({k: pstats[k] for k in SERVING_KEYS_V11})
+        return {
+            "kind": "serving", "step": int(counters.get("serving/decode_steps", 0)),
+            "time_unix": time.time(), "session_start_unix": self._start_unix, "host": 0,
+            "metrics": {}, "counters": counters, "gauges": gauges, "derived": derived,
+            "serving": serving,
+        }

@@ -13,7 +13,7 @@ endpoints this slice serves, on the same JSON contract:
 * ``GET /metrics`` — the registry as Prometheus text.
 * ``GET /health`` — JSON: draining flag, active and queued requests, KV
   occupancy (plus block occupancy and prefix hit rate on the paged
-  pool). 503 once draining.
+  pool) and the engine's ``post_warmup_recompiles``. 503 once draining.
 
 Status mapping: ``QueueFull``/``Draining``/``BlockExhausted`` -> 503,
 ``DeadlineExceeded`` and request timeout -> 504, admission
@@ -151,6 +151,7 @@ class ServingFrontend:
             "queue_depth": batcher.queue_depth(),
             "slots": pool.num_slots,
             "kv_occupancy": pool.occupancy,
+            "post_warmup_recompiles": batcher.engine.post_warmup_recompiles(),
         }
         paged = getattr(pool, "paged_stats", None)
         if callable(paged):

@@ -8,8 +8,9 @@ The port of ``tensorflow_examples_tpu/serving/kv_cache.py``:
   state is published as ``serving/kv_*`` gauges on every transition.
 * :func:`varlen_decode_attention` is the per-slot generalization of
   ``ops/decode``'s scalar-length contract: each slot's query attends its
-  own populated prefix. In the reference it is XLA, not a Pallas kernel,
-  so here it stays plain PyTorch.
+  own populated prefix; :func:`varlen_verify_attention` is its
+  multi-token form for the speculative verify step. In the reference
+  both are XLA, not Pallas kernels, so here they stay plain PyTorch.
 """
 
 from __future__ import annotations
@@ -87,6 +88,41 @@ def varlen_decode_attention(
     return torch.einsum("shk,shkd->shd", p.float(), v_cache.float()).to(q.dtype)
 
 
+def varlen_verify_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    sm_scale: float | None = None,
+    block_tables: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Multi-token :func:`varlen_decode_attention` for the speculative
+    verify step.
+
+    q: [S, T, H, D], T new queries a slot at positions ``positions[s] ..
+    positions[s] + T - 1``, their K/V already written. Row t of slot s
+    attends columns ``<= positions[s] + t`` (T=1 is
+    ``varlen_decode_attention`` at ``lengths = positions + 1``). The
+    caches are [S, H, Kb, D] bucket slices, or with ``block_tables`` a
+    paged pool [NB, H, BS, D] gathered first. Returns [S, T, H, D] with
+    the decode path's numerics, so a verify row samples what a decode
+    step at that position would have."""
+    if block_tables is not None:
+        k_cache = gather_block_kv(k_cache, block_tables)
+        v_cache = gather_block_kv(v_cache, block_tables)
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    s = torch.einsum("sthd,shkd->shtk", q.float(), k_cache.float()) * sm_scale
+    col = torch.arange(s.shape[-1], device=q.device)
+    row = torch.arange(s.shape[2], device=q.device)
+    limit = positions.to(q.device)[:, None, None, None] + row[None, None, :, None]
+    s = torch.where(col <= limit, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("shtk,shkd->shtd", p.float(), v_cache.float()).to(q.dtype)
+    return out.transpose(1, 2)
+
+
 class KVCachePool:
     """Preallocated per-request KV slots with host-side bookkeeping.
 
@@ -150,6 +186,25 @@ class KVCachePool:
             self.lengths[slot] = 0
             self._free.append(slot)
             self._publish()
+
+    def reset(self) -> None:
+        """Release every slot (the cache keeps whatever rows it holds:
+        unpopulated rows are never read). Used after engine warmup."""
+        with self._lock:
+            self.lengths[:] = 0
+            self._free = list(range(self.num_slots - 1, -1, -1))
+            self._publish()
+
+    def reallocate(self) -> None:
+        """Fresh zeroed ``k``/``v`` after a failed engine step (the
+        ``EngineStepError`` path): slot bookkeeping stays, since the
+        batcher fails and frees the whole in-flight set right after."""
+        self._alloc_arrays()
+
+    def used_bytes(self) -> int:
+        """K+V bytes committed to claimed slots (a slot is its max_len)."""
+        per_slot = 2 * self.num_layers * self.num_heads * self.max_len * self.head_dim
+        return self.active_slots * per_slot * self.k.element_size()
 
     @property
     def active_slots(self) -> int:

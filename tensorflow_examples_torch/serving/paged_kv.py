@@ -21,8 +21,10 @@ dense pool's slot interface:
   prefills only its tail. Cached blocks cover a block-aligned prefix
   strictly shorter than the prompt, and every write lands at or past the
   prompt length, so a shared block is never written again.
-* **int8 KV** (``kv_dtype="int8"``): int8 payload with per-row f32 scales
-  stored blockwise ``[L, NB, H, BS]`` (``core/precision``).
+* **int8 and fp8 KV** (``kv_dtype="int8"`` / ``"fp8"``): an int8 or
+  ``float8_e4m3fn`` payload with per-row f32 scales stored blockwise
+  ``[L, NB, H, BS]`` (``core/precision.quantize_rows``); one write and
+  gather-dequant path serves both, the store dtype riding on the arrays.
 
 Host bookkeeping sits under one lock: the batcher loop is the only
 writer, frontend threads read occupancy.
@@ -37,6 +39,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from tensorflow_examples_torch.core import precision
 from tensorflow_examples_torch.serving import scheduler
 from tensorflow_examples_torch.telemetry import registry as registry_mod
 
@@ -72,8 +75,11 @@ class PagedKVPool:
             raise ValueError(f"block_size={block_size} must be a power of two")
         if max_len % block_size:
             raise ValueError(f"block_size={block_size} must divide max_len={max_len}")
-        if kv_dtype not in ("", "int8"):
-            raise ValueError(f"kv_dtype={kv_dtype!r} not in ('', 'int8')")
+        if kv_dtype not in ("", "int8", "fp8"):
+            raise ValueError(f"kv_dtype={kv_dtype!r} not in ('', 'int8', 'fp8')")
+        if kv_dtype == "fp8" and not precision.fp8_supported():
+            raise ValueError("kv_dtype='fp8' requested but this torch build has no working "
+                             "float8_e4m3fn; use kv_dtype='int8'")
         self.num_layers = num_layers
         self.num_slots = num_slots
         self.num_heads = num_heads
@@ -90,7 +96,7 @@ class PagedKVPool:
                              "block beyond the null block")
         self.dtype = dtype
         self.kv_dtype = kv_dtype
-        self.quantized = kv_dtype == "int8"
+        self.quantized = kv_dtype in ("int8", "fp8")
         self.prefix_cache_enabled = bool(prefix_cache)
         self.device = torch.device(device)
         self._registry = registry
@@ -120,7 +126,7 @@ class PagedKVPool:
     def _alloc_arrays(self) -> None:
         shape = (self.num_layers, self.num_blocks, self.num_heads,
                  self.block_size, self.head_dim)
-        store = torch.int8 if self.quantized else self.dtype
+        store = precision.store_dtype(self.kv_dtype) if self.quantized else self.dtype
         self.k = torch.zeros(shape, dtype=store, device=self.device)
         self.v = torch.zeros(shape, dtype=store, device=self.device)
         if self.quantized:
@@ -130,11 +136,21 @@ class PagedKVPool:
             self.k_scale = self.v_scale = None
 
     def kv_state(self) -> tuple:
-        """(k, v) or, int8, (k, v, k_scale, v_scale): the tensors the
+        """(k, v) or, quantized, (k, v, k_scale, v_scale): the tensors the
         engine's steps write in place."""
         if self.quantized:
             return (self.k, self.v, self.k_scale, self.v_scale)
         return (self.k, self.v)
+
+    def reallocate(self) -> None:
+        """Fresh zeroed device arrays after a failed engine step (the
+        ``EngineStepError`` path). Every cached prefix lived in the old
+        arrays, so the prefix cache is dropped; slot bookkeeping stays,
+        since the batcher fails and frees the whole in-flight set."""
+        self._alloc_arrays()
+        with self._lock:
+            self._drop_cache_locked()
+            self._publish_locked()
 
     def _drop_cache_locked(self) -> None:
         for bid in list(self._evictable):
@@ -293,6 +309,13 @@ class PagedKVPool:
             self._slot_blocks[slot] = need
             self._publish_locked()
 
+    def covered_positions(self, slot: int) -> int:
+        """Token rows the slot's allocated blocks hold: the cap on verify
+        rows that may commit when a speculative window could not be fully
+        backed (rows past it land in the null block)."""
+        with self._lock:
+            return int(self._slot_blocks[slot]) * self.block_size
+
     # ------------------------------------------------------ prefix cache
 
     def prefix_lookup(self, prompt) -> tuple[list[int], int]:
@@ -378,8 +401,8 @@ class PagedKVPool:
         return 8 if self.quantized else torch.tensor([], dtype=self.dtype).element_size() * 8
 
     def bytes_per_block(self) -> int:
-        """K+V device bytes one physical block commits (int8 payload plus
-        its f32 row scales when quantized)."""
+        """K+V device bytes one physical block commits (the one-byte
+        payload plus its f32 row scales when quantized)."""
         row = self.num_heads * self.head_dim
         if self.quantized:
             per = self.block_size * row + self.block_size * self.num_heads * 4

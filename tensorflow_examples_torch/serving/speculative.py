@@ -1,0 +1,158 @@
+"""Draft proposers for speculative decoding: the port of
+``tensorflow_examples_tpu/serving/speculative.py`` (pure Python, copied
+so the port imports nothing of the JAX package).
+
+A cheap *draft source* proposes ``k`` candidate tokens per request and
+one ``verify`` forward of the engine scores all of them, committing the
+longest agreeing prefix plus one token the verify itself sampled. A
+committed token is always one the verify forward sampled with the
+request's own ``fold_in(seed, position)`` key at that absolute position,
+from a context of committed tokens only, so output streams are the same
+with speculation on or off: a wrong draft costs speed, never a token.
+
+:class:`NgramDraft` is self-speculative n-gram lookup over the request's
+own context (prompt + committed tokens); :class:`DraftSource` is the
+four-call interface the batcher speaks (``begin`` / ``extend`` /
+``propose`` / ``end``).
+"""
+
+from __future__ import annotations
+
+
+class DraftSource:
+    """Per-slot draft proposer interface the continuous batcher speaks.
+
+    Lifecycle per request: ``begin(slot, ctx)`` at admission (prompt +
+    first generated token), ``propose(slot, k)`` before each decode
+    step, ``extend(slot, committed)`` after each step's accepted
+    tokens, ``end(slot)`` at retirement. Implementations must be
+    deterministic — proposals may be wrong (that costs speed, never
+    correctness) but must be a pure function of the observed context,
+    or the A/B bench loses reproducibility.
+    """
+
+    def begin(self, slot: int, ctx: list[int]) -> None:
+        raise NotImplementedError
+
+    def extend(self, slot: int, tokens: list[int]) -> None:
+        raise NotImplementedError
+
+    def propose(self, slot: int, k: int) -> list[int]:
+        raise NotImplementedError
+
+    def end(self, slot: int) -> None:
+        raise NotImplementedError
+
+
+class NgramDraft(DraftSource):
+    """Self-speculative n-gram drafting: match the context's trailing
+    n-gram against its own earlier occurrences and propose what
+    followed last time.
+
+    For each ``n`` in ``max_ngram .. min_ngram`` (longest first), the
+    drafter keeps a per-slot map from every n-gram seen in the context
+    to the position right AFTER its most recent occurrence (and the one
+    before that, so the trailing suffix — which always matches itself —
+    still finds a genuinely earlier match). A hit proposes the ``k``
+    tokens that followed; a miss at every ``n`` proposes nothing and
+    the step degrades to plain one-token decode. O(max_ngram) work per
+    observed token, O(1) per proposal — the drafter can never become
+    the new bottleneck.
+    """
+
+    def __init__(self, *, max_ngram: int = 3, min_ngram: int = 1):
+        if not 1 <= min_ngram <= max_ngram:
+            raise ValueError(
+                f"need 1 <= min_ngram ({min_ngram}) <= max_ngram "
+                f"({max_ngram})"
+            )
+        self.max_ngram = max_ngram
+        self.min_ngram = min_ngram
+        # slot -> context token list
+        self._ctx: dict[int, list[int]] = {}
+        # slot -> {n -> {gram tuple -> continuation start}} for the
+        # latest occurrence, and the previous one (see propose()).
+        self._last: dict[int, dict[int, dict[tuple, int]]] = {}
+        self._prev: dict[int, dict[int, dict[tuple, int]]] = {}
+
+    def begin(self, slot: int, ctx: list[int]) -> None:
+        self._ctx[slot] = []
+        ns = range(self.min_ngram, self.max_ngram + 1)
+        self._last[slot] = {n: {} for n in ns}
+        self._prev[slot] = {n: {} for n in ns}
+        self.extend(slot, ctx)
+
+    def extend(self, slot: int, tokens: list[int]) -> None:
+        ctx = self._ctx[slot]
+        last, prev = self._last[slot], self._prev[slot]
+        for t in tokens:
+            ctx.append(int(t))
+            i = len(ctx)  # continuation start for grams ending here
+            for n in range(self.min_ngram, self.max_ngram + 1):
+                if i < n:
+                    continue
+                gram = tuple(ctx[i - n:i])
+                table = last[n]
+                if gram in table:
+                    prev[n][gram] = table[gram]
+                table[gram] = i
+
+    def propose(self, slot: int, k: int) -> list[int]:
+        if k < 1:
+            return []
+        ctx = self._ctx[slot]
+        end = len(ctx)
+        for n in range(min(self.max_ngram, end), self.min_ngram - 1, -1):
+            gram = tuple(ctx[end - n:end])
+            pos = self._last[slot][n].get(gram)
+            if pos == end:  # the trailing suffix matched itself
+                pos = self._prev[slot][n].get(gram)
+            if pos is not None and pos < end:
+                # The match sits ``d`` tokens behind the present; the
+                # model of this drafter is "the stream repeats with
+                # period d", so token end+i is token end+i-d — known
+                # context for i < d, the proposal's OWN earlier entries
+                # after that (a period-1 loop proposes k tokens, not 1).
+                d = end - pos
+                out: list[int] = []
+                for i in range(k):
+                    j = pos + i
+                    out.append(ctx[j] if j < end else out[i - d])
+                return out
+        return []
+
+    def end(self, slot: int) -> None:
+        self._ctx.pop(slot, None)
+        self._last.pop(slot, None)
+        self._prev.pop(slot, None)
+
+
+def make_draft(cfg) -> DraftSource:
+    """Draft source from ``ServeConfig`` knobs (``draft`` /
+    ``draft_ngram``). The registry is a single name for now; a
+    small-draft-model source would register here and slot straight
+    into the batcher."""
+    if cfg.draft == "ngram":
+        return NgramDraft(max_ngram=cfg.draft_ngram)
+    raise ValueError(
+        f"ServeConfig.draft={cfg.draft!r}: the in-tree draft source is "
+        "'ngram' (self-speculative); plug a model-backed DraftSource "
+        "into ContinuousBatcher(draft=...) for anything else"
+    )
+
+
+def accept_drafts(drafts: list[int], sampled, *, limit: int) -> list[int]:
+    """The acceptance rule, shared by the dense and paged verify paths
+    (and test-pinned): commit ``sampled[0]`` (the token a plain decode
+    step would have produced — its context is fully committed), then
+    one more sampled token per leading draft that AGREES with the
+    sampled stream, stopping at the first disagreement. ``limit`` caps
+    committed tokens at the rows whose K/V actually landed in the cache
+    (block/extent budget) — a committed token must be re-attendable.
+    """
+    take = 1
+    for j, d in enumerate(drafts):
+        if take >= limit or int(d) != int(sampled[j]):
+            break
+        take += 1
+    return [int(t) for t in sampled[:take]]

@@ -1,7 +1,7 @@
 """The JSONL line schema of the trainer's telemetry: the port's copy of
 the parts of ``tensorflow_examples_tpu/telemetry/schema.py`` that cover
 the kinds the port's trainer writes (``window``, ``eval``, ``final``,
-``memory``). Its lines are schema version 5 lines of the reference, so
+``memory``), and the serving line's optional key groups. Its lines are schema version 5 lines of the reference, so
 the reference's ``validate_line`` accepts them too.
 
 Line shape::
@@ -22,6 +22,13 @@ import numbers
 from typing import Any
 
 SCHEMA_VERSION = 5
+
+# The serving line's optional keys, the reference's
+# (``telemetry/schema.py``): the speculation measurement (stamped when
+# ``spec_decode_k`` > 0) and the precision registry's facts (stamped when
+# the weights are quantized).
+SERVING_KEYS_V8 = ("accepted_per_step", "draft_hit_rate", "spec_k")
+SERVING_KEYS_V11 = ("weight_bits", "param_bytes", "param_bytes_f32", "quantized_params")
 KINDS = ("window", "eval", "final", "memory")
 _REQUIRED = ("schema_version", "kind", "host", "step", "time_unix", "session_start_unix",
              "metrics", "counters", "gauges", "derived")

@@ -721,3 +721,92 @@ def test_bias_gather_grad_matches_autograd_of_the_index(dev):
         grads.append((y, *torch.autograd.grad(y, leaf, grad)))
     torch.testing.assert_close(grads[0][0], grads[1][0], rtol=0, atol=0)
     _gmm_close(grads[0][1], grads[1][1], torch.float32)
+
+
+# ------------------------------------------- serving rungs as CUDA graphs
+
+
+def _graph_engine(**kw):
+    from tensorflow_examples_torch.models import transformer
+    from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
+
+    cfg = transformer.TransformerConfig(vocab_size=96, max_len=128, num_layers=2, num_heads=2,
+                                        d_model=128, dropout=0.0)
+    serve = dict(max_slots=4, prefill_bucket_floor=16, kv_bucket_floor=32, spec_decode_k=3)
+    serve.update(kw)
+    return InferenceEngine(cfg, transformer.GPT2(cfg, seed=7), cfg=ServeConfig(**serve))
+
+
+GRAPH_CONFIGS = {
+    "dense_flash": dict(attention="flash"),
+    "paged_flash_int8": dict(attention="paged_flash", kv_block_size=16, kv_dtype="int8"),
+    "paged_fp8_weights_int8": dict(kv_block_size=16, kv_dtype="fp8", weight_dtype="int8"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_CONFIGS))
+def test_replayed_rungs_equal_eager_steps(dev, name):
+    """A decode and a verify rung replayed from their CUDA graphs give
+    logits bit-identical to the same step run eagerly on the same inputs
+    and cache (the step rewrites the rows it writes with the same bits)."""
+    engine = _graph_engine(**GRAPH_CONFIGS[name])
+    engine.warmup()
+    assert engine.cuda_graphs and engine.post_warmup_recompiles() == 0
+    rng = np.random.default_rng(3)
+    slots, toks = [], []
+    for n in (5, 19, 40):
+        slot = engine.pool.alloc()
+        slots.append(slot)
+        toks.append(engine.prefill(slot, [int(t) for t in rng.integers(0, 96, n)])[0])
+    for _ in range(3):
+        out = engine.decode([(s, t, 0, 0.0, 0) for s, t in zip(slots, toks)])
+        toks = [out[s] for s in slots]
+    s_n, t_n = engine.cfg.max_slots, engine.cfg.spec_decode_k + 1
+    positions = np.zeros(s_n, np.int64)
+    positions[slots] = engine.pool.lengths[slots]
+    kb = 64
+    paged = engine.paged
+    if paged:
+        for s in slots:
+            engine.pool.ensure_position(s, int(positions[s]) + t_n - 1)
+        tables = engine._tables(slots, kb)
+    tokens = np.zeros(s_n, np.int64)
+    tokens[slots] = toks
+    args = (tokens, positions) + ((tables,) if paged else ())
+    replayed = engine._decode_fns[kb](*args).clone()
+    eager = (engine._paged_decode_rung if paged else engine._decode_rung)(kb, *args)
+    assert torch.equal(replayed, eager)
+    vtokens = np.zeros((s_n, t_n), np.int64)
+    vtokens[slots] = rng.integers(0, 96, (len(slots), t_n))
+    vargs = (vtokens, positions) + ((tables,) if paged else ())
+    replayed = engine._verify_fns[kb](*vargs).clone()
+    eager = (engine._paged_verify_rung if paged else engine._verify_rung)(kb, *vargs)
+    assert torch.equal(replayed, eager)
+    assert engine.post_warmup_recompiles() == 0
+    for s in slots:
+        engine.pool.free(s)
+
+
+def test_graph_launch_tally_equals_the_profiler_count(dev):
+    """The paged kernel's launches counted from graph replays equal the
+    kernels a profiler window sees in those replays."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = _graph_engine(attention="paged_flash", kv_block_size=16, spec_decode_k=0)
+    engine.warmup()
+    slot = engine.pool.alloc()
+    tok, _ = engine.prefill(slot, list(range(1, 30)))
+    engine.decode([(slot, tok, 0, 0.0, 0)])  # the rung's graph is warm
+    counter = paged_decode.paged_decode_attention
+    before = counter.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            tok = engine.decode([(slot, tok, 0, 0.0, 0)])[slot]
+        torch.cuda.synchronize()
+    seen = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "paged_decode_kernel" in e.key)
+    assert counter.launches - before == 5 * engine.model_cfg.num_layers
+    assert seen == counter.launches - before
+    engine.pool.free(slot)

@@ -14,6 +14,7 @@ contract, the paged pool's allocator, import purity and device policy.
 """
 
 import ast
+import dataclasses
 import json
 import os
 import sys
@@ -427,6 +428,9 @@ def test_port_imports_no_jax():
     for root, _, files in os.walk(os.path.join(REPO, "tensorflow_examples_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
+    rel = {os.path.relpath(p, REPO) for p in paths}
+    for new in ("serving/speculative.py", "telemetry/compilation.py", "core/precision.py"):
+        assert f"tensorflow_examples_torch/{new}" in rel
     banned = ("jax", "flax", "optax", "absl", "tensorflow_examples_tpu")
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)
            if m.split(".")[0] in banned]
@@ -461,11 +465,38 @@ def test_serve_cli_flags_cover_the_config():
 
     args = serve.build_parser().parse_args(
         ["--num_layers", "2", "--kv_block_size", "16", "--attention", "paged_flash",
-         "--prefix_cache", "false", "--max_delay_s", "0.01", "--device", "cpu"]
+         "--prefix_cache", "false", "--max_delay_s", "0.01", "--device", "cpu",
+         "--weight_dtype", "int8", "--kv_dtype", "fp8", "--spec_decode_k", "4",
+         "--draft_ngram", "2", "--prefill_chunk_tokens", "64", "--cache_dtype", "float32",
+         "--compile_warmup", "2"]
     )
     assert (args.num_layers, args.d_model, args.vocab_size) == (2, 768, 50257)
     assert (args.kv_block_size, args.attention, args.prefix_cache) == (16, "paged_flash", False)
     assert args.max_delay_s == 0.01 and args.init_seed == 0 and args.params_npz is None
+    assert (args.weight_dtype, args.kv_dtype, args.spec_decode_k, args.draft_ngram,
+            args.prefill_chunk_tokens) == ("int8", "fp8", 4, 2, 64)
+    assert (args.cache_dtype, args.compile_warmup, args.draft) == ("float32", 2, "ngram")
+    with pytest.raises(SystemExit):
+        serve.build_parser().parse_args(["--weight_dtype", "int4"])
+    # Every ServeConfig field is a flag, so serve.py can pass them all on.
+    parsed = vars(serve.build_parser().parse_args([]))
+    assert all(f.name in parsed for f in dataclasses.fields(ServeConfig))
+
+
+# The reference's ServeConfig fields the port does not have yet: the
+# fleet's (role), the watchdog's and brownout's, which come with the
+# replica process (ROADMAP A5).
+OWED_TO_A5 = ("role", "watchdog_secs", "brownout", "brownout_queue_hi", "brownout_kv_hi",
+              "brownout_ttft_hi_s", "brownout_clear_frac", "brownout_hold_s",
+              "brownout_max_new_tokens")
+
+
+def test_serve_config_has_the_reference_fields_and_defaults():
+    ours = {f.name: f.default for f in dataclasses.fields(ServeConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(jax_engine.ServeConfig)}
+    assert sorted(theirs.keys() - ours.keys()) == sorted(OWED_TO_A5)
+    assert not ours.keys() - theirs.keys()
+    assert {k: v for k, v in theirs.items() if k in ours} == ours
 
 
 def test_reference_classify_matches_jax(flax_params):
