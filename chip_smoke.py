@@ -113,6 +113,30 @@ non-zero:
    and host wall per decode step with graphs and without; each
    configuration's profiled decode steps hold the paged kernel's
    replay-counted launches to the profiler's count;
+5a. train_config: the rest of the training config at the full
+   ``Gpt2Config`` defaults (bf16, batch 16 x 1024, fused CE, dropout 0.1
+   unless a check says 0; no depth cut): (a) 8 steps as 2 launches of
+   ``steps_per_launch=4`` (one CUDA graph of 4 steps) against 8 eager
+   steps at dropout 0 in f32, final params within 1e-5 relative (and
+   whether bitwise), the flash and CE kernels counted from the eager
+   warm-up and the replays' tally; (b) at dropout 0.1 the graph's window
+   losses against the eager steps' (so the 4 steps of a launch drew the
+   eager masks), the graph's generators staged for the 4 steps of a
+   launch drawing 4 different uniforms, the first the eager step's, and
+   a resume at a bundle boundary against the uninterrupted run, within
+   1e-5 relative; (c) the host
+   wall per step over 8-step fit windows and one profiled launch's idle
+   share, k = 1 and k = 4 alternated, 3 windows each (measurements, no
+   claim); (d) ``remat_policy`` none / dots / dots_no_batch against no
+   remat, step-0 loss and every gradient within 1e-5 (f32), the
+   dispatcher ops each policy saved in a forward, and each variant's
+   peak memory over a bf16 step; (e) ``pretrained=`` from a
+   directory the phase writes (the seed-0 params under HF names,
+   ``model.safetensors`` + ``config.json``), step-0 loss equal to the
+   seed params'; (f) ``badbatch@3`` with ``max_skipped_batches=1`` skips
+   and counts one batch; (g) a 2-step profiler window's trace names
+   ``flash_fwd_mma_kernel`` and the CE kernels; (h) ``debug_nans`` with
+   ``nan@2`` raises ``FloatingPointError``;
 6. the ``{"group_row_sum": {...}}`` line (not the port of a TPU kernel),
    the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
@@ -146,6 +170,12 @@ BF16_DENSE_PEAK = 989.4e12     # H100 SXM bf16 tensor cores, dense: the MFU deno
 TRAIN_STEPS = 20
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 TRAIN_KERNELS = (*FLASH_KERNELS, "ce_fwd", "ce_bwd")
+# torch.profiler drops device activity timestamped before its trace
+# starts, and the card's kernel timestamps can read up to ~3 ms earlier
+# than the host's launch timestamps (chip_probe.py profiler): a profiled
+# window waits this long after the profiler starts, so the first step's
+# kernels land inside the trace.
+PROFILER_LEAD_S = 0.05
 PLAIN_CE_PEAK_GIB = 25.1       # the same 20-step run at fused_ce=False, as PERF.md records it
 CE_SHAPE = (16384, 50257)      # the step's logits: batch 16 x 1024 tokens, GPT-2 vocab
 # Cross-entropy edge cases (label, N, V), each with labels -1 and V, a row
@@ -1139,6 +1169,7 @@ def device_split(torch, fn) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_LEAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1209,7 +1240,7 @@ def phase_training(torch, counters, smi: str, workdir: str) -> dict:
         reset_counts(counters)
         loss, _, _ = trainer.task.loss_fn(
             trainer.policy.cast_compute(leaves), {}, trainer.put_batch(batch0),
-            rng=rng.step_rng(rng.PRNGKey(cfg.seed + 1), 0), train=True)
+            rng=rng.StepNoise(trainer.step_key(0)), train=True)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         step0[label] = (float(loss.detach()), dict(zip(leaves, grads)),
                         {**{k: counters[k].launches for k in TRAIN_KERNELS},
@@ -1427,6 +1458,276 @@ def phase_generate(torch, counters, workdir: str) -> dict:
     return summary
 
 
+def phase_train_config(torch, counters, smi: str, tmp: str) -> dict:
+    """The rest of the training config at the full ``Gpt2Config`` defaults
+    (bf16, batch 16 x 1024, fused CE; dropout 0.1 unless a check says 0),
+    checks (a)-(h) of the module docstring."""
+    import collections
+    import functools
+    import gc
+    import shutil
+
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    from tensorflow_examples_torch.core import rng as rng_mod
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.data.prefetch import bundle_batches, put_batch
+    from tensorflow_examples_torch.models import convert, hf_import, transformer
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.train.task import Task
+    from tensorflow_examples_torch.utils import faults
+    from tensorflow_examples_torch.workloads import gpt2
+
+    base = gpt2.Gpt2Config(warmup_steps=2, log_every=4, eval_every=0, checkpoint_every=0,
+                           telemetry_sinks="", train_steps=8)
+    ds, _ = gpt2.datasets(base)
+    data = lambda start: train_iterator(ds, base.global_batch_size, seed=base.seed,
+                                        start_step=start)
+    out: dict = {"card": smi}
+
+    def free():
+        """Drop the deleted trainers (a trainer and its k-step graph hold
+        each other) and their graphs' private pools."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def fit(cfg, steps, task=None, stream=None):
+        trainer = Trainer(task or gpt2.make_task(cfg), cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(stream or data, num_steps=steps)
+        torch.cuda.synchronize()
+        return trainer, time.perf_counter() - t0
+
+    def f32_params(trainer):
+        return torch.cat([p.float().reshape(-1) for p in trainer.state.params.values()])
+
+    # (a) 8 steps as 2 launches of 4 against 8 eager steps, dropout 0, f32.
+    cfg = base.replace(dropout=0.0, precision="f32")
+    eager, _ = fit(cfg, 8)
+    reset_counts(counters)
+    graph, _ = fit(cfg.replace(steps_per_launch=4), 8)
+    launches = {k: counters[k].launches for k in TRAIN_KERNELS}
+    tally = graph.bundled_step(4).tallies()
+    a, b = f32_params(eager), f32_params(graph)
+    rel = float((a - b).abs().max() / a.abs().max())
+    out["a"] = dict(max_rel_param_diff=rel, bitwise=bool(torch.equal(a, b)), launches=launches,
+                    replay_tally=tally, graphs=graph.bundled_step(4).captured,
+                    losses_eager=[h["loss"] for h in eager.history],
+                    losses_graph=[h["loss"] for h in graph.history])
+    log(f"train_config (a): {json.dumps(out['a'])}")
+    # Launches: the eager warm-up's 4 steps, then 2 replays of 4 steps
+    # (the capture's own are taken back out).
+    per_step = {k: base.num_layers if k.startswith("flash") else 1 for k in TRAIN_KERNELS}
+    want = {k: 12 * n for k, n in per_step.items()}
+    want_tally = [{f"{k}.launches": 4 * n for k, n in per_step.items()}]
+    got_tally = [{k: v for k, v in t.items() if k.endswith(".launches")} for t in tally]
+    if rel > 1e-5 or launches != want or got_tally != want_tally:
+        fail(f"train_config (a): graph vs eager params rel {rel:.2e} (limit 1e-5); launches "
+             f"{launches}, expected {want}; a replay's tally {got_tally}, expected {want_tally}")
+    del eager, graph, a, b
+    free()
+
+    # (b) dropout 0.1: the 4 steps of a launch draw the eager steps' masks
+    # (their window losses agree), the graph's generators staged for the
+    # steps of one launch draw 4 different uniforms (the first equal to
+    # the eager step's), and a resume at a bundle boundary reproduces the
+    # uninterrupted losses.
+    wd = os.path.join(tmp, "train_config_b")
+    cfg = base.replace(steps_per_launch=4, log_every=4, checkpoint_every=4)
+    eager, _ = fit(base.replace(log_every=4), 8)
+    whole, _ = fit(cfg, 8)
+    first, _ = fit(cfg.replace(workdir=wd), 4)
+    resumed, _ = fit(cfg.replace(workdir=wd), 8)
+    windows = lambda t: [(h["step"], h["loss"]) for h in t.history]
+    rel_eager = max(abs(x[1] - y[1]) / abs(y[1]) for x, y in zip(windows(whole), windows(eager)))
+    rel_resume = abs(windows(resumed)[-1][1] - windows(whole)[-1][1]) / abs(windows(whole)[-1][1])
+    draws = [noise.stage(whole.step_key(i)).dropout_uniform(1, (16,), whole.device)
+             for i, noise in enumerate(whole.bundled_step(4)._noises)]
+    eager_draw = rng_mod.StepNoise(whole.step_key(0)).dropout_uniform(1, (16,), whole.device)
+    distinct = len({d.cpu().numpy().tobytes() for d in draws})
+    out["b"] = dict(distinct_staged_draws_of_4_steps=distinct,
+                    first_equals_eager=bool(torch.equal(draws[0], eager_draw)),
+                    graph=windows(whole), eager=windows(eager), resumed=windows(resumed),
+                    rel_vs_eager=rel_eager, rel_resumed=rel_resume)
+    log(f"train_config (b): {json.dumps(out['b'])}")
+    if distinct != 4 or not out["b"]["first_equals_eager"] or rel_eager > 1e-5 or \
+            rel_resume > 1e-5 or [s for s, _ in windows(resumed)] != [8]:
+        fail(f"train_config (b): {out['b']}")
+    shutil.rmtree(wd, ignore_errors=True)
+    del eager, whole, first, resumed
+    free()
+
+    # (c) host wall per step and profiled idle share, k = 1 and k = 4,
+    # alternated, 3 windows each (8 steps a window after a warm fit).
+    walls = {1: [], 4: []}
+    idle = {1: [], 4: []}
+    trainers = {k: Trainer(gpt2.make_task(base), base.replace(steps_per_launch=k, log_every=8))
+                for k in (1, 4)}
+    for k, tr in trainers.items():
+        tr.fit(data, num_steps=8)  # build, warm-up, capture
+    for w in range(3):
+        for k in ((1, 4) if w % 2 == 0 else (4, 1)):
+            tr = trainers[k]
+            start = tr.state.step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit(data, num_steps=start + 8)
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) / 8 * 1e3)
+            stream = data(tr.state.step)
+            batch = put_batch(next(stream if k == 1 else bundle_batches(stream, k)), tr.device)
+            fn = (lambda s, b: tr._step_fn(tr, s, b)) if k == 1 else tr.bundled_step(k)
+
+            def launch():
+                tr.state, _ = fn(tr.state, batch)
+            prof = device_split(torch, launch)
+            idle[k].append(prof["idle_ms"] / prof["wall_ms"])
+    out["c"] = dict(host_ms_per_step=walls, profiled_idle_share=idle,
+                    note="fit wall over 8 steps a window, log_every 8; one profiled launch")
+    log(f"train_config (c): {json.dumps(out['c'])}")
+    del trainers
+    free()
+
+    # (d) remat policies against no remat: step-0 loss and gradients (f32,
+    # dropout 0.1), each variant compared as it runs so that no variant's
+    # gradients stay alive; the dispatcher ops each policy's checkpoint
+    # saved in one more forward (a policy function that records them, on
+    # REMAT_SAVES); then each variant's peak memory over a bf16 step with
+    # nothing else of this check alive.
+    batch0 = next(data(0))
+    variants = (("no remat", False, "none"), ("none", True, "none"), ("dots", True, "dots"),
+                ("dots_no_batch", True, "dots_no_batch"))
+    ref, worst, saved, peaks = None, {}, {}, {}
+    for label, remat, policy in variants:
+        cfg = base.replace(precision="f32", remat=remat, remat_policy=policy)
+        tr = Trainer(gpt2.make_task(cfg), cfg)
+        leaves = {k: p.detach().requires_grad_() for k, p in tr.state.params.items()}
+        step0 = lambda: tr.task.loss_fn(tr.policy.cast_compute(leaves), {}, tr.put_batch(batch0),
+                                        rng=rng_mod.StepNoise(tr.step_key(0)), train=True)[0]
+        loss = step0()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        loss = float(loss.detach())
+        if ref is None:
+            ref = (loss, grads)
+        else:
+            worst[label] = max([abs(loss - ref[0]) / abs(ref[0])] + [
+                float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+                for a, b in zip(grads, ref[1])])
+        del loss, grads
+        saves = transformer.REMAT_SAVES[policy]
+        if remat and saves:
+            counts = collections.Counter()
+
+            def record(ctx, op, *args, **kwargs):
+                if op not in saves:
+                    return CheckpointPolicy.PREFER_RECOMPUTE
+                if not ctx.is_recompute:
+                    counts[str(op)] += 1
+                return CheckpointPolicy.MUST_SAVE
+
+            real = transformer.remat_context
+            transformer.remat_context = lambda _: functools.partial(
+                create_selective_checkpoint_contexts, record)
+            try:
+                step0()
+            finally:
+                transformer.remat_context = real
+            saved[label] = dict(counts)
+        del tr, leaves
+    del ref
+    free()
+    for label, remat, policy in variants:
+        cfg = base.replace(remat=remat, remat_policy=policy)
+        tr = Trainer(gpt2.make_task(cfg), cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(batch0)
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+        del tr
+        free()
+    out["d"] = dict(worst_rel_diff_vs_no_remat=worst, ops_saved_per_forward=saved,
+                    peak_mem_gib_bf16_step=peaks)
+    log(f"train_config (d): {json.dumps(out['d'])}")
+    if max(worst.values()) > 1e-5:
+        fail(f"train_config (d): a remat policy differs from no remat: {worst}")
+
+    # (e) pretrained= from a directory of the seed-0 params under HF names.
+    cfg = base.replace(precision="f32", dropout=0.0)
+    seed_tr = Trainer(gpt2.make_task(cfg), cfg)
+    hf_dir = os.path.join(tmp, "hf_gpt2")
+    hf_import.export_gpt2(convert.to_param_tree(seed_tr.state.params), gpt2.model_config(cfg),
+                          hf_dir)
+    pre_tr = Trainer(gpt2.make_task(cfg.replace(pretrained=hf_dir)), cfg.replace(pretrained=hf_dir))
+    losses = [float(t._train_step(t.state, t.put_batch(batch0))[1]["loss"])
+              for t in (seed_tr, pre_tr)]
+    out["e"] = dict(seed_loss=losses[0], pretrained_loss=losses[1],
+                    files=sorted(os.listdir(hf_dir)))
+    log(f"train_config (e): {json.dumps(out['e'])}")
+    if losses[0] != losses[1]:
+        fail(f"train_config (e): pretrained step-0 loss {losses[1]} != seed {losses[0]}")
+    del seed_tr, pre_tr
+    free()
+    shutil.rmtree(hf_dir, ignore_errors=True)
+
+    # (f) badbatch@3 with max_skipped_batches=1: one batch skipped, counted.
+    from tensorflow_examples_torch.telemetry.registry import default_registry
+    before = default_registry().counter_values().get("data/batches_skipped", 0)
+    faults.install("badbatch@3")
+    try:
+        tr, _ = fit(base.replace(max_skipped_batches=1, log_every=6), 6)
+    finally:
+        faults.clear()
+    skipped = default_registry().counter_values().get("data/batches_skipped", 0) - before
+    out["f"] = dict(skipped=skipped, steps=tr.state.step)
+    log(f"train_config (f): {json.dumps(out['f'])}")
+    if skipped != 1 or tr.state.step != 6:
+        fail(f"train_config (f): {out['f']}")
+    del tr
+
+    # (g) a 2-step profiler window at k = 1 names the flash and CE kernels.
+    prof_dir = os.path.join(tmp, "profile")
+    tr, _ = fit(base.replace(profile_start_step=1, profile_num_steps=2, profile_dir=prof_dir,
+                             log_every=4), 4)
+    with open(os.path.join(prof_dir, f"trace_{os.getpid()}.json")) as f:
+        names = {ev.get("name", "") for ev in json.load(f).get("traceEvents", [])}
+    found = {w: any(w in n for n in names)
+             for w in ("flash_fwd_mma_kernel", "ce_fwd_kernel", "ce_bwd_kernel")}
+    out["g"] = dict(events=len(names), found=found)
+    log(f"train_config (g): {json.dumps(out['g'])}")
+    if not all(found.values()):
+        fail(f"train_config (g): the profiler trace lacks kernels: {found}")
+    del tr
+
+    # (h) debug_nans with nan@2 raises FloatingPointError.
+    task = gpt2.make_task(base)
+
+    def scaled(params, model_state, batch, *, rng, train):
+        batch = dict(batch)
+        scale = batch.pop("scale")
+        loss, metrics, ms = task.loss_fn(params, model_state, batch, rng=rng, train=train)
+        return loss * scale.mean(), metrics, ms
+
+    scaled_task = Task("scaled", task.init_fn, scaled, task.make_optimizer)
+    stream = lambda start: ({**b, "scale": np.ones(base.global_batch_size, np.float32)}
+                            for b in data(start))
+    faults.install("nan@2")
+    try:
+        fit(base.replace(debug_nans=True), 4, task=scaled_task, stream=stream)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        faults.clear()
+    out["h"] = dict(raised=raised)
+    log(f"train_config (h): {json.dumps(out['h'])}")
+    if raised is None or "step 2" not in raised:
+        fail(f"train_config (h): debug_nans with nan@2 raised {raised!r}")
+    free()
+    return out
+
+
 def moe_config(gpt2, **kw):
     """``bench.py``'s ``moe_bench_config()`` at its TPU widths (GPT-2 124M
     widths, 8 experts, top-2 MoE in every 2nd block, batch 8 x 1024, bf16,
@@ -1537,7 +1838,7 @@ def phase_moe_training(torch, counters, gm, smi: str, workdir: str) -> dict:
                 plain_grouped_matmul(gm) if plain else contextlib.nullcontext():
             loss, metrics, _ = trainer.task.loss_fn(
                 trainer.policy.cast_compute(leaves), {}, trainer.put_batch(batch0),
-                rng=rng.step_rng(rng.PRNGKey(cfg.seed + 1), 0), train=True)
+                rng=rng.StepNoise(trainer.step_key(0)), train=True)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         recorded = recorded or routing.calls
         step0[label] = (float(loss.detach()), dict(zip(leaves, grads)),
@@ -1790,6 +2091,7 @@ def device_breakdown(torch, engine, requests, steps: int = 8) -> dict:
         torch.cuda.synchronize()
         counted = paged_decode_attention.launches
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_LEAD_S)
             t0 = time.perf_counter()
             for _ in range(n):
                 fn()
@@ -2053,6 +2355,7 @@ def main() -> int:
         phase_generate(torch, counters, workdir)
         moe = phase_moe_training(torch, counters, grouped_matmul, smi, os.path.join(tmp, "moe"))
         phase_moe_generate(torch, counters, grouped_matmul, os.path.join(tmp, "moe-init"))
+        phase_train_config(torch, counters, smi, tmp)
 
     model_cfg = transformer.gpt2_124m()
     t0 = time.perf_counter()

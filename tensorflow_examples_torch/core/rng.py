@@ -21,6 +21,18 @@ JAX package: the key of training step ``step`` under root key ``root``.
 ``fold_in_static(key, parts)`` is flax's ``_fold_in_static``: the key a
 flax module at scope path ``parts[:-1]`` gets from its ``parts[-1]``-th
 ``make_rng`` call (the MoE router's jitter key).
+
+:class:`StepNoise` is the one source of a training step's random input,
+staged from the step key before the step runs (``stage(key)``): dropout
+uniforms at a numbered site from that site's ``torch.Generator``,
+reseeded to ``fold_in(key, site)`` (``site_seed``) at offset 0, and the
+MoE router jitter of block ``i`` (numpy threefry of flax's key for it,
+jax's bits) copied from pinned host memory into a device buffer that
+stays put. A step's noise is thus a pure function of (seed, step). The
+generators and buffers live across steps, so the same object serves an
+eager step and the steps of a CUDA graph (``train/graphs.py``): the
+graph registers the generators and reads the buffers, and a ``stage``
+before each replay sets them for the replayed steps.
 """
 
 from __future__ import annotations
@@ -149,3 +161,68 @@ def categorical(key: np.ndarray, logits: torch.Tensor) -> int | torch.Tensor:
     logits = logits.detach().float().cpu()
     draw = torch.argmax(gumbel(key, logits.shape) + logits, dim=-1)
     return int(draw) if logits.dim() == 1 else draw
+
+
+def site_seed(key: np.ndarray, site: int) -> int:
+    """The generator seed of dropout site ``site`` under ``key``: the two
+    words of ``fold_in(key, site)`` packed into one integer."""
+    word = fold_in(key, site)
+    return (int(word[0]) << 31) ^ int(word[1])
+
+
+def router_key(key: np.ndarray, layer: int) -> np.ndarray:
+    """The router jitter key of MoE block ``layer``: what flax's
+    ``make_rng("dropout")`` gives the reference's ``h_<layer>/moe``."""
+    return fold_in_static(key, (f"h_{layer}", "moe", 1))
+
+
+class StepNoise:
+    """A training step's random input (see the module docstring):
+    ``stage(key)`` sets it for the step of ``key``;
+    ``dropout_uniform(site, shape, device)`` draws site ``site``'s
+    uniforms on [0, 1); ``router_jitter(layer, shape, lo, hi, device)``
+    is block ``layer``'s jitter on [lo, hi) on the device. A site's
+    generator and a block's buffer are made at their first draw."""
+
+    def __init__(self, key: np.ndarray | None = None):
+        self.key = None
+        self._generators: dict[int, torch.Generator] = {}
+        self._jitter: dict[int, tuple] = {}  # layer -> (device buffer, lo, hi)
+        if key is not None:
+            self.stage(key)
+
+    @property
+    def generators(self) -> list[torch.Generator]:
+        return list(self._generators.values())
+
+    def stage(self, key: np.ndarray) -> "StepNoise":
+        """Reseed every generator and refill every jitter buffer for the
+        step of ``key`` (the copies run on the current stream)."""
+        self.key = key
+        for site, gen in self._generators.items():
+            gen.manual_seed(site_seed(key, site))
+        for layer, (buf, lo, hi) in self._jitter.items():
+            self._fill(layer, buf, lo, hi)
+        return self
+
+    def dropout_uniform(self, site: int, shape, device) -> torch.Tensor:
+        gen = self._generators.get(site)
+        if gen is None:
+            gen = self._generators[site] = torch.Generator(device=device)
+            gen.manual_seed(site_seed(self.key, site))
+        return torch.rand(shape, generator=gen, device=device)
+
+    def router_jitter(self, layer: int, shape, lo: float, hi: float, device) -> torch.Tensor:
+        entry = self._jitter.get(layer)
+        if entry is None:
+            entry = self._jitter[layer] = (torch.empty(shape, device=device), lo, hi)
+            self._fill(layer, *entry)
+        return entry[0]
+
+    def _fill(self, layer: int, buf: torch.Tensor, lo: float, hi: float) -> None:
+        host = torch.from_numpy(uniform(router_key(self.key, layer), tuple(buf.shape), lo, hi))
+        if buf.is_cuda:
+            # A pinned block is reused only once its copy has run, so the
+            # copy need not block the host.
+            host = host.pin_memory()
+        buf.copy_(host, non_blocking=True)

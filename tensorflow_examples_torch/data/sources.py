@@ -1,6 +1,7 @@
 """LM token sources: the port of ``load_lm_tokens`` and
 ``synthetic_tokens`` from ``tensorflow_examples_tpu/data/sources.py``
-(numpy only; the same files and seeds give the same windows)."""
+(numpy only; the same files and seeds give the same windows). File reads
+go through ``utils/faults.retry_io``, as the reference's do."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import os
 import numpy as np
 
 from tensorflow_examples_torch.data.memory import InMemoryDataset
+from tensorflow_examples_torch.utils.faults import retry_io
 
 
 def load_lm_tokens(
@@ -29,12 +31,17 @@ def load_lm_tokens(
     if data_dir:
         base = os.path.join(data_dir, split)
         if os.path.exists(base + ".bin"):
-            flat = np.memmap(base + ".bin", dtype=np.uint16, mode="r")
+            flat = retry_io(lambda: np.memmap(base + ".bin", dtype=np.uint16, mode="r"),
+                            base + ".bin")
         elif os.path.exists(base + ".npy"):
-            flat = np.load(base + ".npy", mmap_mode="r")
+            flat = retry_io(lambda: np.load(base + ".npy", mmap_mode="r"), base + ".npy")
         elif os.path.exists(base + ".txt"):
-            with open(base + ".txt", "rb") as f:
-                flat = np.frombuffer(f.read(), dtype=np.uint8)
+
+            def read_txt():
+                with open(base + ".txt", "rb") as f:
+                    return np.frombuffer(f.read(), dtype=np.uint8)
+
+            flat = retry_io(read_txt, base + ".txt")
         else:
             raise FileNotFoundError(
                 f"--data_dir={data_dir} set but {split}.bin/.npy/.txt not "

@@ -28,19 +28,36 @@ logits in the compute dtype from the tied ``wte``. ``GPT2.forward`` is
 the training forward: causal self-attention through the flash kernels
 (``attention="flash"``) or the plain reference (``"xla"``); under
 ``train=True`` dropout at the reference's three sites (embeddings,
-attention output, MLP output) with masks drawn from explicit generators
-keyed by a per-step key (not flax's bits); ``remat`` recomputes each
-block in the backward (``torch.utils.checkpoint``). Parameters run in
-whatever dtype they hold: the precision policy
-(``core/precision.py``) hands the module compute-dtype copies.
+attention output, MLP output) with masks from the step's noise source
+(``core/rng.StepNoise``: explicit generators keyed by the step key, not
+flax's bits; each site's mask is drawn once a step and kept for a
+recomputed block).
+
+``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant), and ``remat_policy`` says
+what a checkpointed block saves, as the reference's
+``jax.checkpoint_policies``: ``none`` saves nothing and recomputes the
+whole block; ``dots`` saves the outputs of the matrix products
+(``aten.mm``, ``addmm``, ``bmm``, ``baddbmm``) through
+``torch.utils.checkpoint.create_selective_checkpoint_contexts`` and
+recomputes the rest; ``dots_no_batch`` saves only ``mm``/``addmm`` (the
+batched products are attention's). The hand-written flash attention and
+cross-entropy kernels are bound through the port's own loader
+(``ops/_build.py``), not as dispatcher ops, so no policy can see them:
+they are recomputed under every policy. Numerics are identical across
+policies; only memory moves. Under ``core/nans.finite_checks`` (the
+trainer's ``debug_nans``) the forward raises ``FloatingPointError``
+naming the first block whose output is not finite. Parameters run in whatever dtype they hold:
+the precision policy (``core/precision.py``) hands the module
+compute-dtype copies.
 
 Mixture-of-Experts (``moe_experts`` E > 0): the MLP of every
 ``moe_every``-th block is a top-``moe_top_k`` MoE over E experts
 (``parallel/moe.py``; the expert weights cast to the activations' dtype,
-the router in f32). At ``train=True`` with a dropout key, block i's
-router jitter key is ``fold_in_static(key, ("h_i", "moe", 1))``, the key
-flax's ``make_rng("dropout")`` gives the reference's ``MoeMlp``, so the
-jitter equals jax's bit for bit. ``forward(..., moe_stats=True)`` also
+the router in f32). At ``train=True`` with a noise source, block i's
+router jitter comes from ``fold_in_static(key, ("h_i", "moe", 1))``, the
+key flax's ``make_rng("dropout")`` gives the reference's ``MoeMlp``, so
+the jitter equals jax's bit for bit (``core/rng.StepNoise.router_jitter``). ``forward(..., moe_stats=True)`` also
 returns the summed aux loss and the mean dropped fraction of the MoE
 blocks, which the reference sows as intermediates.
 
@@ -61,14 +78,17 @@ reference's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_contexts,
+                                     noop_context_fn)
 
 from tensorflow_examples_torch.core import rng as rng_mod
+from tensorflow_examples_torch.core.nans import check_finite
 from tensorflow_examples_torch.core.precision import materialize as _w
 from tensorflow_examples_torch.core.precision import take_rows as _rows
 from tensorflow_examples_torch.ops.attention import NEG_INF, attention_reference, flash_attention
@@ -76,6 +96,13 @@ from tensorflow_examples_torch.ops.decode import decode_attention_reference, fla
 from tensorflow_examples_torch.parallel.moe import moe_ffn
 
 ATTENTION_IMPLS = ("flash", "xla")
+_aten = torch.ops.aten
+# What a checkpointed block saves under each remat_policy ("none": nothing).
+REMAT_SAVES = {
+    "none": (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +116,7 @@ class TransformerConfig:
     dropout: float = 0.1
     attention: str = "flash"  # flash (the flash kernels) | xla (plain)
     remat: bool = False  # recompute each block in the backward
+    remat_policy: str = "none"  # none | dots | dots_no_batch: what a remat block saves
     # Mixture-of-Experts: 0 = dense MLP everywhere; E > 0 swaps the MLP of
     # every moe_every-th block for a top-moe_top_k MoE of E experts.
     moe_experts: int = 0
@@ -214,15 +242,15 @@ def _block_mlp(x, blk):
     return h @ _w(blk.mlp_proj.kernel) + blk.mlp_proj.bias
 
 
-def _mlp(x, blk, cfg: TransformerConfig, layer: int, moe_key: np.ndarray | None):
+def _mlp(x, blk, cfg: TransformerConfig, layer: int, moe_rng):
     """Block ``layer``'s MLP of ``x`` [B, L, d]: (y, moe aux, moe drop),
-    the last two None for a dense block. ``moe_key``: the router jitter's
-    key (None: no jitter)."""
+    the last two None for a dense block. ``moe_rng``: the router jitter's
+    source (``parallel/moe.moe_ffn``'s ``rng``; None: no jitter)."""
     if not cfg.use_moe(layer):
         return _block_mlp(x, blk), None, None
     moe, dt = blk.moe, x.dtype
     return moe_ffn(moe.gate, moe.w_in.to(dt), moe.b_in.to(dt), moe.w_out.to(dt), moe.b_out.to(dt),
-                   x, capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k, rng=moe_key,
+                   x, capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k, rng=moe_rng,
                    impl=cfg.moe_impl)
 
 
@@ -253,31 +281,43 @@ def _self_attend(q, k, v, impl: str):
 class Dropout:
     """The reference's dropout (``nn.Dropout``: keep with probability
     1 - rate, scale kept values by 1 / (1 - rate)) at numbered sites.
-    Site ``i``'s mask comes from a generator seeded by
-    ``fold_in(key, i)``, so a recomputed block (remat) draws the same
-    mask and a step's masks are a pure function of its key. ``rate`` 0
-    or no key: the identity."""
+    Site ``i``'s mask comes from ``noise.dropout_uniform(i, ...)`` (a
+    ``core/rng.StepNoise``), so a step's masks are a pure function of
+    its key. Each site's mask is drawn once
+    and kept, so a block recomputed under remat reuses it (a graph's
+    generator cannot redraw the same bits). ``rate`` 0 or no noise: the
+    identity."""
 
-    def __init__(self, rate: float, key: np.ndarray | None):
-        self.rate = float(rate) if key is not None else 0.0
-        self.key = key
+    def __init__(self, rate: float, noise):
+        self.rate = float(rate) if noise is not None else 0.0
+        self.noise = noise
+        self._keep: dict[int, torch.Tensor] = {}
 
     def __call__(self, x: torch.Tensor, site: int) -> torch.Tensor:
         if self.rate <= 0.0:
             return x
-        word = rng_mod.fold_in(self.key, site)
-        gen = torch.Generator(device=x.device)
-        gen.manual_seed((int(word[0]) << 31) ^ int(word[1]))
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - self.rate
+        keep = self._keep.get(site)
+        if keep is None:
+            keep = self._keep[site] = (
+                self.noise.dropout_uniform(site, x.shape, x.device) < 1.0 - self.rate)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
                                                                     device=x.device))
 
 
-def _block(x, blk, cfg: TransformerConfig, drop: Dropout, layer: int, moe_key):
+def remat_context(policy: str):
+    """The checkpoint ``context_fn`` of a ``remat_policy``."""
+    if policy not in REMAT_SAVES:
+        raise ValueError(f"remat_policy={policy!r} not in {sorted(REMAT_SAVES)}")
+    if not REMAT_SAVES[policy]:
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts, list(REMAT_SAVES[policy]))
+
+
+def _block(x, blk, cfg: TransformerConfig, drop: Dropout, layer: int, moe_rng):
     """One training block: (x, moe aux, moe drop), as :func:`_mlp`."""
     q, k, v = _qkv(_layer_norm(x, blk.ln_1), blk.attn)
     x = x + drop(_attn_out(_self_attend(q, k, v, cfg.attention), blk.attn), 2 * layer + 1)
-    y, aux, dropped = _mlp(_layer_norm(x, blk.ln_2), blk, cfg, layer, moe_key)
+    y, aux, dropped = _mlp(_layer_norm(x, blk.ln_2), blk, cfg, layer, moe_rng)
     return x + drop(y, 2 * layer + 2), aux, dropped
 
 
@@ -302,8 +342,8 @@ class GPT2(nn.Module):
         return getattr(self, f"h_{i}")
 
     def forward(self, tokens: torch.Tensor, *, train: bool = False,
-                dropout_key: np.ndarray | None = None) -> torch.Tensor:
-        return forward(self.cfg, self, tokens, train=train, dropout_key=dropout_key)
+                noise: rng_mod.StepNoise | None = None) -> torch.Tensor:
+        return forward(self.cfg, self, tokens, train=train, noise=noise)
 
 
 class ParamView:
@@ -331,31 +371,44 @@ class ParamView:
 
 
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *, train: bool = False,
-            dropout_key: np.ndarray | None = None, moe_stats: bool = False):
+            noise: rng_mod.StepNoise | None = None, moe_stats: bool = False):
     """The training forward: logits [B, L, vocab] of ``tokens`` [B, L] in
     the parameters' dtype. ``params`` is a :class:`GPT2` or a
     :class:`ParamView`. ``train`` turns dropout and the MoE router jitter
-    on, keyed by ``dropout_key`` (a ``core/rng`` key; none: neither).
-    ``moe_stats``: return ``(logits, moe_aux, moe_drop)``, the MoE blocks'
-    summed aux loss and mean dropped fraction (f32 scalars; 0 for a dense
-    model)."""
+    on, drawn from ``noise``, the step's staged ``core/rng.StepNoise``
+    (None: neither). ``moe_stats``: return
+    ``(logits, moe_aux, moe_drop)``, the MoE blocks' summed aux loss and
+    mean dropped fraction (f32 scalars; 0 for a dense model)."""
     if cfg.attention not in ATTENTION_IMPLS:
         raise ValueError(f"attention={cfg.attention!r} not in {ATTENTION_IMPLS}")
-    drop = Dropout(cfg.dropout if train else 0.0, dropout_key)
+    noise = noise if train else None
+    drop = Dropout(cfg.dropout, noise)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = drop(_embed(params, tokens, positions[None]), 0)
+    check_finite(x, "the embeddings")
     remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = remat_context(cfg.remat_policy) if remat else None
     auxes, drops = [], []
     for layer in range(cfg.num_layers):
-        moe_key = None
-        if train and dropout_key is not None and cfg.use_moe(layer):
-            moe_key = rng_mod.fold_in_static(dropout_key, (f"h_{layer}", "moe", 1))
-        args = (x, params.block(layer), cfg, drop, layer, moe_key)
-        x, aux, dropped = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
+        moe_rng = None
+        if noise is not None and cfg.use_moe(layer):
+            moe_rng = functools.partial(noise.router_jitter, layer)
+        args = (x, params.block(layer), cfg, drop, layer, moe_rng)
+        if remat:
+            # No default generator draws inside a block (dropout and jitter
+            # come from the step's noise), so nothing to stash for the
+            # recompute; stashing would also touch generator state that a
+            # CUDA graph capture forbids.
+            x, aux, dropped = checkpoint(_block, *args, use_reentrant=False,
+                                         preserve_rng_state=False, context_fn=context_fn)
+        else:
+            x, aux, dropped = _block(*args)
+        check_finite(x, f"h_{layer}")
         if aux is not None:
             auxes.append(aux)
             drops.append(dropped)
     logits = _layer_norm(x, params.ln_f) @ params.wte.embedding.T
+    check_finite(logits, "the LM head")
     if not moe_stats:
         return logits
     if not auxes:

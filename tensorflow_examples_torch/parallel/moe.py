@@ -30,30 +30,27 @@ sorts, first-index ``argmax``, ``bincount`` with ``minlength``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tensorflow_examples_torch.core import rng as rng_mod
 from tensorflow_examples_torch.ops import grouped_matmul as gm_ops
 from tensorflow_examples_torch.ops.grouped_matmul import grouped_matmul
 
 IMPLS = ("grouped", "scatter")
 
 
-def _router_probs(tokens: torch.Tensor, gate_w: torch.Tensor, *, rng: np.ndarray | None,
-                  jitter: float) -> torch.Tensor:
+def _router_probs(tokens: torch.Tensor, gate_w: torch.Tensor, *, rng, jitter: float
+                  ) -> torch.Tensor:
     """The router's probabilities [n, E]: softmax of the f32 logits plus,
-    with a key, uniform jitter on [-jitter, jitter) (jax's bits)."""
+    with a jitter source, its uniform jitter on [-jitter, jitter)."""
     logits = tokens.float() @ gate_w.float()
     if rng is not None and jitter > 0:
-        noise = rng_mod.uniform(rng, tuple(logits.shape), -jitter, jitter)
-        logits = logits + torch.from_numpy(noise).to(logits.device, non_blocking=True)
+        logits = logits + rng(tuple(logits.shape), -jitter, jitter, logits.device)
     return torch.softmax(logits, dim=-1)
 
 
 def _router(tokens: torch.Tensor, gate_w: torch.Tensor, *, top_k: int,
-            rng: np.ndarray | None, jitter: float):
+            rng, jitter: float):
     """Top-k router shared by both formulations. Returns (gates, experts,
     mean_onehot0 [E], mean_probs [E]); ``gates``/``experts`` are lists of
     ``top_k`` [n] tensors."""
@@ -175,7 +172,11 @@ def _pair_sort(experts, e: int):
     eid = torch.stack(experts, dim=1).reshape(-1)
     order = torch.argsort(eid, stable=True)
     inv = torch.argsort(order, stable=True)
-    return eid, order, inv, torch.bincount(eid, minlength=e)
+    # bincount sizes its output from a host read of the max; a scatter of
+    # ones into [e] counts the same with no sync (a CUDA graph holds it).
+    sizes = torch.zeros(e, dtype=eid.dtype, device=eid.device).scatter_add_(
+        0, eid, torch.ones_like(eid))
+    return eid, order, inv, sizes
 
 
 def _moe_ffn_grouped(gate_w, w_in, b_in, w_out, b_out, x, *, top_k: int, rng, jitter: float):
@@ -205,15 +206,17 @@ def _moe_ffn_grouped(gate_w, w_in, b_in, w_out, b_out, x, *, top_k: int, rng, ji
 
 
 def moe_ffn(gate_w, w_in, b_in, w_out, b_out, x, *, capacity_factor: float = 1.25,
-            top_k: int = 1, rng: np.ndarray | None = None, jitter: float = 1e-2,
+            top_k: int = 1, rng=None, jitter: float = 1e-2,
             impl: str | None = None):
     """Top-k MoE FFN of ``x`` [B, S, d] with router ``gate_w`` [d, E] and
     experts ``w_in`` [E, d, ff], ``b_in`` [E, ff], ``w_out`` [E, ff, d],
     ``b_out`` [E, d]. Returns ``(out [B, S, d] in x's dtype, aux_loss,
     drop_fraction)``, both scalars f32: the Switch load-balancing loss
     ``E * sum_e(fraction of rank-0 tokens to e * mean prob of e)`` and the
-    fraction of (token, rank) pairs that overflowed capacity. ``rng``: a
-    ``core/rng`` key for the router jitter (None: no jitter). ``impl``:
+    fraction of (token, rank) pairs that overflowed capacity. ``rng``: the
+    router jitter's source, ``(shape, minval, maxval, device) -> tensor``
+    of uniforms on the device (a block's ``core/rng.StepNoise.router_jitter``,
+    jax's bits); None: no jitter. ``impl``:
     ``"grouped"``, ``"scatter"``, or ``""``/``None`` for the device's
     default (grouped on CUDA, scatter on the CPU)."""
     if not impl:

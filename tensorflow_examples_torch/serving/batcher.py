@@ -63,7 +63,7 @@ import time
 from tensorflow_examples_torch.serving.engine import EngineStepError
 from tensorflow_examples_torch.serving.paged_kv import BlockExhausted
 from tensorflow_examples_torch.serving.speculative import make_draft
-from tensorflow_examples_torch.telemetry.schema import SERVING_KEYS_V11
+from tensorflow_examples_torch.telemetry.schema import SERVING_KEYS_V11, SERVING_SCHEMA_VERSION
 
 log = logging.getLogger(__name__)
 
@@ -549,8 +549,9 @@ class ContinuousBatcher:
     # ------------------------------------------------------------- stats
 
     def stats_line(self) -> dict:
-        """A ``kind="serving"`` line: the registry's serving counters,
-        gauges and latency percentiles, and the ``serving`` object (pool
+        """A ``kind="serving"`` line stamped ``SERVING_SCHEMA_VERSION`` (14,
+        the reference's): the registry's serving counters, gauges and
+        latency percentiles, and the ``serving`` object (pool
         occupancy, ``post_warmup_recompiles``, the paged pool's fields,
         the speculation keys ``SERVING_KEYS_V8`` when speculation is on
         and the precision keys ``SERVING_KEYS_V11`` when the weights are
@@ -591,6 +592,7 @@ class ContinuousBatcher:
         if pstats:
             serving.update({k: pstats[k] for k in SERVING_KEYS_V11})
         return {
+            "schema_version": SERVING_SCHEMA_VERSION,
             "kind": "serving", "step": int(counters.get("serving/decode_steps", 0)),
             "time_unix": time.time(), "session_start_unix": self._start_unix, "host": 0,
             "metrics": {}, "counters": counters, "gauges": gauges, "derived": derived,

@@ -69,6 +69,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tensorflow_examples_torch.core import graphs as graphs_mod
 from tensorflow_examples_torch.core import precision as precision_mod
 from tensorflow_examples_torch.core import rng
 from tensorflow_examples_torch.core.device import resolve_device
@@ -478,12 +479,6 @@ def top_logprobs(logits: np.ndarray, top_n: int) -> list[dict]:
 COUNTED_KERNELS = (paged_decode_attention, flash_decode_attention)
 
 
-def launch_counts(kernels) -> dict:
-    """Every ``*launches`` counter of ``kernels``, keyed (wrapper, name)."""
-    return {(fn, name): value for fn in kernels for name, value in vars(fn).items()
-            if name.endswith("launches")}
-
-
 class GraphRung:
     """One decode or verify rung as CUDA graphs, one per input signature.
 
@@ -518,8 +513,7 @@ class GraphRung:
         for buf, a in zip(buffers, args):
             buf.copy_(torch.as_tensor(a))
         graph.replay()
-        for (fn, name), n in tally.items():
-            setattr(fn, name, getattr(fn, name) + n)
+        graphs_mod.add_tally(tally)
         return out
 
     def _record(self, args):
@@ -532,16 +526,9 @@ class GraphRung:
             torch.cuda.current_stream(self._device).wait_stream(side)
         else:
             self._fn(*buffers)
-        before = launch_counts(self._kernels)
         graph = self._graph_cls()
-        try:
-            with self._capture(graph):
-                out = self._fn(*buffers)
-            after = launch_counts(self._kernels)
-        finally:  # a capture launches nothing, whether it succeeds or not
-            for (fn, name), value in before.items():
-                setattr(fn, name, value)
-        tally = {key: after[key] - before[key] for key in after if after[key] != before[key]}
+        out, tally = graphs_mod.capture(self._capture(graph), lambda: self._fn(*buffers),
+                                        self._kernels)
         return graph, buffers, out, tally
 
     def reset(self) -> None:

@@ -8,8 +8,12 @@ the 6ND MFU and goodput (``telemetry/accounting.py``), and fans the line
 out to the sinks (``telemetry/sinks.py``). ``final_window`` lands the
 partial window with an ``exit_reason`` on every exit path; ``close``
 writes the span timeline as Chrome-trace JSON. The memory line reads
-``torch.cuda.memory_stats`` on the card. The fleet allgather and the
-metrics server of the reference are not ported.
+``torch.cuda.memory_stats`` on the card. A post-warmup recompile of the
+training step (``telemetry/compilation.py``) lands as a
+``kind="compile_warning"`` line, a completed profiler window
+(``telemetry/profiling.py``) rides the final line as ``"profile"``, and
+the watchdog's fatal exit calls ``emergency_flush``. The fleet allgather
+and the metrics server of the reference are not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +59,8 @@ class Telemetry:
         self.device = device if device is not None else torch.device("cpu")
         self._windows_since_flush = 0
         self._closed = False
+        self._last_step = 0  # the step of the latest line: labels an emergency flush
+        self.profile_info: dict | None = None
         # Counters are process-global; every line carries deltas from here.
         self._counter_base = dict(self.registry.counter_values())
         self._session_start = time.time()
@@ -94,8 +100,10 @@ class Telemetry:
         """Count stepped work, skipped and replayed steps included."""
         self.registry.counter("train/steps_total").inc(n)
 
-    def record_step_time(self, seconds: float) -> None:
-        self.registry.histogram("step_time").record(seconds)
+    def record_step_time(self, seconds: float, k: int = 1) -> None:
+        """One loop iteration's wall; a bundle of ``k`` steps records its
+        per-step share."""
+        self.registry.histogram("step_time").record(seconds / max(k, 1))
 
     # ----------------------------------------------------------- windows
 
@@ -138,12 +146,15 @@ class Telemetry:
         }
         if kind == "final":
             line["exit_reason"] = exit_reason or "complete"
+            if self.profile_info is not None:
+                line["profile"] = dict(self.profile_info)
         if kind in ("window", "final"):
             mem = device_memory(self.device)
             if mem:
                 line["memory"] = mem
         if extra:
             line.update(extra)
+        self._last_step = int(step)
         for sink in self.sinks:
             try:
                 sink.write(line)
@@ -167,6 +178,29 @@ class Telemetry:
         memory = {"params_bytes": sizes["params"], "opt_bytes": sizes["opt_state"],
                   "model_state_bytes": sizes["model_state"], **device_memory(self.device)}
         return self.log_window(step, {}, kind="memory", extra={"memory": memory})
+
+    def compile_warning(self, event: Mapping) -> dict:
+        """A post-warmup recompilation as a ``kind="compile_warning"``
+        line carrying the sentinel's event (fn, count, wall, delta)."""
+        event = dict(event)
+        step = int(event.pop("step", self._last_step))
+        return self.log_window(step, {}, kind="compile_warning", extra={"compile": event})
+
+    def note_profile(self, info: Mapping) -> None:
+        """Link a completed profiler window from the final line."""
+        self.profile_info = dict(info)
+
+    def emergency_flush(self) -> None:
+        """The watchdog's fatal path, from its own thread while the loop
+        is wedged: a final line (exit reason ``watchdog_fatal``; the
+        allocator's statistics need no device sync), the trace and every
+        sink to disk."""
+        try:
+            self.final_window(self._last_step, {}, exit_reason="watchdog_fatal")
+        except Exception:  # pragma: no cover - the process exits next; best effort
+            log.exception("watchdog-fatal final line failed")
+        self.write_trace()
+        self.flush()
 
     # ------------------------------------------------------------- flush
 

@@ -1,19 +1,27 @@
 """The JSONL line schema of the trainer's telemetry: the port's copy of
 the parts of ``tensorflow_examples_tpu/telemetry/schema.py`` that cover
 the kinds the port's trainer writes (``window``, ``eval``, ``final``,
-``memory``), and the serving line's optional key groups. Its lines are schema version 5 lines of the reference, so
-the reference's ``validate_line`` accepts them too.
+``memory``, ``compile_warning``), and the serving line's optional key
+groups. The trainer's lines are schema version 5 lines of the reference
+and the serving line (``serving/batcher.py``) is stamped
+``SERVING_SCHEMA_VERSION``, so the reference's ``validate_line`` accepts
+both.
 
 Line shape::
 
-    {"schema_version": 5, "kind": "window" | "eval" | "final" | "memory",
+    {"schema_version": 5, "kind": "window" | "eval" | "final" | "memory"
+                                 | "compile_warning",
      "host": 0, "step": <int >= 0>, "time_unix": <float>,
      "session_start_unix": <float>,          # constant per fit
      "metrics": {"train/loss": ...},          # numeric or null
      "counters": {"train/steps_total": ...},  # non-negative ints (fit deltas)
      "gauges": {...}, "derived": {...},       # numeric or null
      "exit_reason": "complete" | "preempt" | "error:<Type>",  # final only
-     "memory": {"params_bytes": ..., ...}}    # required on memory lines
+     "memory": {"params_bytes": ..., ...},    # required on memory lines
+     "compile": {"fn": ..., "delta": ..., "count": ..., "wall_secs": ...},
+                                              # compile_warning lines only
+     "profile": {"dir": ..., "start_step": ..., "num_steps": ...,
+                 "wall_secs": ...}}           # final lines only, optional
 """
 
 from __future__ import annotations
@@ -22,6 +30,11 @@ import numbers
 from typing import Any
 
 SCHEMA_VERSION = 5
+# The serving line's version: the reference's SERVING_SCHEMA_VERSION. Its
+# validator requires only the v4 ``SERVING_KEYS`` of a serving object and
+# refuses keys newer than the stamp, so the keys the port does not write
+# yet do not block it.
+SERVING_SCHEMA_VERSION = 14
 
 # The serving line's optional keys, the reference's
 # (``telemetry/schema.py``): the speculation measurement (stamped when
@@ -29,7 +42,7 @@ SCHEMA_VERSION = 5
 # the weights are quantized).
 SERVING_KEYS_V8 = ("accepted_per_step", "draft_hit_rate", "spec_k")
 SERVING_KEYS_V11 = ("weight_bits", "param_bytes", "param_bytes_f32", "quantized_params")
-KINDS = ("window", "eval", "final", "memory")
+KINDS = ("window", "eval", "final", "memory", "compile_warning")
 _REQUIRED = ("schema_version", "kind", "host", "step", "time_unix", "session_start_unix",
              "metrics", "counters", "gauges", "derived")
 
@@ -86,5 +99,29 @@ def validate_line(obj: Any) -> list[str]:
         _check_numeric_map(obj, "memory", problems)
     elif obj["kind"] == "memory":
         problems.append("memory line is missing the memory object")
+    if obj["kind"] == "compile_warning":
+        comp = obj.get("compile")
+        if not isinstance(comp, dict):
+            problems.append("compile_warning line is missing the compile object")
+        else:
+            problems += [f"compile[{k!r}] = {comp.get(k)!r} is not a string"
+                         for k in ("fn", "delta") if not isinstance(comp.get(k), str)]
+            if "count" in comp and not _is_count(comp["count"]):
+                problems.append(f"compile['count'] = {comp['count']!r} is not a non-negative int")
+            if "wall_secs" in comp and not _is_number(comp["wall_secs"]):
+                problems.append(f"compile['wall_secs'] = {comp['wall_secs']!r} is not a number")
+    elif "compile" in obj:
+        problems.append("compile object on a non-compile_warning line")
+    if "profile" in obj:
+        prof = obj["profile"]
+        if obj["kind"] != "final":
+            problems.append("profile object on a non-final line")
+        elif not isinstance(prof, dict):
+            problems.append("profile is not an object")
+        else:
+            if not isinstance(prof.get("dir"), str):
+                problems.append("profile['dir'] is not a string")
+            problems += [f"profile[{k!r}] = {prof.get(k)!r} is not a non-negative int"
+                         for k in ("start_step", "num_steps") if not _is_count(prof.get(k))]
     return problems
 

@@ -10,6 +10,9 @@ Without ``--data_dir`` the data are the seeded synthetic streams. With
 steps and at the end, resumes from the latest checkpoint (unless
 ``--resume false``), writes ``telemetry/metrics.jsonl`` and
 ``telemetry/trace.json``, and exits 0 after checkpointing on SIGTERM.
+Hard-fault tracebacks go to ``<workdir>/debugging/`` and file reads
+retry ``--io_retries`` times (``utils/``), as the reference's CLI sets
+up; ``TPU_FAULT_INJECT`` arms the fault plan of ``utils/faults.py``.
 Prints the final metrics, the final eval's included, as one JSON line.
 ``python -m tensorflow_examples_torch.train.eval`` evaluates the latest
 checkpoint of a workdir.
@@ -24,6 +27,8 @@ import logging
 
 from tensorflow_examples_torch.data.memory import eval_batches, train_iterator
 from tensorflow_examples_torch.train.loop import Trainer
+from tensorflow_examples_torch.utils.diagnostics import install_crash_handlers
+from tensorflow_examples_torch.utils.faults import configure_io_retry
 from tensorflow_examples_torch.workloads import gpt2
 
 WORKLOADS = {"gpt2": (gpt2, gpt2.Gpt2Config)}
@@ -66,6 +71,8 @@ def parse_config(argv=None, description: str | None = None):
 def main(argv=None) -> int:
     _, args, module, cfg = parse_config(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    install_crash_handlers(cfg.workdir)
+    configure_io_retry(cfg.io_retries, cfg.io_backoff_secs)
     train_ds, eval_ds = module.datasets(cfg)
     trainer = Trainer(module.make_task(cfg), cfg)
     eval_bs = cfg.eval_batch_size or cfg.global_batch_size

@@ -18,7 +18,8 @@ arithmetic, so a port run takes the reference's updates:
 An optimizer is a pair of functions like optax's: ``init(params) ->
 state`` and ``update(grads, state, params) -> (updates, state)``, over
 dicts of tensors; a state is a nested dict of tensors (counts are 0-d
-device tensors, so nothing syncs with the host).
+device tensors, so nothing syncs with the host and an update can be
+captured in a CUDA graph: no host value enters it after capture).
 """
 
 from __future__ import annotations
@@ -110,8 +111,9 @@ def adamw(schedule: Callable, *, b1: float = 0.9, b2: float = 0.999, eps: float 
 
     def update(grads, state, params):
         count = state["count"] + 1
-        c1 = 1.0 - torch.pow(torch.tensor(b1, device=count.device), count.float())
-        c2 = 1.0 - torch.pow(torch.tensor(b2, device=count.device), count.float())
+        # A Python base: no host tensor to copy, so a CUDA graph can hold it.
+        c1 = 1.0 - torch.pow(b1, count.float())
+        c2 = 1.0 - torch.pow(b2, count.float())
         mu = tree_map(lambda g, m: (1.0 - b1) * g + b1 * m, grads, state["mu"])
         nu = tree_map(lambda g, v: (1.0 - b2) * (g * g) + b2 * v, grads, state["nu"])
         lr = schedule(state["lr_count"])

@@ -6,7 +6,8 @@
   ``TrainState.model_state``);
 * ``loss_fn(params, model_state, batch, *, rng, train) -> (loss,
   metrics, new_model_state)``: ``params`` in the compute dtype, ``rng``
-  the step's ``core/rng`` key (dropout), ``batch`` tensors on the device;
+  the step's random input, a staged ``core/rng.StepNoise`` (dropout and
+  router jitter), ``batch`` tensors on the device;
 * ``make_optimizer(config) -> GradientTransformation``;
 * ``eval_fn(params, model_state, batch) -> metrics`` with an optional
   ``weight`` entry that weights the mean (padded-batch masking).

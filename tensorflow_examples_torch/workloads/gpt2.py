@@ -15,6 +15,11 @@ top-``moe_top_k`` MoE (``models/transformer.py``): the loss is then
 dropped fraction), as the reference's. ``moe_impl`` "" takes the device's
 default dispatch: ``grouped`` (the grouped-matmul kernels) on the card,
 ``scatter`` on the CPU.
+
+``remat_policy`` (with ``remat``) picks what a recomputed block saves
+(``models/transformer.py``); ``pretrained`` names a local HF
+``GPT2LMHeadModel`` directory whose weights replace the random init
+(``models/hf_import.py``), as the reference's.
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ import dataclasses
 import logging
 import os
 
+import numpy as np
 import torch
 
 from tensorflow_examples_torch.data.sources import load_lm_tokens
-from tensorflow_examples_torch.models import transformer
+from tensorflow_examples_torch.models import convert, hf_import, transformer
 from tensorflow_examples_torch.ops.cross_entropy import cross_entropy_per_example
 from tensorflow_examples_torch.ops.losses import weighted_mean
 from tensorflow_examples_torch.train import optimizers
@@ -43,7 +49,9 @@ class Gpt2Config(TrainConfig):
     d_model: int = 768
     dropout: float = 0.1
     attention: str = "flash"  # flash | xla
+    remat_policy: str = "none"  # none | dots | dots_no_batch: what a --remat block saves
     fused_ce: bool = True  # the fused cross-entropy kernels (False: plain f32 reference)
+    pretrained: str = ""  # local HF GPT2LMHeadModel directory to start from
     # Mixture-of-Experts: 0 = dense GPT-2.
     moe_experts: int = 0
     moe_every: int = 2
@@ -63,10 +71,15 @@ class Gpt2Config(TrainConfig):
 
 
 def model_config(cfg: Gpt2Config) -> transformer.TransformerConfig:
+    # The enum fails fast whatever the flags, as the reference's does.
+    if cfg.remat_policy not in ("none", "dots", "dots_no_batch"):
+        raise ValueError(f"remat_policy={cfg.remat_policy!r} not in "
+                         "('none', 'dots', 'dots_no_batch')")
     return transformer.TransformerConfig(
         vocab_size=cfg.vocab_size, max_len=cfg.seq_len, num_layers=cfg.num_layers,
         num_heads=cfg.num_heads, d_model=cfg.d_model, dropout=cfg.dropout,
-        attention=cfg.attention, remat=cfg.remat, moe_experts=cfg.moe_experts,
+        attention=cfg.attention, remat=cfg.remat, remat_policy=cfg.remat_policy,
+        moe_experts=cfg.moe_experts,
         moe_every=cfg.moe_every, moe_top_k=cfg.moe_top_k, moe_impl=cfg.moe_impl,
     )
 
@@ -78,6 +91,21 @@ def make_task(cfg: Gpt2Config, **model_overrides) -> Task:
     mcfg = dataclasses.replace(model_config(cfg), **model_overrides)
 
     def init_fn(seed: int, device: torch.device):
+        if cfg.pretrained:
+            try:
+                _, tree = hf_import.import_gpt2(cfg.pretrained, mcfg)
+            except (KeyError, ValueError) as e:  # a missing tensor, a reshape that cannot fit
+                raise ValueError(f"pretrained={cfg.pretrained!r} does not fit the configured "
+                                 f"model: {e}") from e
+            model = transformer.GPT2(mcfg, device="meta")
+            params = {k.replace("/", "."): v for k, v in convert.flatten_tree(tree).items()}
+            for k, p in model.named_parameters():
+                if k not in params or tuple(params[k].shape) != tuple(p.shape):
+                    raise ValueError(f"pretrained={cfg.pretrained!r}: {k} is "
+                                     f"{getattr(params.get(k), 'shape', 'missing')}, the "
+                                     f"model's is {tuple(p.shape)}")
+            return {"params": {k: torch.as_tensor(np.array(params[k], np.float32)).to(device)
+                               for k, _ in model.named_parameters()}}
         model = transformer.GPT2(mcfg, seed=seed, device=device)
         return {"params": {k: p.detach() for k, p in model.named_parameters()}}
 
@@ -85,7 +113,7 @@ def make_task(cfg: Gpt2Config, **model_overrides) -> Task:
         inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
         logits, moe_aux, moe_drop = transformer.forward(
             mcfg, transformer.ParamView(params), inputs, train=train,
-            dropout_key=rng if train else None, moe_stats=True)
+            noise=rng if train else None, moe_stats=True)
         nll = cross_entropy_per_example(logits.reshape(-1, logits.shape[-1]),
                                         labels.reshape(-1), fused=cfg.fused_ce)
         return nll.reshape(labels.shape), moe_aux, moe_drop

@@ -20,6 +20,8 @@ segmented sum (``group_row_sum``) 1e-4 of the largest value (f32), plus
 one bf16 rounding of each value (bf16).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -789,7 +791,10 @@ def test_replayed_rungs_equal_eager_steps(dev, name):
 
 def test_graph_launch_tally_equals_the_profiler_count(dev):
     """The paged kernel's launches counted from graph replays equal the
-    kernels a profiler window sees in those replays."""
+    kernels a profiler window sees in those replays. The window waits
+    50 ms before the first replay: the profiler drops kernels timestamped
+    before its trace starts, and the card's timestamps can read a few ms
+    earlier than the host's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -802,6 +807,7 @@ def test_graph_launch_tally_equals_the_profiler_count(dev):
     before = counter.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         for _ in range(5):
             tok = engine.decode([(slot, tok, 0, 0.0, 0)])[slot]
         torch.cuda.synchronize()
@@ -810,3 +816,98 @@ def test_graph_launch_tally_equals_the_profiler_count(dev):
     assert counter.launches - before == 5 * engine.model_cfg.num_layers
     assert seen == counter.launches - before
     engine.pool.free(slot)
+
+
+# ------------------------------------------------- k train steps as one graph
+
+
+def _train_cfg(**kw):
+    from tensorflow_examples_torch.workloads import gpt2
+
+    base = dict(vocab_size=96, seq_len=64, num_layers=2, num_heads=2, d_model=64,
+                global_batch_size=4, train_steps=8, warmup_steps=2, learning_rate=3e-3,
+                log_every=2, eval_every=0, checkpoint_every=0, telemetry_sinks="",
+                precision="bf16", dropout=0.1)
+    base.update(kw)
+    return gpt2.Gpt2Config(**base)
+
+
+def _fit(cfg, steps, workdir=""):
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    cfg = cfg.replace(workdir=workdir)
+    ds, _ = gpt2.datasets(cfg)
+    trainer = Trainer(gpt2.make_task(cfg), cfg)
+    trainer.fit(lambda s: train_iterator(ds, cfg.global_batch_size, seed=0, start_step=s),
+                num_steps=steps)
+    return trainer
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_graph_of_two_steps_equals_two_eager_steps(dev, moe):
+    """steps_per_launch=2 on the card: one CUDA graph of 2 steps, replayed,
+    gives the eager steps' losses and parameters bit for bit, dropout and
+    (MoE) router jitter included: the masks and the jitter are the eager
+    steps' own, different at every step."""
+    kw = dict(moe_experts=4, moe_top_k=2, moe_impl="grouped") if moe else {}
+    eager = _fit(_train_cfg(**kw), 8)
+    graph = _fit(_train_cfg(steps_per_launch=2, **kw), 8)
+    assert graph.bundled_step(2).captured == 1
+    assert [h["loss"] for h in graph.history] == [h["loss"] for h in eager.history]
+    for name, p in eager.state.params.items():
+        assert torch.equal(p, graph.state.params[name]), name
+
+
+def test_graph_masks_differ_across_replays(dev):
+    """The graph's generators of one launch are seeded per step: each step
+    draws another mask, and a replay at another step draws other masks."""
+    from tensorflow_examples_torch.core import rng
+
+    trainer = _fit(_train_cfg(steps_per_launch=2), 4)
+    noises = trainer.bundled_step(2)._noises
+    draws = []
+    for step in (4, 6):
+        for i, noise in enumerate(noises):
+            draws.append(noise.stage(trainer.step_key(step + i)).dropout_uniform(1, (16,), dev))
+    assert len({d.cpu().numpy().tobytes() for d in draws}) == 4
+    eager = rng.StepNoise(trainer.step_key(4)).dropout_uniform(1, (16,), dev)
+    assert torch.equal(draws[0], eager)
+
+
+def test_rollback_refreshes_the_graph_state(dev):
+    """A state that is not the graph's own (a restored checkpoint, a
+    rollback) is copied into its static buffers before the next replay:
+    a trainer at step 8 handed a step-4 state trains on from step 4 as
+    the uninterrupted run does."""
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.workloads import gpt2
+
+    cfg = _train_cfg(steps_per_launch=2)
+    whole = _fit(cfg, 8)
+    trainer = _fit(cfg, 8)
+    trainer.state = _fit(cfg.replace(steps_per_launch=1), 4).state  # foreign, step 4
+    ds, _ = gpt2.datasets(cfg)
+    trainer.fit(lambda s: train_iterator(ds, 4, seed=0, start_step=s), num_steps=8)
+    assert trainer.state.step == 8 and trainer.bundled_step(2).captured == 1
+    for name, p in whole.state.params.items():
+        assert torch.equal(p, trainer.state.params[name]), name
+
+
+def test_prefetched_batches_equal_host_batches(dev):
+    """Pinned staging and the side-stream copy deliver the host batches
+    unchanged, bundles included."""
+    from tensorflow_examples_torch.data.prefetch import bundle_batches, device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [{"tokens": rng.integers(0, 1000, (4, 65)).astype(np.int32),
+             "scale": rng.standard_normal(4).astype(np.float32)} for _ in range(8)]
+    for k in (1, 2):
+        src = iter(host) if k == 1 else bundle_batches(iter(host), k)
+        got = list(device_prefetch(src, dev, depth=3))
+        want = host if k == 1 else list(bundle_batches(iter(host), k))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert all(g[key].is_cuda and np.array_equal(g[key].cpu().numpy(), w[key])
+                       for key in w)

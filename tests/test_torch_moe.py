@@ -307,7 +307,9 @@ def test_moe_ffn_matches_jax(impl, top_k, capacity_factor, key):
     (_, (j_out, j_aux, j_drop)), j_grads = jax.value_and_grad(
         jax_loss, argnums=(0, 1, 2, 3, 4, 5), has_aux=True)(*map(jnp.asarray, args))
     leaves = [t(a).requires_grad_() for a in args]
-    out, aux, drop = moe.moe_ffn(*leaves, rng=None if key is None else np.asarray(jkey), **kw)
+    jitter = None if key is None else (lambda shape, lo, hi, device: torch.from_numpy(
+        rng.uniform(np.asarray(jkey), shape, lo, hi)).to(device))
+    out, aux, drop = moe.moe_ffn(*leaves, rng=jitter, **kw)
     (torch.sum(out ** 2) + 0.01 * aux).backward()
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(float(aux.detach()), float(j_aux), rtol=1e-5)
@@ -425,7 +427,7 @@ def test_moe_logits_match_flax_with_router_jitter(moe_params, impl):
         mutable=["intermediates"])
     ours, aux, drop = transformer.forward(
         gpt2.model_config(cfg), transformer.ParamView(torch_params(moe_params)), t(tokens),
-        train=True, dropout_key=np.asarray(key), moe_stats=True)
+        train=True, noise=rng.StepNoise(np.asarray(key)), moe_stats=True)
     np.testing.assert_allclose(ours.detach().numpy(), np.asarray(theirs), atol=1e-5, rtol=1e-5)
     sown = state["intermediates"]["h_1"]["moe"]
     np.testing.assert_allclose(float(aux), float(sown["moe_aux"][0]), rtol=1e-6)
@@ -442,7 +444,8 @@ def test_moe_jitter_changes_routing_and_only_at_train(moe_params):
     plain = transformer.forward(mcfg, params, tokens)
     torch.testing.assert_close(transformer.forward(mcfg, params, tokens, train=True), plain,
                                rtol=0, atol=0)
-    jittered = transformer.forward(mcfg, params, tokens, train=True, dropout_key=rng.PRNGKey(0))
+    jittered = transformer.forward(mcfg, params, tokens, train=True,
+                                   noise=rng.StepNoise(rng.PRNGKey(0)))
     assert not torch.equal(jittered, plain)
 
 
@@ -457,7 +460,8 @@ def test_moe_step_loss_aux_and_every_grad_match_jax(moe_params, impl):
         has_aux=True)(jax.tree.map(jnp.asarray, moe_params))
     leaves = torch_params(moe_params, requires_grad=True)
     loss, metrics, _ = gpt2.make_task(cfg).loss_fn(leaves, {}, {"tokens": t(tokens)},
-                                                   rng=rng.PRNGKey(2), train=True)
+                                                   rng=rng.StepNoise(rng.PRNGKey(2)),
+                                                   train=True)
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-6)
     np.testing.assert_allclose(float(metrics["moe_aux"].detach()), float(j_metrics["moe_aux"]),

@@ -3,9 +3,10 @@
 
 Everything runs on the CPU on a one-layer GPT-2 with dropout on, so a
 bitwise resume needs the data order and the dropout keys to be functions
-of the step. Faults are injected by the test's own data: a SIGTERM sent
-to this process while a batch is fetched, and NaN losses through a
-``scale`` entry that the test's task multiplies into the loss. Every
+of the step. Faults are injected by the port's fault plan (a SIGTERM
+right before a step, ``utils/faults.py``) and by the test's own data:
+NaN losses through a ``scale`` entry that the test's task multiplies
+into the loss. Every
 telemetry line the port writes must pass the JAX package's
 ``telemetry.schema.validate_line`` as well as the port's own.
 """
@@ -29,6 +30,7 @@ from tensorflow_examples_torch.train import eval as eval_cli
 from tensorflow_examples_torch.train.checkpoint import STATE_NAME, CheckpointManager
 from tensorflow_examples_torch.train.loop import Trainer
 from tensorflow_examples_torch.train.task import Task
+from tensorflow_examples_torch.utils import faults
 from tensorflow_examples_torch.workloads import gpt2
 
 
@@ -52,17 +54,27 @@ def tiny_cfg(**kw):
 _DS = gpt2.datasets(tiny_cfg())[0]
 
 
+@pytest.fixture(autouse=True)
+def _no_fault_plan():
+    yield
+    faults.clear()
+
+
 def data_fn(sigterm_at=None, nan_at=()):
     """A ``start -> iterator`` of the tiny run's batches, each with a
     ``scale`` of 1; NaN at the step indices of ``nan_at`` (each fires
     once, so a replay after a rollback is clean); a SIGTERM to this
-    process while the batch of step ``sigterm_at`` is fetched."""
+    process right before step ``sigterm_at`` runs (the fault plan's
+    ``sigterm@N``: the loop prefetches batches ahead, so a signal sent
+    from the iterator would land steps early)."""
     poison = set(nan_at)
+    if sigterm_at is None:
+        faults.clear()
+    else:
+        faults.install(f"sigterm@{sigterm_at}")
 
     def make(start):
         for step, batch in enumerate(train_iterator(_DS, 8, seed=3, start_step=start), start):
-            if step == sigterm_at:
-                os.kill(os.getpid(), signal.SIGTERM)
             scale = np.full(8, np.nan if step in poison else 1.0, np.float32)
             poison.discard(step)
             yield {**batch, "scale": scale}

@@ -424,12 +424,14 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_probe.py")]
     for root, _, files in os.walk(os.path.join(REPO, "tensorflow_examples_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
     rel = {os.path.relpath(p, REPO) for p in paths}
-    for new in ("serving/speculative.py", "telemetry/compilation.py", "core/precision.py"):
+    for new in ("serving/speculative.py", "telemetry/compilation.py", "core/precision.py",
+                "utils/faults.py", "utils/diagnostics.py", "data/prefetch.py",
+                "telemetry/profiling.py", "models/hf_import.py", "train/graphs.py"):
         assert f"tensorflow_examples_torch/{new}" in rel
     banned = ("jax", "flax", "optax", "absl", "tensorflow_examples_tpu")
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)
