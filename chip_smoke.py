@@ -137,6 +137,33 @@ non-zero:
    and counts one batch; (g) a 2-step profiler window's trace names
    ``flash_fwd_mma_kernel`` and the CE kernels; (h) ``debug_nans`` with
    ``nan@2`` raises ``FloatingPointError``;
+5b. replica: the serving replica process, GPT-2 124M at full width and
+   depth (seed 0, f32), three warmed stacks (engine, batcher, frontend)
+   on loopback ports, ``mixed``, ``prefill`` and ``decode``, paged with
+   block 16 and the prefix cache, driven over HTTP only, in three rounds
+   with the stacks rebuilt: f32 and int8 KV under ``attention=
+   "paged_flash"``, fp8 KV under ``"flash"`` (its decode on the gather
+   path). Prompts of 17, 100 and 700 tokens, greedy and sampled
+   (``temperature=0.8, top_k=40``): ``/prefill`` on the prefill stack,
+   its ``pages`` and ``first_token`` to ``/resume`` on the decode stack,
+   tokens equal to ``/generate`` on the mixed stack; each cold prefill
+   launched flash-decode once a layer, and each decode step on imported
+   pages the paged kernel once a layer (f32, int8). Also: f32 pages into
+   an int8 or fp8 stack and into a block-32 stack answer 400 with the
+   geometry message; the delta hand-off (two prompts sharing 256 tokens,
+   the second's prefill skipping what the decode stack's ``/health``
+   digest covers: 16 blocks off the wire, tokens still equal); SLO
+   classes (8 batch requests fill the mixed stack, 4 interactive ones
+   preempt, every batch stream equals its solo run); brownout (a burst on
+   a ``brownout=True``, ``brownout_queue_hi=4`` stack raises the level,
+   batch gets 503 ``shed`` while interactive gets 200, the level clears);
+   ``post_warmup_recompiles`` 0 on every stack; and the serving CLI as a
+   process (2 layers at full width, ``--stats_every 0.5``): SIGTERM with
+   two requests in flight, both 200, exit 0, schema-14 lines in
+   ``serving.jsonl``. Timing lines, not claims: the 700-token prompt's
+   export + encode and decode + import ms, payload bytes a prompt token
+   for f32, int8 and fp8, and the hand-off's TTFT against the mixed
+   stack's;
 6. the ``{"group_row_sum": {...}}`` line (not the port of a TPU kernel),
    the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
@@ -145,6 +172,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import gc
 import json
 import os
 import re
@@ -152,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -2313,6 +2342,448 @@ def phase_serving(torch, model, model_cfg, counters, smi: str) -> list[dict]:
     return summaries
 
 
+# ---------------------------------------------------------- phase 5b
+
+
+REPLICA_LENGTHS = (17, 100, 700)     # hand-off prompts, each greedy and sampled
+REPLICA_NEW = 16                     # tokens a hand-off request generates
+REPLICA_SAMPLING = (("greedy", {}), ("sampled", {"temperature": 0.8, "top_k": 40}))
+# The KV dtypes of the hand-off rounds and their attention: the fused
+# paged kernel dequantizes int8 in the kernel; fp8 KV decodes through the
+# gather path (the engine refuses paged_flash with fp8), its prefill still
+# through flash-decode.
+REPLICA_ROUNDS = (("f32", dict(attention="paged_flash")),
+                  ("int8", dict(attention="paged_flash", kv_dtype="int8")),
+                  ("fp8", dict(attention="flash", kv_dtype="fp8")))
+REPLICA_BASE = dict(max_slots=8, kv_block_size=16, prefix_cache=True)
+SHARED_PREFIX = 256                  # the delta hand-off's shared prompt prefix
+
+
+def http_json(url: str, body=None, timeout: float = 600.0) -> tuple[int, dict, float]:
+    """(status, reply, wall seconds) of a GET (``body`` None) or a JSON
+    POST; an HTTP error status is a result, not an exception."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, json.loads(raw or b"{}"), time.perf_counter() - t0
+
+
+class ReplicaStack:
+    """One port replica in this process: engine (warmed unless asked not
+    to), batcher and frontend on a loopback port."""
+
+    def __init__(self, model_cfg, model, name: str, *, warm: bool = True, **serve_kw):
+        from tensorflow_examples_torch.serving.batcher import ContinuousBatcher
+        from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
+        from tensorflow_examples_torch.serving.frontend import ServingFrontend
+        from tensorflow_examples_torch.telemetry.registry import MetricsRegistry
+
+        self.name = name
+        self.engine = InferenceEngine(model_cfg, model, cfg=ServeConfig(**serve_kw),
+                                      registry=MetricsRegistry())
+        self.warmup_s = None
+        if warm:
+            t0 = time.perf_counter()
+            counts = self.engine.warmup()
+            self.warmup_s = time.perf_counter() - t0
+            if sum(counts.values()) != self.engine.expected_compiles():
+                fail(f"replica[{name}]: warmup ran {counts}")
+        self.batcher = ContinuousBatcher(self.engine).start()
+        self.frontend = ServingFrontend(self.batcher).start()
+
+    def post(self, path: str, body: dict):
+        return http_json(self.frontend.url(path), body)
+
+    def get(self, path: str) -> dict:
+        status, reply, _ = http_json(self.frontend.url(path))
+        if status != 200:
+            fail(f"replica[{self.name}]: GET {path} answered {status}: {reply}")
+        return reply
+
+    def counter(self, name: str) -> int:
+        return int(self.engine.registry.counter_values().get(name, 0))
+
+    def close(self) -> None:
+        self.frontend.close()
+        self.batcher.close(drain=False)
+
+
+def expect(result, want: int, what: str) -> dict:
+    """The reply of ``result`` (an :func:`http_json` triple); fails unless
+    its status is ``want``."""
+    status, reply, _ = result
+    if status != want:
+        fail(f"replica: {what} answered {status}, expected {want}: {str(reply)[:300]}")
+    return reply
+
+
+def page_bytes(pages: dict) -> int:
+    """The payload's array bytes before base64."""
+    total = 0
+    for spec in pages["arrays"].values():
+        item = {"float32": 4, "bfloat16": 2, "float16": 2}.get(spec["dtype"], 1)
+        total += item * int(np.prod(spec["shape"]))
+    return total
+
+
+def handoff_round(torch, model, model_cfg, counters, smi, label, kw, rng, saved) -> dict:
+    """One KV dtype's round: mixed, prefill and decode stacks; every
+    prompt length greedy and sampled, the hand-off against the mixed
+    stack's stream; which kernel each leg launched; the 700-token
+    prompt's export and import times and payload bytes. The f32 round
+    also runs the delta hand-off and keeps a payload for the geometry
+    checks of later rounds."""
+    layers = model_cfg.num_layers
+    stacks = {role: ReplicaStack(model_cfg, model, f"{label}/{role}", role=role,
+                                 **REPLICA_BASE, **kw)
+              for role in ("mixed", "prefill", "decode")}
+    paged_kernel = kw["attention"] == "paged_flash"
+    out = {"warmup_s": {r: s.warmup_s for r, s in stacks.items()}, "cases": []}
+    try:
+        for n in REPLICA_LENGTHS:
+            for mode, sampling in REPLICA_SAMPLING:
+                prompt = [int(t) for t in rng.integers(0, model_cfg.vocab_size, n)]
+                body = {"prompt": prompt, "max_new_tokens": REPLICA_NEW,
+                        "seed": int(rng.integers(0, 1000)), **sampling}
+                mixed = expect(stacks["mixed"].post("/generate", body), 200, "mixed /generate")
+                flash0 = counters["flash_decode"].launches
+                result = stacks["prefill"].post("/prefill", body)
+                pre, pre_wall = expect(result, 200, f"{label} /prefill"), result[2]
+                flash_pre = counters["flash_decode"].launches - flash0
+                if flash_pre < layers:
+                    fail(f"replica[{label}]: the prefill stack's cold {n}-token prefill launched "
+                         f"flash_decode {flash_pre} times, fewer than once a layer ({layers})")
+                steps0 = stacks["decode"].counter("serving/decode_steps")
+                paged0 = counters["paged_decode"].launches
+                flash0 = counters["flash_decode"].launches
+                result = stacks["decode"].post(
+                    "/resume", {**body, "pages": pre["pages"], "first_token": pre["first_token"]})
+                res, res_wall = expect(result, 200, f"{label} /resume"), result[2]
+                steps = stacks["decode"].counter("serving/decode_steps") - steps0
+                paged = counters["paged_decode"].launches - paged0
+                if counters["flash_decode"].launches != flash0:
+                    fail(f"replica[{label}]: the decode stack ran a prefill on a resume")
+                if paged_kernel and paged < steps * layers:
+                    fail(f"replica[{label}]: {paged} paged_decode launches for {steps} decode "
+                         f"steps of {layers} layers on imported pages")
+                if res["tokens"] != mixed["tokens"]:
+                    fail(f"replica[{label}] {n} tokens {mode}: hand-off stream {res['tokens']} "
+                         f"!= the mixed stack's {mixed['tokens']}")
+                case = {"n": n, "mode": mode, "flash_decode_prefill": flash_pre,
+                        "decode_steps": steps, "paged_decode": paged,
+                        "mixed_ttft_s": mixed["ttft_s"],
+                        "handoff_ttft_s": pre["total_s"] + res["ttft_s"],
+                        "handoff_ttft_wall_s": (pre_wall + res_wall
+                                                - (res["total_s"] - res["ttft_s"])),
+                        "payload_bytes": page_bytes(pre["pages"])}
+                out["cases"].append(case)
+                if label == "f32" and n == REPLICA_LENGTHS[0] and mode == "greedy":
+                    saved["f32_pages"] = (body, pre)
+        if label != "f32":
+            body, pre = saved["f32_pages"]
+            status, reply, _ = stacks["decode"].post(
+                "/resume", {**body, "pages": pre["pages"], "first_token": pre["first_token"]})
+            if status != 400 or "pages geometry mismatch: kv_bits=32" not in reply.get("error", ""):
+                fail(f"replica[{label}]: f32 pages into a {label} stack answered {status} {reply}")
+            out["kv_dtype_mismatch"] = reply["error"]
+        out["timing_700"] = handoff_pieces(torch, stacks, model_cfg, label, rng, smi)
+        log(f"replica[{label}] cases: {json.dumps(out['cases'])}")
+        big = [c for c in out["cases"] if c["n"] == REPLICA_LENGTHS[-1]]
+        log(f"replica[{label}] TTFT, 700-token prompts (replica-measured): hand-off "
+            f"{[round(c['handoff_ttft_s'], 6) for c in big]} s (prefill total + resume ttft; "
+            f"client wall {[round(c['handoff_ttft_wall_s'], 6) for c in big]}) vs mixed "
+            f"{[round(c['mixed_ttft_s'], 6) for c in big]} s; {smi}")
+        if label == "f32":
+            out["delta"] = delta_handoff(stacks, model_cfg, rng)
+            other = ReplicaStack(model_cfg, model, "f32/block32", warm=False, max_slots=2,
+                                 kv_block_size=32, prefill_bucket_floor=32,
+                                 attention="paged_flash")
+            try:
+                body, pre = saved["f32_pages"]
+                status, reply, _ = other.post(
+                    "/resume", {**body, "pages": pre["pages"], "first_token": pre["first_token"]})
+            finally:
+                other.close()
+            if status != 400 or reply.get("error") != ("pages geometry mismatch: block_size=16 "
+                                                       "but this replica serves block_size=32"):
+                fail(f"replica: block-16 pages into a block-32 stack answered {status} {reply}")
+            out["block_size_mismatch"] = reply["error"]
+            out["slo"] = slo_preemption(stacks["mixed"], model_cfg, rng)
+        for role, stack in stacks.items():
+            recompiles = stack.get("/health")["post_warmup_recompiles"]
+            if recompiles != 0:
+                fail(f"replica[{label}/{role}]: {recompiles} recompiles after warmup")
+    finally:
+        for stack in stacks.values():
+            stack.close()
+        del stacks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def handoff_pieces(torch, stacks, model_cfg, label, rng, smi) -> dict:
+    """A 700-token prompt's hand-off in pieces, in process while the
+    stacks are idle: export (device gather, host copy, base64), the JSON
+    text, and decode + import (the in-place block writes); and the
+    payload's bytes."""
+    prompt = [int(t) for t in rng.integers(0, model_cfg.vocab_size, REPLICA_LENGTHS[-1])]
+    pre_eng, dec_eng = stacks["prefill"].engine, stacks["decode"].engine
+    slot = pre_eng.pool.alloc()
+    pre_eng.prefill(slot, prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pages = pre_eng.export_kv_pages(slot, prompt)
+    t1 = time.perf_counter()
+    wire = json.dumps(pages)
+    t2 = time.perf_counter()
+    pre_eng.pool.free(slot)
+    slot = dec_eng.pool.alloc()
+    t3 = time.perf_counter()
+    dec_eng.import_kv_pages(slot, json.loads(wire), prompt)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    dec_eng.pool.free(slot)
+    raw = page_bytes(pages)
+    out = {"export_encode_ms": (t1 - t0) * 1e3, "json_dumps_ms": (t2 - t1) * 1e3,
+           "decode_import_ms": (t4 - t3) * 1e3, "payload_bytes": raw,
+           "bytes_per_prompt_token": raw / len(prompt), "wire_bytes": len(wire), "card": smi}
+    log(f"replica[{label}] timing, 700-token prompt: export+encode {out['export_encode_ms']:.3f} "
+        f"ms, json.dumps {out['json_dumps_ms']:.3f} ms, decode+import (json.loads included) "
+        f"{out['decode_import_ms']:.3f} ms; payload {raw} B before base64 = "
+        f"{raw / len(prompt):.1f} B a prompt token, {len(wire)} B on the wire; {smi}")
+    return out
+
+
+def delta_handoff(stacks, model_cfg, rng) -> dict:
+    """Two prompts sharing a 256-token prefix: the second's prefill skips
+    what the decode stack's /health digest covers, the payload starts at
+    a later block and the stream still equals the mixed stack's."""
+    from tensorflow_examples_torch.serving import scheduler
+
+    prefix = [int(t) for t in rng.integers(0, model_cfg.vocab_size, SHARED_PREFIX)]
+    out = {}
+    for i, tail_len in enumerate((20, 37)):
+        prompt = prefix + [int(t) for t in rng.integers(0, model_cfg.vocab_size, tail_len)]
+        body = {"prompt": prompt, "max_new_tokens": REPLICA_NEW, "seed": 3 + i,
+                "temperature": 0.8, "top_k": 40}
+        health = stacks["decode"].get("/health")
+        keys = scheduler.prompt_chain_keys(prompt, health["prefix_block_size"])
+        skip = scheduler.affinity_blocks(keys, frozenset(health["prefix_digest"])) \
+            * health["prefix_block_size"]
+        mixed = expect(stacks["mixed"].post("/generate", body), 200, "delta /generate")
+        pre = expect(stacks["prefill"].post("/prefill", {**body, "skip_tokens": skip}),
+                     200, "delta /prefill")
+        res = expect(stacks["decode"].post("/resume", {**body, "pages": pre["pages"],
+                                                       "first_token": pre["first_token"]}),
+                     200, "delta /resume")
+        start = pre["pages"].get("start_block", 0)
+        if res["tokens"] != mixed["tokens"]:
+            fail(f"replica delta #{i}: hand-off {res['tokens']} != mixed {mixed['tokens']}")
+        if i == 1 and not (skip == SHARED_PREFIX and start == SHARED_PREFIX // 16):
+            fail(f"replica delta: skip {skip}, start_block {start}; expected the shared "
+                 f"{SHARED_PREFIX}-token prefix skipped")
+        out[f"request_{i}"] = {"skip_tokens": skip, "start_block": start,
+                               "blocks_shipped": pre["pages"]["arrays"]["k"]["shape"][1],
+                               "payload_bytes": page_bytes(pre["pages"])}
+    log(f"replica delta hand-off: {json.dumps(out)}")
+    return out
+
+
+def slo_preemption(stack, model_cfg, rng) -> dict:
+    """Fill the slots with batch requests, then send interactive ones:
+    at least one batch request is preempted, and every batch stream equals
+    the one it gets when served alone."""
+    slots = REPLICA_BASE["max_slots"]
+    batch = [{"prompt": [int(t) for t in rng.integers(0, model_cfg.vocab_size, 30 + i)],
+              "max_new_tokens": 200, "seed": i, "slo": "batch",
+              **({"temperature": 0.8, "top_k": 40} if i % 2 else {})} for i in range(slots)]
+    inter = [{"prompt": [int(t) for t in rng.integers(0, model_cfg.vocab_size, 12)],
+              "max_new_tokens": 8, "seed": 100 + i} for i in range(slots // 2)]
+    before = stack.get("/window")["serving"]["preempted_batch"]
+    with concurrent.futures.ThreadPoolExecutor(len(batch) + len(inter)) as pool:
+        futs = [pool.submit(stack.post, "/generate", b) for b in batch]
+        deadline = time.monotonic() + 60
+        while stack.get("/health")["active_requests"] < slots:
+            if time.monotonic() > deadline or all(f.done() for f in futs):
+                fail("replica slo: the batch requests never filled the slots")
+            time.sleep(0.002)
+        ifuts = [pool.submit(stack.post, "/generate", b) for b in inter]
+        replies = [f.result() for f in futs + ifuts]
+    for result in replies:
+        expect(result, 200, "slo /generate")
+    preempted = stack.get("/window")["serving"]["preempted_batch"] - before
+    if preempted < 1:
+        fail("replica slo: no batch request was preempted for interactive traffic")
+    for body, (_, reply, _) in zip(batch, replies):
+        alone = expect(stack.post("/generate", body), 200, "slo solo /generate")
+        if alone["tokens"] != reply["tokens"]:
+            fail(f"replica slo: a batch stream {reply['tokens'][:8]}... differs from its "
+                 f"solo run {alone['tokens'][:8]}...")
+    out = {"preempted_batch": preempted,
+           "interactive_e2e_max_s": max(r[1]["total_s"] for r in replies[slots:]),
+           "batch_e2e_min_s": min(r[1]["total_s"] for r in replies[:slots])}
+    log(f"replica slo: {json.dumps(out)}")
+    return out
+
+
+def brownout_check(model, model_cfg, rng, smi) -> dict:
+    """An open-loop burst on a brownout stack raises the level; batch is
+    shed with 503 while interactive gets 200; the level clears."""
+    stack = ReplicaStack(model_cfg, model, "brownout", attention="paged_flash", max_slots=8,
+                         kv_block_size=16, brownout=True, brownout_queue_hi=4,
+                         brownout_hold_s=2.0)
+    try:
+        burst = [{"prompt": [int(t) for t in rng.integers(0, model_cfg.vocab_size, 20)],
+                  "max_new_tokens": 32, "seed": i} for i in range(24)]
+        with concurrent.futures.ThreadPoolExecutor(len(burst) + 2) as pool:
+            futs = [pool.submit(stack.post, "/generate", b) for b in burst]
+            deadline = time.monotonic() + 30
+            while (level := stack.get("/health")["brownout_level"]) < 1:
+                if time.monotonic() > deadline or all(f.done() for f in futs):
+                    fail("replica brownout: the burst never raised the brownout level")
+                time.sleep(0.002)
+            shed = [stack.post("/generate", {**burst[0], "slo": "batch"}) for _ in range(2)]
+            interactive = stack.post("/generate", {**burst[1], "max_new_tokens": 4})
+            replies = [f.result() for f in futs]
+        for status, reply, _ in shed:
+            if status != 503 or not reply.get("shed"):
+                fail(f"replica brownout: a batch request at level >= 1 answered {status} {reply}")
+        expect(interactive, 200, "brownout interactive /generate")
+        for result in replies:
+            expect(result, 200, "brownout burst /generate")
+        t0 = time.monotonic()
+        while (health := stack.get("/health"))["brownout_level"] != 0:
+            if time.monotonic() - t0 > 60:
+                fail(f"replica brownout: level {health['brownout_level']} did not clear")
+            time.sleep(0.05)
+        line = stack.get("/window")["serving"]
+        out = {"level_seen": level, "max_level": max(line["brownout_level"], level),
+               "transitions": line["brownout_transitions"], "shed_batch": line["shed_batch"],
+               "shed_interactive": line["shed_interactive"],
+               "truncated_brownout": sum(r[1].get("truncated") == "brownout" for r in replies),
+               "clear_s": time.monotonic() - t0, "card": smi}
+        if out["shed_interactive"] or out["shed_batch"] < 2:
+            fail(f"replica brownout: shed counters {out}")
+    finally:
+        stack.close()
+    log(f"replica brownout: {json.dumps(out)}")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_cli_drain(here: str, model_cfg, rng, smi) -> dict:
+    """The serving CLI as a process on the card (2 layers at full width):
+    requests in flight at SIGTERM finish with 200, the process exits 0 and
+    its serving.jsonl holds schema-14 lines."""
+    import signal
+    import threading
+
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as stats_dir:
+        cmd = [sys.executable, "-m", "tensorflow_examples_torch.serve", "--num_layers", "2",
+               "--port", str(port), "--stats_every", "0.5", "--stats_dir", stats_dir,
+               "--kv_block_size", "16", "--attention", "paged_flash", "--max_slots", "4"]
+        log_path = os.path.join(stats_dir, "serve.log")
+        with open(log_path, "w") as log_file:
+            proc = subprocess.Popen(cmd, cwd=here, stdout=log_file, stderr=subprocess.STDOUT)
+        url = f"http://127.0.0.1:{port}"
+        try:
+            t0 = time.monotonic()
+            while True:
+                if proc.poll() is not None:
+                    fail(f"serve CLI exited {proc.returncode} before serving: "
+                         f"{open(log_path).read()[-2000:]}")
+                try:
+                    if http_json(url + "/health", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if time.monotonic() - t0 > 300:
+                    fail("serve CLI not healthy after 300 s")
+                time.sleep(0.2)
+            ready_s = time.monotonic() - t0
+            bodies = [{"prompt": [int(t) for t in rng.integers(0, model_cfg.vocab_size, 10)],
+                       "max_new_tokens": 1000, "seed": i} for i in range(2)]
+            replies: list = [None, None]
+
+            def run(i):
+                replies[i] = http_json(url + "/generate", bodies[i])
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            while http_json(url + "/health", timeout=5)[1].get("active_requests", 0) < 2:
+                if not any(t.is_alive() for t in threads):
+                    fail("serve CLI: the requests finished before both were in flight")
+                time.sleep(0.002)
+            recompiles = http_json(url + "/health", timeout=5)[1]["post_warmup_recompiles"]
+            proc.send_signal(signal.SIGTERM)
+            for t in threads:
+                t.join(timeout=120)
+            code = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if code != 0:
+            fail(f"serve CLI exited {code} after SIGTERM: {open(log_path).read()[-2000:]}")
+        for i, reply in enumerate(replies):
+            if reply is None or reply[0] != 200 or len(reply[1]["tokens"]) != 1000:
+                fail(f"serve CLI: in-flight request {i} at SIGTERM answered "
+                     f"{None if reply is None else (reply[0], str(reply[1])[:200])}")
+        with open(os.path.join(stats_dir, "serving.jsonl")) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+    good = [ln for ln in lines if ln.get("schema_version") == 14 and ln.get("kind") == "serving"]
+    if not good:
+        fail(f"serve CLI: serving.jsonl holds no schema-14 serving line ({len(lines)} lines)")
+    if recompiles != 0:
+        fail(f"serve CLI: {recompiles} recompiles after warmup")
+    out = {"ready_s": ready_s, "exit_code": code, "serving_lines": len(good),
+           "generated": [len(r[1]["tokens"]) for r in replies], "card": smi}
+    log(f"replica serve CLI drain: {json.dumps(out)}")
+    return out
+
+
+def phase_replica(torch, model, model_cfg, counters, smi: str, here: str) -> dict:
+    """The serving replica process: the prefill -> decode hand-off over
+    HTTP between port stacks in f32, int8 and fp8 KV against a mixed
+    stack, the delta hand-off, geometry refusals, SLO preemption,
+    brownout and the CLI's drain. Returns the launch counts of the
+    phase."""
+    rng = np.random.default_rng(21)
+    saved: dict = {}
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    rounds = {label: handoff_round(torch, model, model_cfg, counters, smi, label, kw, rng, saved)
+              for label, kw in REPLICA_ROUNDS}
+    brownout = brownout_check(model, model_cfg, rng, smi)
+    launches = {k: counters[k].launches for k in ("flash_decode", "paged_decode")}
+    if min(launches.values()) < 1:
+        fail(f"replica: a kernel of the path was launched no time: {launches}")
+    cli = serve_cli_drain(here, model_cfg, rng, smi)
+    summary = {"launches": launches, "wall_s": time.perf_counter() - t0,
+               "bytes_per_prompt_token": {k: r["timing_700"]["bytes_per_prompt_token"]
+                                          for k, r in rounds.items()},
+               "rounds": {k: {key: v for key, v in r.items() if key != "cases"}
+                          for k, r in rounds.items()},
+               "brownout": brownout, "cli": cli, "card": smi}
+    log(f"replica: {json.dumps(summary)}")
+    return summary
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2363,6 +2834,7 @@ def main() -> int:
     log(f"model: GPT-2 124M, {sum(p.numel() for p in model.parameters())} params, "
         f"random init seed 0, f32, built in {time.perf_counter() - t0:.3f} s")
     summaries = phase_serving(torch, model, model_cfg, counters, smi)
+    replica = phase_replica(torch, model, model_cfg, counters, smi, here)
 
     for name in FLASH_KERNELS:
         rows[name]["tensor_core_launches"] = training["launches"][f"{name}_tensor_core"]
@@ -2390,9 +2862,11 @@ def main() -> int:
     kernels = []
     for name, source, replaces, launches in (
         ("flash_decode", FLASH_SOURCE, "tensorflow_examples_tpu/ops/decode.py:78",
-         sum(s["launches"]["flash_decode"] for s in summaries)),
+         sum(s["launches"]["flash_decode"] for s in summaries)
+         + replica["launches"]["flash_decode"]),
         ("paged_decode", PAGED_SOURCE, "tensorflow_examples_tpu/ops/paged_decode.py:61",
-         sum(s["launches"]["paged_decode"] for s in summaries)),
+         sum(s["launches"]["paged_decode"] for s in summaries)
+         + replica["launches"]["paged_decode"]),
         ("flash_fwd", ATTN_SOURCE, "tensorflow_examples_tpu/ops/attention.py:82",
          training["launches"]["flash_fwd"]),
         ("flash_bwd_dkv", ATTN_SOURCE, "tensorflow_examples_tpu/ops/attention.py:199",

@@ -8,11 +8,12 @@ the training CLI's flags (the model's widths must be the run's),
 restores the params of the newest intact checkpoint under ``--workdir``
 and decodes through the KV cache (``models/transformer.generate``:
 flash-decode under ``--attention flash``, the plain reference under
-``xla``) with the key ``PRNGKey(--seed)``. ``--prompt`` is taken as
-bytes when the vocabulary has at most 256 entries; otherwise give
-comma-separated ``--prompt_ids`` (the BPE tokenizer is not ported yet).
-Prints the token ids, and the decoded bytes for a byte vocabulary.
-Runs on ``cuda`` unless ``--device cpu``.
+``xla``) with the key ``PRNGKey(--seed)``. ``--text`` (or ``--prompt``)
+goes through the tokenizer the serving CLI loads: the BPE of
+``--vocab_dir`` or ``--data_dir`` when it holds ``vocab.json``, else raw
+bytes for a byte vocabulary (``vocab_size <= 256``); otherwise give
+comma-separated ``--prompt_ids``. Prints the token ids, and the decoded
+text when there is a tokenizer. Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from tensorflow_examples_torch.core import rng
 from tensorflow_examples_torch.core.device import resolve_device
+from tensorflow_examples_torch.data.tokenizers import load_tokenizer
 from tensorflow_examples_torch.models import convert, transformer
 from tensorflow_examples_torch.train.checkpoint import CheckpointManager
 from tensorflow_examples_torch.train.cli import build_parser
@@ -60,24 +62,29 @@ def main(argv=None) -> int:
     parser.add_argument("--num_tokens", type=int, default=64, help="tokens to sample")
     parser.add_argument("--temperature", type=float, default=0.8, help="0 = greedy")
     parser.add_argument("--top_k", type=int, default=40, help="0 disables top-k filtering")
-    parser.add_argument("--prompt", default="The ", help="text prompt (byte vocabularies)")
+    parser.add_argument("--prompt", default="The ", help="text prompt (when --text is not given)")
+    parser.add_argument("--text", default=None, help="text prompt, through the tokenizer")
+    parser.add_argument("--vocab_dir", default="", help="dir with vocab.json + merges.txt")
     parser.add_argument("--prompt_ids", default="", help="comma-separated token ids")
     args = parser.parse_args(argv)
     cfg = gpt2.Gpt2Config(**{f: getattr(args, f) for f in gpt2.Gpt2Config.__dataclass_fields__})
     if not cfg.workdir:
         parser.error("--workdir is required for generate")
+    tokenizer = load_tokenizer(cfg.vocab_size, args.vocab_dir, cfg.data_dir)
+    text = args.text if args.text is not None else args.prompt
     if args.prompt_ids:
         ids = [int(t) for t in args.prompt_ids.split(",")]
-    elif cfg.vocab_size <= 256:
-        ids = list(args.prompt.encode())
+    elif tokenizer is not None:
+        ids = tokenizer.encode(text)
     else:
-        parser.error("--prompt needs a byte vocabulary (vocab_size <= 256); pass --prompt_ids")
+        parser.error("a text prompt needs a tokenizer (--vocab_dir, or a byte vocabulary "
+                     "vocab_size <= 256); pass --prompt_ids")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     toks, _ = generate_from_workdir(cfg, ids, num_tokens=args.num_tokens,
                                     temperature=args.temperature, top_k=args.top_k)
     print("token ids:", toks)
-    if cfg.vocab_size <= 256:
-        print(bytes(min(max(t, 0), 255) for t in toks).decode(errors="replace"))
+    if tokenizer is not None:
+        print(tokenizer.decode(toks))
     return 0
 
 

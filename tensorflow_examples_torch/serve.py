@@ -1,30 +1,46 @@
-"""Serve GPT-2 over HTTP with the PyTorch/CUDA port.
+"""Serve GPT-2 over HTTP with the PyTorch/CUDA port: one replica.
 
     python -m tensorflow_examples_torch.serve --init_seed 0 --port 8000 \\
-        --kv_block_size 16 --attention paged_flash
+        --kv_block_size 16 --attention paged_flash [--role prefill|decode]
 
 Weights come from ``--workdir`` (the params of the newest intact
 checkpoint a training run wrote there, ``train/checkpoint.py``), from
 ``--params_npz`` (the JAX param tree flattened with ``/``-joined keys,
 ``models/convert.py``) or, without either, a random init from
-``--init_seed``. The width flags must be the checkpoint's. The model defaults to GPT-2 124M. Runs on ``cuda``
-unless ``--device cpu``. Every ``ServeConfig`` field is a flag
-(``--weight_dtype int8|fp8``, ``--kv_dtype int8|fp8``,
-``--spec_decode_k``, ``--draft_ngram``, ``--prefill_chunk_tokens`` ...).
+``--init_seed``. The width flags must be the checkpoint's. The model
+defaults to GPT-2 124M. Runs on ``cuda`` unless ``--device cpu``. Every
+``ServeConfig`` field is a flag (``--role``, ``--weight_dtype int8|fp8``,
+``--kv_dtype int8|fp8``, ``--spec_decode_k``, ``--prefill_chunk_tokens``,
+``--brownout`` and its watermarks, ``--watchdog_secs`` ...).
+
 The engine warms every rung of its ladder before the first request (on
-the card, capturing each decode and verify rung's CUDA graph) and logs
-how many it expected; then it serves ``POST /generate``, ``GET /health``
-and ``GET /metrics`` until SIGINT or SIGTERM.
+the card, capturing each decode and verify rung's CUDA graph); then the
+replica serves ``POST /generate /classify /prefill /resume`` and
+``GET /health /metrics /window /series`` (``serving/frontend.py``).
+``--role prefill`` and ``--role decode`` replicas behind the reference's
+router (``tensorflow_examples_tpu/serving/router.py``, given their URLs)
+serve ``/generate`` as a ``/prefill`` -> ``/resume`` hand-off.
+
+Text in and out goes through the BPE of ``--vocab_dir`` (or
+``--data_dir``) when it holds ``vocab.json`` + ``merges.txt``, else raw
+bytes for a byte vocabulary (``vocab_size <= 256``); otherwise clients
+send token ids as ``prompt``. Every ``--stats_every`` seconds a
+``kind="serving"`` line is appended to ``serving.jsonl`` in
+``--stats_dir`` (default ``--workdir``) and the ``/series`` store takes a
+sample on the same tick. SIGTERM or SIGINT drains: new requests get 503,
+accepted ones finish, exit code 0; a second signal force-quits.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
-import signal
+import os
 import threading
 
+from tensorflow_examples_torch.data.tokenizers import load_tokenizer
 from tensorflow_examples_torch.generate import restore_model
 from tensorflow_examples_torch.models import convert, transformer
 from tensorflow_examples_torch.serving.batcher import ContinuousBatcher
@@ -33,12 +49,16 @@ from tensorflow_examples_torch.serving.engine import (
     InferenceEngine,
     ServeConfig,
 )
-from tensorflow_examples_torch.serving.frontend import ServingFrontend
-
+from tensorflow_examples_torch.serving.frontend import ServingFrontend, run_until_preempted
+from tensorflow_examples_torch.serving.scheduler import ROLES
+from tensorflow_examples_torch.train.resilience import PreemptionGuard
 
 # The model's widths; its training knobs (dropout, attention, remat) do not
 # apply to serving, whose attention is ServeConfig.attention.
 MODEL_FIELDS = ("vocab_size", "max_len", "num_layers", "num_heads", "d_model", "d_ff")
+# The CLI's own defaults where they differ from ServeConfig's (the
+# reference CLI's): a serving process watches its loop for hangs.
+CLI_DEFAULTS = {"watchdog_secs": 60.0}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,27 +73,57 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument(f"--{name}", type=int, default=getattr(model_defaults, name))
     serve_defaults = ServeConfig()
     for f in dataclasses.fields(ServeConfig):
-        default = getattr(serve_defaults, f.name)
+        default = CLI_DEFAULTS.get(f.name, getattr(serve_defaults, f.name))
         if f.type in ("bool", bool):
             p.add_argument(f"--{f.name}", type=lambda s: s.lower() in ("1", "true", "yes"),
                            default=default)
         elif f.name == "attention":
             p.add_argument("--attention", choices=ATTENTION_IMPLS, default=default)
+        elif f.name == "role":
+            p.add_argument("--role", choices=ROLES, default=default)
         elif f.name in ("weight_dtype", "kv_dtype"):
             p.add_argument(f"--{f.name}", choices=("", "int8", "fp8"), default=default)
         else:
             p.add_argument(f"--{f.name}", type=type(default), default=default)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--host", default="127.0.0.1", help="address to bind")
-    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--port", type=int, default=8000, help="HTTP port (0: any free port)")
+    p.add_argument("--vocab_dir", default="", help="dir with vocab.json + merges.txt")
+    p.add_argument("--data_dir", default="", help="corpus dir, searched for a vocab next")
+    p.add_argument("--stats_every", type=float, default=10.0,
+                   help="seconds between serving.jsonl lines (0 disables)")
+    p.add_argument("--stats_dir", default="",
+                   help="where serving.jsonl goes (default: --workdir)")
     return p
+
+
+def _stats_loop(batcher, frontend, path: str, every: float) -> None:
+    """One tick: a time-series sample and one serving line, appended."""
+    while not batcher._stop.wait(every):
+        frontend.series.sample()
+        with open(path, "a") as f:
+            f.write(json.dumps(batcher.stats_line()) + "\n")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # Installed first: a SIGTERM during the load and warm-up drains too.
+    guard = PreemptionGuard().install()
+    try:
+        frontend = _start(args)
+    except BaseException:
+        guard.uninstall()
+        raise
+    return run_until_preempted(frontend, guard=guard)
+
+
+def _start(args) -> ServingFrontend:
+    """Load, warm and start the replica: engine, batcher, frontend and
+    the stats tick."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    model_cfg = transformer.TransformerConfig(**{name: getattr(args, name) for name in MODEL_FIELDS})
-    serve_cfg = ServeConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(ServeConfig)})
+    model_cfg = transformer.TransformerConfig(**{n: getattr(args, n) for n in MODEL_FIELDS})
+    serve_cfg = ServeConfig(**{f.name: getattr(args, f.name)
+                               for f in dataclasses.fields(ServeConfig)})
     if args.workdir:
         params, step = restore_model(model_cfg, args.workdir, "cpu")
         logging.info("serving the checkpoint of step %d from %s", step, args.workdir)
@@ -86,16 +136,18 @@ def main(argv=None) -> int:
     logging.info("warm: %d of %d expected rungs (%s)", sum(counts.values()),
                  engine.expected_compiles(), ", ".join(sorted(counts)))
     batcher = ContinuousBatcher(engine).start()
-    frontend = ServingFrontend(batcher, port=args.port, bind_host=args.host).start()
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
-    logging.info("serving on %s (device %s, attention %s)", frontend.url(),
-                 engine.device, serve_cfg.attention)
-    stop.wait()
-    frontend.close()
-    batcher.close(drain=False)
-    return 0
+    frontend = ServingFrontend(batcher, port=args.port, bind_host=args.host,
+                               tokenizer=load_tokenizer(model_cfg.vocab_size, args.vocab_dir,
+                                                        args.data_dir)).start()
+    stats_dir = args.stats_dir or args.workdir
+    if args.stats_every > 0 and stats_dir:
+        os.makedirs(stats_dir, exist_ok=True)
+        threading.Thread(target=_stats_loop, name="serving-stats", daemon=True, args=(
+            batcher, frontend, os.path.join(stats_dir, "serving.jsonl"), args.stats_every,
+        )).start()
+    logging.info("serving on %s (device %s, role %s, attention %s)", frontend.url(),
+                 engine.device, serve_cfg.role, serve_cfg.attention)
+    return frontend
 
 
 if __name__ == "__main__":

@@ -32,6 +32,12 @@ the reference's:
 * **Weights** may be quantized at load (``weight_dtype`` int8/fp8,
   ``core/precision``): every matmul weight is read through
   ``materialize`` and every embedding table through ``take_rows``.
+* **The KV-page hand-off** (paged pool): a prefill-role replica exports
+  a finished prompt's blocks (:meth:`InferenceEngine.export_kv_pages`,
+  ``serving/scheduler.py``'s wire format, the reference's layout), and a
+  decode-role replica maps them into a slot
+  (:meth:`~InferenceEngine.import_kv_pages`) and decodes on, token for
+  token a mixed replica's. Pages cross between the two packages.
 
 **The warmed contract.** Every step the engine runs comes from a finite
 ladder of rungs (``serve_prefill_L*``, ``serve_decode_K*``,
@@ -99,6 +105,7 @@ from tensorflow_examples_torch.serving.speculative import accept_drafts
 from tensorflow_examples_torch.telemetry import registry as registry_mod
 from tensorflow_examples_torch.telemetry.compilation import CompilationSentinel
 from tensorflow_examples_torch.telemetry.spans import span as host_span
+from tensorflow_examples_torch.utils import faults as faults_mod
 
 log = logging.getLogger(__name__)
 
@@ -108,15 +115,16 @@ ATTENTION_IMPLS = ("xla", "flash", "paged_flash")
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Engine and batcher knobs: the reference's fields for one replica,
-    with its defaults (the fleet's, brownout's and the watchdog's come
-    with the replica process)."""
+    with its defaults."""
 
     max_slots: int = 8           # concurrent requests = decode batch
     prefill_bucket_floor: int = 16
     kv_bucket_floor: int = 64
     attention: str = "xla"       # xla (plain torch) | flash (flash-decode
-    #                              kernel for prefill) | paged_flash (fused
-    #                              paged-decode kernel; needs the paged pool)
+    #                              kernel for prefill) | paged_flash (the
+    #                              flash-decode kernel for prefill and the
+    #                              fused paged-decode kernel for decode;
+    #                              needs the paged pool)
     cache_dtype: str = ""        # "" -> the params' dtype; else a torch
     #                              dtype name ("float32", "bfloat16")
     weight_dtype: str = ""       # "" | "int8" | "fp8": weight-only
@@ -131,13 +139,30 @@ class ServeConfig:
     kv_blocks: int = 0           # physical blocks; 0 -> dense worst case
     kv_dtype: str = ""           # "" (cache_dtype) | "int8" | "fp8"
     prefix_cache: bool = True    # reuse immutable full prompt blocks
+    role: str = "mixed"          # mixed | prefill | decode: the fleet role
+    #                              published on /health. Advisory: every
+    #                              role still serves a full /generate;
+    #                              a prefill replica's fault schedule
+    #                              counts prefills, not decode steps
     prefill_chunk_tokens: int = 0  # > 0: a cold prompt tail longer than
     #                              this prefills in block-aligned chunks,
     #                              one a batcher iteration (paged pool with
     #                              prefix_cache; a multiple of kv_block_size)
     max_batch: int = 0           # admission cap; 0 -> max_slots
-    max_queue: int = 64          # bounded queue: beyond this, load-shed
+    max_queue: int = 64          # bounded queue per SLO class: beyond
+    #                              this, load-shed
     max_delay_s: float = 0.002   # idle coalescing window before first prefill
+    watchdog_secs: float = 0.0   # 0 disables the serve-loop watchdog
+    brownout: bool = False       # the degradation ladder (serving/
+    #                              overload.py): shed batch -> cap
+    #                              max_new_tokens -> no speculation ->
+    #                              shed interactive, with hysteresis
+    brownout_queue_hi: int = 0   # queue-depth high watermark; 0 -> 2 * max_slots
+    brownout_kv_hi: float = 0.92  # KV-occupancy high watermark
+    brownout_ttft_hi_s: float = 0.0  # recent TTFT p95 high watermark; 0 off
+    brownout_clear_frac: float = 0.5  # clear watermark = frac * hi
+    brownout_hold_s: float = 0.5  # min dwell a rung up, sustained clear a rung down
+    brownout_max_new_tokens: int = 8  # the level-2 generation cap
     request_timeout_s: float = 120.0
 
 
@@ -619,9 +644,15 @@ class InferenceEngine:
         self.cfg = cfg = cfg or ServeConfig()
         if cfg.attention not in ATTENTION_IMPLS:
             raise ValueError(f"ServeConfig.attention={cfg.attention!r} not in {ATTENTION_IMPLS}")
-        # Prefill always runs the full-prompt causal forward; the paged
-        # kernel exists only for the per-slot decode step.
-        self._prefill_attn = "flash" if cfg.attention == "flash" else "xla"
+        # Prefill runs the full-prompt causal forward, through the
+        # flash-decode kernel under both kernel routes (under
+        # "paged_flash" the reference's prefill is XLA; here the kernel
+        # takes it, so a prefill-role replica's pages come from the
+        # kernel); the paged kernel is the per-slot decode step's.
+        self._prefill_attn = "flash" if cfg.attention in ("flash", "paged_flash") else "xla"
+        # This stack's replica index in a fleet (0 standalone): the key
+        # the serve fault engine (utils/faults.py) targets.
+        self.replica_id = 0
         self.precision = precision
         if self.precision is None and cfg.weight_dtype:
             self.precision = precision_mod.PrecisionConfig.weight_only(
@@ -637,6 +668,8 @@ class InferenceEngine:
         if self.kv_dtype and not self.paged:
             raise ValueError("kv_dtype (quantized KV) requires the paged pool — "
                              "set kv_block_size")
+        if cfg.role not in scheduler.ROLES:
+            raise ValueError(f"role={cfg.role!r} not in ('mixed', 'prefill', 'decode')")
         if cfg.prefill_chunk_tokens < 0:
             raise ValueError(f"prefill_chunk_tokens={cfg.prefill_chunk_tokens} must be >= 0")
         if cfg.prefill_chunk_tokens:
@@ -877,6 +910,25 @@ class InferenceEngine:
 
     # ------------------------------------------------------ request ops
 
+    def _prefill_fault_tick(self, slot: int) -> None:
+        """The serve fault hook of a prefill-role replica, whose unit of
+        work is the prefill: its fault schedule counts prefills (a chaos
+        run can kill it mid hand-off). Other roles count decode steps."""
+        if self.cfg.role != "prefill":
+            return
+        feng = faults_mod.serve_active()
+        if feng is not None:
+            feng.decode_step(self.replica_id, [slot])
+
+    def _decode_fault_tick(self, entries) -> None:
+        """The serve fault hook of a decode or verify step, before any
+        device work: it may sleep (``slowrep``), raise a forced
+        ``BlockExhausted`` (``kvexhaust``) or kill the replica's transport
+        and raise ``InjectedCrash`` (``crash``)."""
+        feng = faults_mod.serve_active()
+        if feng is not None:
+            feng.decode_step(self.replica_id, [e[0] for e in entries])
+
     @torch.no_grad()
     def prefill(self, slot: int, prompt: Sequence[int], *, seed: int = 0,
                 temperature: float = 0.0, top_k: int = 0):
@@ -889,6 +941,7 @@ class InferenceEngine:
             raise ValueError("empty prompt")
         if n > self.model_cfg.max_len:
             raise ValueError(f"prompt length {n} exceeds max_len {self.model_cfg.max_len}")
+        self._prefill_fault_tick(slot)
         if self.paged:
             last = self._paged_prefill(slot, prompt)
         else:
@@ -950,6 +1003,7 @@ class InferenceEngine:
             return None
         if n > self.model_cfg.max_len:
             raise ValueError(f"prompt length {n} exceeds max_len {self.model_cfg.max_len}")
+        self._prefill_fault_tick(slot)
         ctx, _ = self.pool.claim_prompt_blocks(slot, prompt)
         if ctx:
             self.registry.counter("serving/prefix_reused_tokens").inc(ctx)
@@ -980,6 +1034,103 @@ class InferenceEngine:
         self.pool.insert_prefix(slot, prompt)
         self.registry.counter("serving/prefill_tokens").inc(n)
         return True, int(tok), last.cpu().numpy()
+
+    # ------------------------------------------------- KV page hand-off
+
+    def _page_geometry(self) -> dict:
+        return dict(block_size=self.cfg.kv_block_size, num_layers=self.model_cfg.num_layers,
+                    num_heads=self.model_cfg.num_heads, head_dim=self.model_cfg.head_dim,
+                    kv_bits=self.pool.kv_bits)
+
+    def _page_tensors(self) -> dict:
+        names = ("k", "v", "k_scale", "v_scale")
+        return dict(zip(names, self.pool.kv_state()))
+
+    @torch.no_grad()
+    def export_kv_pages(self, slot: int, prompt: Sequence[int], *, skip_tokens: int = 0) -> dict:
+        """The slot's finished prompt KV blocks as the prefill->decode
+        hand-off payload (``scheduler.encode_pages``, quantization scales
+        included), in the reference's layout ``[L, nb, H, BS, D]``, so a
+        JAX replica imports it too. The importer's decode continues from
+        the same cache, so the handed-off stream equals a mixed replica's.
+
+        ``skip_tokens`` is the delta hand-off: the importer already caches
+        that many leading prompt tokens, so the full blocks they cover
+        stay off the wire (``start_block``). Floored to a block multiple
+        and capped so the last (partial) block always ships."""
+        if not self.paged:
+            raise ValueError("KV page export requires the paged pool (set kv_block_size)")
+        if skip_tokens < 0:
+            raise ValueError(f"skip_tokens={skip_tokens} must be >= 0")
+        n = len(prompt)
+        bs = self.cfg.kv_block_size
+        nb = -(-n // bs)
+        skip = min(int(skip_tokens) // bs, (n - 1) // bs)
+        idx = self._t(self.pool.block_tables[slot, skip:nb].astype(np.int64))
+        arrays = {name: _take(t, (slice(None), idx)) for name, t in self._page_tensors().items()}
+        meta = dict(self._page_geometry(), length=n, start_block=skip)
+        self.registry.counter("serving/kv_pages_exported").inc(nb - skip)
+        if skip:
+            self.registry.counter("serving/kv_pages_delta_skipped").inc(skip)
+        return scheduler.encode_pages(meta, arrays)
+
+    @torch.no_grad()
+    def import_kv_pages(self, slot: int, payload, prompt: Sequence[int]) -> None:
+        """Map a hand-off payload into ``slot``: check its geometry and
+        dtypes against this pool (a mismatch is a ``ValueError``, 400
+        upstream, never a silently wrong cache), claim the prompt's blocks
+        (leading blocks this pool already caches are mapped, not written;
+        ``BlockExhausted`` comes before any write), write the rest in
+        place, set the slot's length and publish the prompt into the
+        local prefix cache. A delta payload whose skipped blocks this
+        pool's prefix cache does not cover is refused loudly."""
+        if not self.paged:
+            raise ValueError("KV page import requires the paged pool (set kv_block_size)")
+        meta, arrays = scheduler.decode_pages(payload)
+        for key, want in self._page_geometry().items():
+            if meta[key] != want:
+                raise ValueError(f"pages geometry mismatch: {key}={meta[key]} but "
+                                 f"this replica serves {key}={want}")
+        n = meta["length"]
+        if n != len(prompt):
+            raise ValueError(f"pages cover {n} tokens but the prompt has {len(prompt)}")
+        if n > self.model_cfg.max_len:
+            raise ValueError(f"pages length {n} exceeds max_len {self.model_cfg.max_len}")
+        bs = self.cfg.kv_block_size
+        nb = -(-n // bs)
+        start = meta.get("start_block", 0)
+        if start >= nb:
+            raise ValueError(f"pages start_block={start} but the prompt spans only {nb} blocks")
+        kv_shape = (meta["num_layers"], nb - start, meta["num_heads"], bs, meta["head_dim"])
+        tensors = self._page_tensors()
+        for name in tensors:
+            want_shape = kv_shape if name in ("k", "v") else kv_shape[:-1]
+            arr = arrays.get(name)
+            if arr is None:
+                raise ValueError(f"pages payload is missing {name!r}")
+            if tuple(arr.shape) != want_shape:
+                raise ValueError(f"pages array {name!r} has shape {tuple(arr.shape)}, "
+                                 f"expected {want_shape}")
+        for name, t in tensors.items():
+            # kv_bits catches a width mismatch; this catches the kind (f16
+            # pages into a bf16 pool would be value-cast, silently wrong).
+            if arrays[name].dtype != t.dtype:
+                raise ValueError(f"pages dtype mismatch: {name!r} is "
+                                 f"{scheduler.wire_dtype(arrays[name].dtype)} but this "
+                                 f"replica's cache stores {scheduler.wire_dtype(t.dtype)}")
+        ctx, fresh = self.pool.claim_prompt_blocks(slot, prompt)
+        if ctx < start * bs:
+            raise ValueError(f"delta pages start at block {start} but this replica's prefix "
+                             f"cache covers only {ctx} of {start * bs} skipped tokens — "
+                             "re-send full pages")
+        if fresh:
+            col = nb - len(fresh) - start  # payload column of fresh[0]
+            self.pool.write_blocks(fresh, {name: arrays[name][:, col:] for name in tensors})
+        self.pool.lengths[slot] = n
+        self.pool.insert_prefix(slot, prompt)
+        self.registry.counter("serving/kv_pages_imported").inc(len(fresh))
+        if ctx:
+            self.registry.counter("serving/prefix_reused_tokens").inc(ctx)
 
     # ------------------------------------------------------- decode steps
 
@@ -1025,6 +1176,7 @@ class InferenceEngine:
         sits at cache row ``pool.lengths[slot]``. Returns {slot: token}."""
         if not entries:
             return {}
+        self._decode_fault_tick(entries)
         s = self.cfg.max_slots
         tokens = np.zeros((s,), np.int64)
         positions = np.zeros((s,), np.int64)
@@ -1070,6 +1222,7 @@ class InferenceEngine:
             return {}
         if not self._verify_fns:
             raise RuntimeError("verify() requires spec_decode_k > 0 (no verify rungs)")
+        self._decode_fault_tick(entries)
         s = self.cfg.max_slots
         t_n = self.cfg.spec_decode_k + 1
         max_len = self.model_cfg.max_len

@@ -20,7 +20,14 @@ dense pool's slot interface:
   prompt with the same leading full blocks maps them (refcount++) and
   prefills only its tail. Cached blocks cover a block-aligned prefix
   strictly shorter than the prompt, and every write lands at or past the
-  prompt length, so a shared block is never written again.
+  prompt length, so a shared block is never written again. The
+  content chain keys are what the replica publishes on ``/health``
+  (:meth:`PagedKVPool.prefix_digest`: shallowest first, capped at
+  ``scheduler.DIGEST_MAX_KEYS``, with a bloom filter over all of them
+  past the cap).
+* **Page import** (:meth:`PagedKVPool.write_blocks`): a prefill replica's
+  exported blocks land in this pool's own tensors in place, since the
+  decode and verify rungs' CUDA graphs address those tensors.
 * **int8 and fp8 KV** (``kv_dtype="int8"`` / ``"fp8"``): an int8 or
   ``float8_e4m3fn`` payload with per-row f32 scales stored blockwise
   ``[L, NB, H, BS]`` (``core/precision.quantize_rows``); one write and
@@ -115,9 +122,14 @@ class PagedKVPool:
         self._cache: dict[tuple, int] = {}
         self._cache_key: dict[int, tuple] = {}
         self._chain_hash: dict[int, str] = {}
+        self._chain_depth: dict[int, int] = {}
         self._evictable: OrderedDict[int, None] = OrderedDict()
         self.prefix_hits = 0
         self.prefix_misses = 0
+        # The digest's generation (bumped on every publish and eviction)
+        # and the bloom filter built for it.
+        self._digest_gen = 0
+        self._bloom_cache: tuple | None = None
         self._lock = threading.Lock()
         self._publish_locked()
 
@@ -159,6 +171,9 @@ class PagedKVPool:
         self._cache.clear()
         self._cache_key.clear()
         self._chain_hash.clear()
+        self._chain_depth.clear()
+        self._digest_gen += 1
+        self._bloom_cache = None
 
     # ------------------------------------------------------------- slots
 
@@ -243,6 +258,8 @@ class PagedKVPool:
             bid, _ = self._evictable.popitem(last=False)
             del self._cache[self._cache_key.pop(bid)]
             self._chain_hash.pop(bid, None)
+            self._chain_depth.pop(bid, None)
+            self._digest_gen += 1
             return bid
         self._reg().counter("serving/kv_exhausted_total").inc()
         log.warning("KV block pool exhausted (%d/%d blocks referenced) — shedding",
@@ -391,8 +408,59 @@ class PagedKVPool:
                 self._cache[key] = bid
                 self._cache_key[bid] = key
                 self._chain_hash[bid] = parent_hash
+                self._chain_depth[bid] = i + 1
+                self._digest_gen += 1
                 parent = bid
             self._publish_locked()
+
+    def _chains_locked(self) -> int:
+        """Distinct chain heads: published root blocks (parent -1)."""
+        return sum(1 for key in self._cache if key[0] == -1)
+
+    def prefix_digest(self, max_keys: int = scheduler.DIGEST_MAX_KEYS) -> dict:
+        """The replica's published prefix summary: the content chain keys
+        of every cached block, shallowest first and capped at
+        ``max_keys``; ``blocks`` (published blocks), ``chains`` (distinct
+        chain heads) and ``truncated`` (the cap bit). Past the cap it also
+        carries ``bloom``, a filter over the whole key set, built outside
+        the lock and cached for the digest's generation."""
+        with self._lock:
+            items = sorted(self._chain_hash.items(),
+                           key=lambda kv: (self._chain_depth[kv[0]], kv[1]))
+            truncated = len(items) > max_keys
+            out = {"keys": [h for _, h in items[:max_keys]], "blocks": len(self._cache),
+                   "chains": self._chains_locked(), "truncated": truncated}
+            gen, cached = self._digest_gen, self._bloom_cache
+        if truncated:
+            if cached is not None and cached[0] == gen:
+                out["bloom"] = cached[1]
+            else:
+                bloom = scheduler.encode_bloom(h for _, h in items)
+                with self._lock:
+                    if self._digest_gen == gen:  # still current
+                        self._bloom_cache = (gen, bloom)
+                out["bloom"] = bloom
+        return out
+
+    # ------------------------------------------------------- page import
+
+    def write_blocks(self, block_ids: list[int], arrays: dict) -> None:
+        """Write imported pages into physical blocks ``block_ids``:
+        ``arrays`` maps ``k``/``v`` (and, quantized, ``k_scale``/
+        ``v_scale``) to tensors ``[L, len(block_ids), ...]`` of the pool's
+        own dtypes. ``index_copy_`` writes the pool's tensors in place
+        (through their bytes, so fp8 payloads copy bit for bit): the
+        decode and verify rungs' CUDA graphs address these tensors, and a
+        rebinding would leave every graph reading the old pool."""
+        idx = torch.as_tensor(block_ids, dtype=torch.long, device=self.device)
+        targets = {"k": self.k, "v": self.v}
+        if self.quantized:
+            targets.update(k_scale=self.k_scale, v_scale=self.v_scale)
+        for name, dst in targets.items():
+            src = arrays[name]
+            if dst.element_size() == 1 and dst.dtype != torch.int8:
+                dst, src = dst.view(torch.uint8), src.view(torch.uint8)
+            dst.index_copy_(1, idx, src.to(self.device))
 
     # -------------------------------------------------- byte accounting
 
@@ -419,6 +487,7 @@ class PagedKVPool:
             used = int((self._refcount > 0).sum())
             hits, misses = self.prefix_hits, self.prefix_misses
             published = len(self._cache)
+            chains = self._chains_locked()
             active = self.num_slots - len(self._free_slots)
         usable = self.num_blocks - 1
         looked = hits + misses
@@ -431,6 +500,10 @@ class PagedKVPool:
             "prefix_hits": hits,
             "prefix_misses": misses,
             "prefix_hit_rate": (hits / looked) if looked else 0.0,
-            "prefix_blocks": published,
             "kv_bits": self.kv_bits,
+            "prefix_blocks": published,
+            "prefix_chains": chains,
+            # 1 when the /health digest is capped below the cached chain
+            # set: affinity misses on the shed tails are expected.
+            "digest_truncated": int(published > scheduler.DIGEST_MAX_KEYS),
         }

@@ -38,9 +38,20 @@ SERVING_SCHEMA_VERSION = 14
 
 # The serving line's optional keys, the reference's
 # (``telemetry/schema.py``): the speculation measurement (stamped when
-# ``spec_decode_k`` > 0) and the precision registry's facts (stamped when
-# the weights are quantized).
+# ``spec_decode_k`` > 0), the paged pool's prefix-cache summary, the
+# overload story (the SLO-class split, brownout state and the digest's
+# truncation flag; every replica line) and the precision registry's facts
+# (stamped when the weights are quantized). The router-only keys of v12
+# to v14 stay off a replica's line, as in the reference.
 SERVING_KEYS_V8 = ("accepted_per_step", "draft_hit_rate", "spec_k")
+SERVING_KEYS_V9 = ("prefix_blocks", "prefix_chains")
+SERVING_KEYS_V10 = (
+    "queue_wait_p95_interactive", "queue_wait_p95_batch",
+    "ttft_p95_interactive", "ttft_p95_batch",
+    "tpot_p95_interactive", "tpot_p95_batch",
+    "shed_interactive", "shed_batch", "preempted_batch",
+    "brownout_level", "brownout_transitions", "digest_truncated",
+)
 SERVING_KEYS_V11 = ("weight_bits", "param_bytes", "param_bytes_f32", "quantized_params")
 KINDS = ("window", "eval", "final", "memory", "compile_warning")
 _REQUIRED = ("schema_version", "kind", "host", "step", "time_unix", "session_start_unix",

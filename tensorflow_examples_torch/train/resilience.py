@@ -80,7 +80,8 @@ class PreemptionGuard:
             log.warning("preemption guard not installed (not on the main thread)")
             return self
         for sig in self.SIGNALS:
-            self._old[sig] = signal.signal(sig, self._handle)
+            if sig not in self._old:  # installing twice keeps the first old handler
+                self._old[sig] = signal.signal(sig, self._handle)
         return self
 
     def uninstall(self) -> None:

@@ -1,5 +1,6 @@
 """Deterministic fault injection and bounded-retry IO: a jax-free copy of
-the training half of ``tensorflow_examples_tpu/utils/faults.py``.
+``tensorflow_examples_tpu/utils/faults.py`` (the training half and the
+serving half).
 
 Fault specs are comma-separated ``kind@arg`` tokens, deterministic by
 construction (keyed on step or fetch index, never wall clock), read from
@@ -22,8 +23,29 @@ the same ``TPU_FAULT_INJECT`` variable as the reference:
 
 Each step- or index-keyed fault fires once: a rollback that replays step
 N does not re-poison it. ``install(spec)`` arms a plan in-process; else
-``active()`` reads the environment variable on its first call. The
-serving half of the reference (replica faults) is not ported yet.
+``active()`` reads the environment variable on its first call.
+
+**Serving faults.** The serving tier has its own plan: the failure unit
+is a replica, so specs are ``kind@replica:arg`` tokens read from
+``TPU_SERVE_FAULT_INJECT`` (or ``serve_install``), keyed on each
+replica's own decode-step and request counters, never wall clock:
+
+  ``crash@R:N``      replica R dies before its Nth decode step (0-based):
+                     its registered crash callback (``register_serve_crash``)
+                     resets its frontend's connections and the step raises
+                     :class:`InjectedCrash`.
+  ``slowrep@R:S``    every decode step on replica R sleeps S seconds.
+  ``transport@R:K``  the first K POST requests replica R's frontend
+                     receives are dropped with no response bytes.
+  ``kvexhaust@R:N``  replica R's Nth decode step raises a forced
+                     ``BlockExhausted`` naming the step's slots.
+  ``badhealth@R:K``  replica R's next K ``/health`` answers are non-JSON
+                     garbage with a 200.
+  ``killrouter@T``   parsed for the router (the fleet control plane,
+                     not ported yet).
+
+A prefill-role replica counts prefills where other roles count decode
+steps (``engine._prefill_fault_tick``).
 """
 
 from __future__ import annotations
@@ -33,6 +55,7 @@ import gzip
 import logging
 import os
 import signal
+import threading
 import time
 from typing import Callable
 
@@ -239,3 +262,185 @@ def retry_io(fn: Callable, what: str, *, attempts: int | None = None,
             log.warning("io error on %s (attempt %d/%d), retrying in %.2fs: %s", what,
                         attempt + 1, attempts + 1, delay, e)
             sleep(delay)
+
+
+# ------------------------------------------------------- serving faults
+
+SERVE_ENV_VAR = "TPU_SERVE_FAULT_INJECT"
+
+SERVE_KINDS = ("crash", "slowrep", "transport", "kvexhaust", "badhealth", "killrouter")
+
+
+class InjectedCrash(RuntimeError):
+    """Raised inside a replica's decode step by a ``crash@R:N`` fault: the
+    serving loop fails the in-flight batch as after any step error, but
+    the replica's transport is already dead, so clients see a reset."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeFaultPlan:
+    crash_at: dict[int, int] = dataclasses.field(default_factory=dict)
+    slow_replica: dict[int, float] = dataclasses.field(default_factory=dict)
+    transport_drop: dict[int, int] = dataclasses.field(default_factory=dict)
+    kvexhaust_at: dict[int, int] = dataclasses.field(default_factory=dict)
+    bad_health: dict[int, int] = dataclasses.field(default_factory=dict)
+    kill_router_at: int | None = None  # killrouter@T: the router's fault
+
+
+def parse_serve_spec(spec: str) -> ServeFaultPlan:
+    """Parse ``"crash@1:4,slowrep@0:0.2,transport@2:1,badhealth@0:3"``
+    (``kind@replica:arg`` tokens, comma separated; ``killrouter@T`` takes
+    no replica index)."""
+    crash: dict[int, int] = {}
+    slow: dict[int, float] = {}
+    transport: dict[int, int] = {}
+    kvex: dict[int, int] = {}
+    badhealth: dict[int, int] = {}
+    kill_router_at: int | None = None
+    for token in filter(None, (t.strip() for t in spec.split(","))):
+        kind, _, arg = token.partition("@")
+        if kind not in SERVE_KINDS:
+            raise ValueError(f"unknown serve fault kind {kind!r} (one of {'/'.join(SERVE_KINDS)})")
+        if kind == "killrouter":
+            try:
+                kill_router_at = int(arg)
+            except ValueError:
+                raise ValueError(f"malformed serve fault token {token!r}: "
+                                 "killrouter needs '@<dispatch count>'") from None
+            continue
+        head, sep, tail = arg.partition(":")
+        if not head or not sep or not tail:
+            raise ValueError(f"serve fault token {token!r} needs '@<replica>:<arg>'")
+        try:
+            replica = int(head)
+            if kind == "crash":
+                crash[replica] = int(tail)
+            elif kind == "slowrep":
+                slow[replica] = float(tail)
+            elif kind == "transport":
+                transport[replica] = int(tail)
+            elif kind == "kvexhaust":
+                kvex[replica] = int(tail)
+            else:
+                badhealth[replica] = int(tail)
+        except ValueError as e:
+            raise ValueError(f"malformed serve fault token {token!r}: {e}") from None
+    return ServeFaultPlan(crash_at=crash, slow_replica=slow, transport_drop=transport,
+                          kvexhaust_at=kvex, bad_health=badhealth, kill_router_at=kill_router_at)
+
+
+class ServeEngine:
+    """Runtime state of one armed :class:`ServeFaultPlan` (per-replica
+    counters, fired-once sets). Every hook takes the lock: decode hooks
+    run on each replica's batcher thread, transport and health hooks on
+    frontend handler threads."""
+
+    def __init__(self, plan: ServeFaultPlan):
+        self.plan = plan
+        self._lock = threading.Lock()
+        self._decode_steps: dict[int, int] = {}
+        self._transport_left = dict(plan.transport_drop)
+        self._health_left = dict(plan.bad_health)
+        self._fired_crash: set[int] = set()
+        self._fired_kvex: set[int] = set()
+        self.fired: list[tuple[str, int, int]] = []  # (kind, replica, index)
+
+    def decode_step(self, replica: int, slots) -> None:
+        """Called at the top of every decode step; may sleep (slowrep),
+        raise a forced BlockExhausted (kvexhaust) or kill the replica and
+        raise InjectedCrash (crash)."""
+        with self._lock:
+            step = self._decode_steps.get(replica, 0)
+            self._decode_steps[replica] = step + 1
+            delay = self.plan.slow_replica.get(replica)
+            crash = self.plan.crash_at.get(replica) == step and replica not in self._fired_crash
+            kvex = (self.plan.kvexhaust_at.get(replica) == step
+                    and replica not in self._fired_kvex)
+            if crash:
+                self._fired_crash.add(replica)
+                self.fired.append(("crash", replica, step))
+            if kvex:
+                self._fired_kvex.add(replica)
+                self.fired.append(("kvexhaust", replica, step))
+            kill = _serve_crash_cbs.get(replica)
+        if delay:
+            log.warning("SERVE FAULT: replica %d decode step %d sleeping %.2fs",
+                        replica, step, delay)
+            time.sleep(delay)
+        if kvex:
+            from tensorflow_examples_torch.serving.paged_kv import BlockExhausted
+
+            log.warning("SERVE FAULT: forced BlockExhausted on replica %d decode step %d "
+                        "(slots %s)", replica, step, list(slots))
+            raise BlockExhausted(f"injected KV block exhaustion on replica {replica}",
+                                 slots=tuple(slots))
+        if crash:
+            log.warning("SERVE FAULT: crashing replica %d before decode step %d", replica, step)
+            if kill is not None:
+                kill()
+            raise InjectedCrash(f"injected crash of replica {replica}")
+
+    def transport_fault(self, replica: int) -> bool:
+        """True: the frontend drops this request with no response bytes."""
+        with self._lock:
+            left = self._transport_left.get(replica, 0)
+            if left <= 0:
+                return False
+            self._transport_left[replica] = left - 1
+            self.fired.append(("transport", replica, left))
+        log.warning("SERVE FAULT: dropping request on replica %d at the transport level "
+                    "(%d more to come)", replica, left - 1)
+        return True
+
+    def health_fault(self, replica: int) -> bool:
+        """True: /health answers non-JSON garbage this time."""
+        with self._lock:
+            left = self._health_left.get(replica, 0)
+            if left <= 0:
+                return False
+            self._health_left[replica] = left - 1
+            self.fired.append(("badhealth", replica, left))
+        return True
+
+
+# Replica id -> the callable that kills that replica at the transport
+# level; module-level, so a replica registers at build time whether the
+# plan is armed before or after the fleet comes up.
+_serve_crash_cbs: dict[int, Callable[[], None]] = {}
+
+
+def register_serve_crash(replica: int, kill: Callable[[], None]) -> None:
+    """Register replica ``replica``'s transport-kill callable."""
+    _serve_crash_cbs[replica] = kill
+
+
+_serve_engine: ServeEngine | None = None
+_serve_env_checked = False
+
+
+def serve_install(spec_or_plan: str | ServeFaultPlan) -> ServeEngine:
+    """Arm a serve fault plan in-process."""
+    global _serve_engine, _serve_env_checked
+    plan = parse_serve_spec(spec_or_plan) if isinstance(spec_or_plan, str) else spec_or_plan
+    _serve_engine = ServeEngine(plan)
+    _serve_env_checked = True
+    return _serve_engine
+
+
+def serve_clear() -> None:
+    global _serve_engine, _serve_env_checked
+    _serve_engine = None
+    _serve_env_checked = False
+
+
+def serve_active() -> ServeEngine | None:
+    """The armed serve engine, read from ``$TPU_SERVE_FAULT_INJECT`` on
+    first call."""
+    global _serve_engine, _serve_env_checked
+    if _serve_engine is None and not _serve_env_checked:
+        _serve_env_checked = True
+        spec = os.environ.get(SERVE_ENV_VAR, "")
+        if spec:
+            _serve_engine = ServeEngine(parse_serve_spec(spec))
+            log.info("serve fault injection armed from $%s=%s", SERVE_ENV_VAR, spec)
+    return _serve_engine

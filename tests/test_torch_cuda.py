@@ -818,6 +818,59 @@ def test_graph_launch_tally_equals_the_profiler_count(dev):
     engine.pool.free(slot)
 
 
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"])
+def test_page_handoff_between_engines_on_the_card(dev, kv_dtype):
+    """A prefill-role engine's exported pages, shipped as JSON and
+    imported by a warmed decode-role engine (its decode rungs CUDA graphs
+    over the pool the import writes in place), decode to the tokens of a
+    mixed engine serving the whole request, greedy and sampled, full and
+    delta; the prefill launched flash-decode and the decode steps the
+    paged kernel."""
+    import json
+
+    from tensorflow_examples_torch.serving import scheduler
+
+    kw = dict(attention="paged_flash", kv_block_size=16, kv_dtype=kv_dtype, spec_decode_k=0)
+    pre, dec, mixed = (_graph_engine(role=role, **kw) for role in ("prefill", "decode", "mixed"))
+    for engine in (pre, dec, mixed):
+        engine.warmup()
+    rng = np.random.default_rng(5)
+    prefix = [int(t) for t in rng.integers(0, 96, 48)]
+
+    def decode_from(engine, slot, first, sampling):
+        toks = [first]
+        while len(toks) < 12:
+            toks.append(engine.decode([(slot, toks[-1], *sampling)])[slot])
+        engine.pool.free(slot)
+        return toks
+
+    for i, tail in enumerate(([3, 1, 4], [9, 2, 6, 5, 3, 5])):
+        prompt = prefix + tail
+        sampling = (i, 0.8, 20) if i else (0, 0.0, 0)
+        kwargs = dict(seed=sampling[0], temperature=sampling[1], top_k=sampling[2])
+        slot = mixed.pool.alloc()
+        want = decode_from(mixed, slot, mixed.prefill(slot, prompt, **kwargs)[0], sampling)
+        flash_before = decode.flash_decode_attention.launches
+        slot = pre.pool.alloc()
+        first, _ = pre.prefill(slot, prompt, **kwargs)
+        digest = frozenset(dec.pool.prefix_digest()["keys"])
+        skip = scheduler.affinity_blocks(scheduler.prompt_chain_keys(prompt, 16), digest) * 16
+        payload = json.loads(json.dumps(pre.export_kv_pages(slot, prompt, skip_tokens=skip)))
+        pre.pool.free(slot)
+        assert payload.get("start_block", 0) == (0, 3)[i]
+        if i == 0:
+            assert decode.flash_decode_attention.launches > flash_before
+        paged_before = paged_decode.paged_decode_attention.launches
+        slot = dec.pool.alloc()
+        dec.import_kv_pages(slot, payload, prompt)
+        assert decode_from(dec, slot, first, sampling) == want
+        assert paged_decode.paged_decode_attention.launches - paged_before == \
+            11 * dec.model_cfg.num_layers
+    for engine in (pre, dec, mixed):
+        assert engine.post_warmup_recompiles() == 0
+
+
 # ------------------------------------------------- k train steps as one graph
 
 

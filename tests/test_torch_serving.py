@@ -431,7 +431,8 @@ def test_port_imports_no_jax():
     rel = {os.path.relpath(p, REPO) for p in paths}
     for new in ("serving/speculative.py", "telemetry/compilation.py", "core/precision.py",
                 "utils/faults.py", "utils/diagnostics.py", "data/prefetch.py",
-                "telemetry/profiling.py", "models/hf_import.py", "train/graphs.py"):
+                "telemetry/profiling.py", "models/hf_import.py", "train/graphs.py",
+                "serving/overload.py", "telemetry/timeseries.py", "data/tokenizers.py"):
         assert f"tensorflow_examples_torch/{new}" in rel
     banned = ("jax", "flax", "optax", "absl", "tensorflow_examples_tpu")
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)
@@ -485,12 +486,10 @@ def test_serve_cli_flags_cover_the_config():
     assert all(f.name in parsed for f in dataclasses.fields(ServeConfig))
 
 
-# The reference's ServeConfig fields the port does not have yet: the
-# fleet's (role), the watchdog's and brownout's, which come with the
-# replica process (ROADMAP A5).
-OWED_TO_A5 = ("role", "watchdog_secs", "brownout", "brownout_queue_hi", "brownout_kv_hi",
-              "brownout_ttft_hi_s", "brownout_clear_frac", "brownout_hold_s",
-              "brownout_max_new_tokens")
+# The reference's ServeConfig fields the port does not have yet: none
+# since the replica process brought the fleet role, the watchdog and
+# brownout.
+OWED_TO_A5 = ()
 
 
 def test_serve_config_has_the_reference_fields_and_defaults():
