@@ -50,7 +50,12 @@ non-zero:
    MoE bias gathers' backward ``group_row_sum`` at [16384, 3072] and
    [16384, 768] with ``MOE_SIZES``, bf16 and f32, against its plain
    version, rerun bit-identical, with ``torch.segment_reduce`` timed as
-   a yardstick only);
+   a yardstick only); and the three training flash kernels again at
+   BERT-base GLUE's attention, B=32, H=12, S=128, D=64, non-causal, with
+   an f32 key bias from padding lengths drawn in [8, 128] and with no
+   padding, bf16 on the tensor cores and f32 SIMT, each held to its plain
+   version at the flash tolerances and rerun for the same bits, timed on
+   the ragged batch beside SDPA given the same additive mask;
 4. training: GPT-2 124M at full width on synthetic bigram data through
    ``Trainer.fit`` (bf16 compute, dropout 0.1, batch 16 x 1024, 20 steps,
    warmup cut to 5 steps so the loss can move, the fused cross-entropy
@@ -164,6 +169,29 @@ non-zero:
    export + encode and decode + import ms, payload bytes a prompt token
    for f32, int8 and fp8, and the hand-off's TTFT against the mixed
    stack's;
+5c. bert_glue: BERT-base at the ``BertGlueConfig`` defaults with
+   ``attention="flash"`` (bf16, dropout 0.1, batch 32 x 128, synthetic
+   SST-2, warmup cut to 2): step 0 at f32 and dropout 0.1 with the flash
+   kernels (12 SIMT launches of each) held to the plain attention, loss
+   within 1e-5 relative and every gradient within 1e-3 of its largest;
+   20 steps through ``train.cli`` checkpointing at 10 and 20 (12 launches
+   of each flash kernel a step and 12 forward an eval batch, all on the
+   tensor cores), ``train.eval`` on its workdir giving the run's final
+   eval; a fresh ``Trainer`` resumed from the step-10 checkpoint, losses
+   11-20 within 1e-3 relative; one profiled step; CoLA (MCC) and STS-B
+   (Pearson, the regression head) 4 steps and eval each;
+5d. cifar10: ResNet-20 at the ``Cifar10Config`` defaults (bf16, batch 128,
+   augment) on CIFAR-10 python-pickle batches of seeded uint8 pixels at
+   the real size, which the phase writes, so ``load_cifar10`` keeps uint8
+   and the native library crops, flips and normalizes: 20 steps through
+   ``train.cli``, ``train.eval`` on its workdir, every running statistic
+   moved off its init; 4 steps as one launch of ``steps_per_launch=4``
+   (one CUDA graph) against 4 eager steps with cuDNN deterministic,
+   params and ``batch_stats`` within 1e-5 relative; one profiled step;
+5e. mnist: the MLP at the ``MnistConfig`` defaults, 20 steps through
+   ``train.cli``, ``train.eval``, one profiled step. Each of 5c-5e prints
+   p50 step ms, examples/s and peak memory beside the card's name and
+   power limit;
 6. the ``{"group_row_sum": {...}}`` line (not the port of a TPU kernel),
    the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
@@ -211,6 +239,7 @@ CE_SHAPE = (16384, 50257)      # the step's logits: batch 16 x 1024 tokens, GPT-
 # of all -1e30 and a non-unit cotangent where N allows.
 CE_EDGES = (("V=4099", 64, 4099), ("V=1000", 64, 1000), ("N=1", 1, 50257))
 TRAIN_ATTN = (16, 12, 1024)    # the GPT-2 step's attention: batch, heads, sequence
+BERT_ATTN = (32, 12, 128)      # BERT-base GLUE's attention: batch, heads, sequence (D 64)
 # Flash edge cases (label, seq_q, seq_kv, causal, key bias, nonzero dlse), at batch 2.
 FLASH_EDGES = (
     ("seq_q<seq_kv", 300, 1000, True, None, False),
@@ -1219,7 +1248,8 @@ def device_split(torch, fn) -> dict:
                 "tgmm" if "tgmm" in name else
                 "gmm" if "gmm_kernel" in name or "gmm_tc_kernel" in name else
                 "group_row_sum" if "group_row_sum" in name else
-                "matmul" if any(t in name for t in ("gemm", "cutlass", "xmma", "cublas", "sm90_"))
+                "matmul" if any(t in name for t in ("gemm", "cutlass", "xmma", "cublas", "sm90_",
+                                                    "nvjet"))
                 else "other")
         split[kind] += ms
         if kind == "flash":
@@ -2784,6 +2814,395 @@ def phase_replica(torch, model, model_cfg, counters, smi: str, here: str) -> dic
     return summary
 
 
+# ------------------------------------------------ the other workloads
+
+
+def phase_bert_flash_kernels(torch, attention) -> dict:
+    """The three training flash kernels at BERT-base GLUE's attention:
+    B 32, H 12, S 128, D 64, non-causal, an f32 key bias from the padding
+    mask (lengths drawn in [8, 128], -1e30 past each), and a batch with
+    no padding; bf16 on the tensor cores and f32 SIMT, each held to its
+    plain version at the flash phase's tolerances and rerun on the same
+    inputs for the same bits. Timed on the ragged batch, with SDPA given
+    the same additive mask as a yardstick only."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(12)
+    b, h, s = BERT_ATTN
+    d = 64
+    kw = dict(heads=h, causal=False, sm_scale=d ** -0.5)
+    lengths = torch.randint(8, s + 1, (b,), generator=gen)
+    biases = {"ragged": torch.where(torch.arange(s)[None] < lengths[:, None], 0.0,
+                                    attention.NEG_INF).to(dev),
+              "no padding": torch.zeros(b, s, device=dev)}
+    rows, worst = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        want = flash_variant(dname, d)
+        for label, kb in biases.items():
+            q, k, v, do = (torch.randn(b * h, s, d, generator=gen).to(dev, dtype) for _ in range(4))
+            dlse = torch.zeros(b * h, s, device=dev)
+            (o, lse), v_fwd = ran(attention.flash_fwd, lambda: attention.flash_fwd(q, k, v, kb,
+                                                                                   **kw))
+            o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, kb, **kw)
+            delta = (do.float() * o_ref.float()).sum(-1)
+            args = (q, k, v, do, lse_ref, delta, dlse, kb)
+            (dk, dv), v_dkv = ran(attention.flash_bwd_dkv,
+                                  lambda: attention.flash_bwd_dkv(*args, **kw))
+            dq, v_dq = ran(attention.flash_bwd_dq, lambda: attention.flash_bwd_dq(*args, **kw))
+            dk_ref, dv_ref = attention.flash_bwd_dkv_plain(*args, **kw)
+            dq_ref = attention.flash_bwd_dq_plain(*args, **kw)
+            variants = {"fwd": v_fwd, "dkv": v_dkv, "dq": v_dq}
+            if any(took != want for took in variants.values()):
+                fail(f"bert flash[{label}] {dname}: variants {variants}, expected {want}")
+            same = {"fwd": all(map(torch.equal, (o, lse), attention.flash_fwd(q, k, v, kb, **kw))),
+                    "dkv": all(map(torch.equal, (dk, dv),
+                                   attention.flash_bwd_dkv(*args, **kw))),
+                    "dq": torch.equal(dq, attention.flash_bwd_dq(*args, **kw))}
+            if not all(same.values()):
+                fail(f"bert flash[{label}] {dname}: a rerun on the same inputs changed bits: "
+                     f"{same}")
+            fwd_tol = 2e-5 if dtype == torch.float32 else 2e-2
+            errs = {"fwd": allclose_err(torch, o, o_ref, fwd_tol, fwd_tol)}
+            lse_err = allclose_err(torch, lse, lse_ref, 1e-4, 1e-5)
+            for kind, pairs in (("dkv", ((dk, dk_ref), (dv, dv_ref))), ("dq", ((dq, dq_ref),))):
+                if dtype == torch.float32:
+                    errs[kind] = worst_of(*(allclose_err(torch, a, r, 5e-4, 5e-4)
+                                            for a, r in pairs))
+                else:  # within 2e-2 of the plain version's largest gradient
+                    errs[kind] = worst_of(*(allclose_err(
+                        torch, a, r, 2e-2 * float(r.float().abs().max()), 0.0) for a, r in pairs))
+            bad = [k_ for k_, (_, ok) in errs.items() if not ok] + ([] if lse_err[1] else ["lse"])
+            log(f"bert flash[{label}] {dname} B={b} H={h} S={s} D={d} non-causal, lengths "
+                f"{int(lengths.min())}..{int(lengths.max())}: max_abs_err fwd {errs['fwd'][0]:.3e} "
+                f"lse {lse_err[0]:.3e} dkv {errs['dkv'][0]:.3e} dq {errs['dq'][0]:.3e}; variants "
+                f"{variants}; rerun bit-identical")
+            if bad:
+                fail(f"bert flash[{label}] {dname}: {bad} outside tolerance (fwd {fwd_tol}, f32 "
+                     "grads 5e-4, bf16 grads 2e-2 of max)")
+            for kind, (err, _) in errs.items():
+                worst[f"{dname}/{kind}"] = max(worst.get(f"{dname}/{kind}", 0.0), err)
+            if label != "ragged":
+                continue
+            q4, k4, v4, do4 = (t.reshape(b, h, s, d) for t in (q, k, v, do))
+            mask = kb[:, None, None, :].to(dtype)
+            sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                              attn_mask=mask))
+            qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+            out4 = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+            sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(out4, (qg, kg, vg), do4,
+                                                                  retain_graph=True), iters=10)
+            calls = {"fwd": (lambda: attention.flash_fwd(q, k, v, kb, **kw),
+                             lambda: attention.flash_fwd_plain(q, k, v, kb, **kw)),
+                     "dkv": (lambda: attention.flash_bwd_dkv(*args, **kw),
+                             lambda: attention.flash_bwd_dkv_plain(*args, **kw)),
+                     "dq": (lambda: attention.flash_bwd_dq(*args, **kw),
+                            lambda: attention.flash_bwd_dq_plain(*args, **kw))}
+            for kind, (kernel, plain) in calls.items():
+                ms = cuda_ms(torch, kernel)
+                plain_ms = cuda_ms(torch, plain, iters=5, warmup=1)
+                t_bytes, t_ops = flash_train_times(s, s, b * h, d, False, dname, q.element_size(),
+                                                   kind)
+                t_bytes += b * s * 4 / HBM_BYTES_PER_S * 1e3  # the key bias, read once
+                bound_ms, by = bound(t_bytes, t_ops)
+                log(f"bert flash_{kind} {dname} B={b} H={h} S={s} D={d} non-causal key bias: "
+                    f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bytes_ms {t_bytes:.5f} ops_ms "
+                    f"{t_ops:.5f} bound_ms {bound_ms:.5f} ({by}), {bound_ms / ms:.0%} of bound; "
+                    f"library sdpa+mask fwd_ms {sdpa_fwd:.4f} bwd_ms {sdpa_bwd:.4f}")
+                rows[f"{dname}/{kind}"] = dict(
+                    shape=f"B={b} H={h} S={s} D={d} non-causal key bias {dname}", ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                    library_ms=sdpa_fwd if kind == "fwd" else None,
+                    **({} if kind == "fwd" else {"sdpa_bwd_ms": sdpa_bwd}),
+                    max_abs_err=errs[kind][0], variant=variants[kind])
+    out = {}
+    for kind, name in (("fwd", "flash_fwd"), ("dkv", "flash_bwd_dkv"), ("dq", "flash_bwd_dq")):
+        row = dict(rows[f"bfloat16/{kind}"])
+        row["float32"] = rows[f"float32/{kind}"]
+        row["worst_abs_err_all_cases"] = {"bfloat16": worst[f"bfloat16/{kind}"],
+                                          "float32": worst[f"float32/{kind}"]}
+        out[name] = row
+    return out
+
+
+def run_cli(main_fn, argv) -> dict:
+    """A CLI entry point in this process: its JSON result line."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    if rc != 0:
+        fail(f"{main_fn.__module__} {' '.join(argv)}: exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def cli_train(torch, counters, name: str, argv: list, workdir: str, batch: int, smi: str,
+              eval_argv: list) -> dict:
+    """``train.cli`` for a workload (``--workdir`` ``workdir``,
+    telemetry lines on), then ``train.eval`` on its workdir: the result
+    lines, the launch counts around the training run, p50 step ms and
+    examples/s from its window lines (the first step, which pays set-up,
+    left out), and the peak memory."""
+    from tensorflow_examples_torch.train import cli
+    from tensorflow_examples_torch.train import eval as eval_cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    final = run_cli(cli.main, ["--workload", name, *argv, "--workdir", workdir,
+                               "--telemetry_sinks", "jsonl", "--log_every", "1",
+                               "--eval_every", "0"])
+    wall = time.perf_counter() - t0
+    launches = {**{k: counters[k].launches for k in TRAIN_KERNELS}, **flash_variants(counters)}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    lines = [json.loads(x) for x in open(os.path.join(workdir, "telemetry", "metrics.jsonl"))]
+    windows = [x for x in lines if x["kind"] == "window"]
+    losses = [x["metrics"]["train/loss"] for x in windows]
+    step_ms = float(np.median([x["metrics"]["train/step_time_s"] for x in windows[1:]])) * 1e3
+    evaluated = run_cli(eval_cli.main, ["--workload", name, *eval_argv, "--workdir", workdir])
+    if evaluated["step"] != final["steps"]:
+        fail(f"{name}: eval restored step {evaluated['step']}, the run ended at {final['steps']}")
+    summary = dict(steps=final["steps"], wall_s=wall, step_ms_p50=step_ms,
+                   examples_per_s=batch / step_ms * 1e3, peak_mem_gib=peak_gib,
+                   loss_first=losses[0], loss_last=losses[-1], losses=losses,
+                   final={k: v for k, v in final.items() if k.startswith("eval_")},
+                   eval_cli={k: v for k, v in evaluated.items() if k.startswith("eval_")},
+                   launches=launches, card=smi)
+    if not all(np.isfinite(losses)) or any(x["metrics"]["train/bad_step"] for x in windows):
+        fail(f"{name}: losses not finite or a step skipped: {losses}")
+    for k, v in summary["final"].items():  # the same checkpoint, kernels and batches
+        if abs(evaluated[k] - v) > 1e-5 * max(1.0, abs(v)):
+            fail(f"{name}: train.eval's {k} {evaluated[k]} differs from the run's final {v}")
+    return summary
+
+
+def phase_bert_glue(torch, counters, smi: str, tmp: str) -> dict:
+    """BERT-base GLUE fine-tuning at the ``BertGlueConfig`` defaults with
+    ``attention="flash"`` (bf16, dropout 0.1, batch 32 x 128, synthetic
+    SST-2), checks (b) of the module docstring."""
+    import shutil
+
+    from tensorflow_examples_torch.core import rng
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.train import cli
+    from tensorflow_examples_torch.train.checkpoint import CheckpointManager
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import bert_glue
+
+    base = bert_glue.BertGlueConfig(attention="flash")
+    layers, batch = base.num_layers, base.global_batch_size
+    train_ds, eval_ds = bert_glue.datasets(base)
+    batch0 = next(train_iterator(train_ds, batch, seed=base.seed))
+
+    # Step 0, f32, dropout 0.1 (the same masks on both paths): the flash
+    # kernels against the plain attention.
+    step0 = {}
+    for impl in ("flash", "xla"):
+        cfg = base.replace(precision="f32", attention=impl)
+        trainer = Trainer(bert_glue.make_task(cfg), cfg)
+        leaves = {k: p.detach().requires_grad_() for k, p in trainer.state.params.items()}
+        reset_counts(counters)
+        loss, _, _ = trainer.task.loss_fn(
+            trainer.policy.cast_compute(leaves), {}, trainer.put_batch(batch0),
+            rng=rng.StepNoise(trainer.step_key(0)), train=True)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        step0[impl] = (float(loss.detach()), dict(zip(leaves, grads)), {
+            **{k: counters[k].launches for k in FLASH_KERNELS}, **flash_variants(counters)})
+        del trainer, leaves, loss, grads
+        torch.cuda.empty_cache()
+    (loss_f, g_f, n_f), (loss_x, g_x, n_x) = step0["flash"], step0["xla"]
+    rel = abs(loss_f - loss_x) / abs(loss_x)
+    gname, gworst = max(((k, float((g_f[k] - g_x[k]).abs().max())
+                          / max(float(g_x[k].abs().max()), 1e-30)) for k in g_x),
+                        key=lambda kv: kv[1])
+    log(f"bert step 0, f32, dropout 0.1: loss flash {loss_f:.7f} xla {loss_x:.7f} (rel "
+        f"{rel:.2e}, limit 1e-5); worst grad {gname}: max|diff| / max|grad| {gworst:.2e} "
+        f"(limit 1e-3) over {len(g_x)} tensors; launches flash {n_f}, xla {n_x}")
+    if not (np.isfinite(loss_f) and rel <= 1e-5 and gworst <= 1e-3):
+        fail("bert step 0: the flash step disagrees with the xla step")
+    if n_f != flash_want(layers, "simt") or any(n_x.values()):
+        fail(f"bert step 0: flash launches {n_f}, expected {flash_want(layers, 'simt')}; xla "
+             f"{n_x}, expected none")
+    del step0, g_f, g_x
+
+    # The slice: 20 steps through the training CLI, checkpoints at 10 and 20.
+    workdir = os.path.join(tmp, "bert")
+    model = ["--attention", "flash"]
+    run = cli_train(torch, counters, "bert_glue", model + [
+        "--train_steps", str(TRAIN_STEPS), "--warmup_steps", "2", "--checkpoint_every", "10"],
+        workdir, batch, smi, model)
+    n_eval = -(-eval_ds.size // batch)
+    want = {**flash_want(layers * TRAIN_STEPS, "tensor_core"),
+            "flash_fwd": layers * (TRAIN_STEPS + n_eval),
+            "flash_fwd_tensor_core": layers * (TRAIN_STEPS + n_eval), "ce_fwd": 0, "ce_bwd": 0}
+    if run["launches"] != want:
+        fail(f"bert: launches {run['launches']} over {TRAIN_STEPS} steps and {n_eval} eval "
+             f"batches, expected {want} (12 of each a step, 12 forward an eval batch, all on "
+             "the tensor cores)")
+    run["launches_per_step"] = {k: layers for k in FLASH_KERNELS}
+
+    # Resume: a fresh Trainer from the step-10 checkpoint trains to 20.
+    resumed = workdir + "-resumed"
+    shutil.copytree(CheckpointManager(workdir).step_dir(10),
+                    os.path.join(resumed, "checkpoints", "10"))
+    cfg = base.replace(train_steps=TRAIN_STEPS, warmup_steps=2, log_every=1, eval_every=0,
+                       checkpoint_every=10, workdir=resumed, telemetry_sinks="")
+    data = lambda start: train_iterator(train_ds, batch, seed=cfg.seed, start_step=start)
+    trainer = Trainer(bert_glue.make_task(cfg), cfg)
+    trainer.fit(data, num_steps=TRAIN_STEPS)
+    ours = [x["loss"] for x in trainer.history]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(ours, run["losses"][10:]))
+    if [x["step"] for x in trainer.history] != list(range(11, TRAIN_STEPS + 1)) or worst > 1e-3:
+        fail(f"bert resume: steps {[x['step'] for x in trainer.history]}, losses {ours} vs "
+             f"{run['losses'][10:]} (rel {worst:.2e}, limit 1e-3)")
+    run["resume"] = dict(from_step=10, worst_rel_loss_diff=worst,
+                         identical_steps=sum(a == b for a, b in zip(ours, run["losses"][10:])))
+    batch_t = trainer.put_batch(next(data(TRAIN_STEPS)))
+
+    def one_step():
+        trainer.state, _ = trainer._train_step(trainer.state, batch_t)
+
+    one_step()
+    run["profile"] = device_split(torch, one_step)
+    del trainer, batch_t
+    # CoLA (MCC) and STS-B (Pearson, the regression head): a few steps and eval.
+    run["tasks"] = {}
+    for task, score in (("cola", "eval_mcc"), ("stsb", "eval_pearson")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = run_cli(cli.main, ["--workload", "bert_glue", "--task", task, *model, "--train_steps", "4",
+                       "--warmup_steps", "1", "--log_every", "4", "--eval_every", "0",
+                       "--telemetry_sinks", ""])
+        if not np.isfinite(out.get(score, float("nan"))) or not np.isfinite(out["loss"]):
+            fail(f"bert {task}: {score} missing or not finite: {out}")
+        run["tasks"][task] = {k: v for k, v in out.items() if k.startswith("eval_")}
+    log(f"bert_glue: {json.dumps(run)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def write_cifar_batches(root: str, seed: int = 0) -> str:
+    """CIFAR-10's python-pickle distribution at its real size (5 training
+    batches and a test batch of 10 000 images each) with seeded uint8
+    pixels and labels."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d, exist_ok=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (10000, 3072), dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, 10000).tolist()}, f)
+    return root
+
+
+def phase_cifar10(torch, counters, smi: str, tmp: str) -> dict:
+    """CIFAR-10 ResNet-20 at the ``Cifar10Config`` defaults on seeded
+    python-pickle batches (uint8, augmented by the native library),
+    checks (c) of the module docstring."""
+    from tensorflow_examples_torch import native
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.train.checkpoint import CheckpointManager
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import cifar10
+
+    t0 = time.perf_counter()
+    data_dir = write_cifar_batches(os.path.join(tmp, "cifar-data"))
+    write_s = time.perf_counter() - t0
+    if not native.available():
+        fail("cifar10: the native augmentation library (native/fastdata.cpp) did not build")
+    base = cifar10.Cifar10Config(data_dir=data_dir)
+    workdir = os.path.join(tmp, "cifar10")
+    run = cli_train(torch, counters, "cifar10", ["--data_dir", data_dir, "--train_steps",
+                                                 str(TRAIN_STEPS)],
+                    workdir, base.global_batch_size, smi, ["--data_dir", data_dir])
+    run["data_write_s"] = write_s
+    saved, step = CheckpointManager(workdir).load_latest()
+    stats = saved["model_state"]["batch_stats"]
+    moved = sum(not torch.equal(t, torch.zeros_like(t) if k.endswith("mean") else
+                                torch.ones_like(t)) for k, t in stats.items())
+    if step != TRAIN_STEPS or moved != len(stats):
+        fail(f"cifar10: {moved} of {len(stats)} running statistics moved off their init by "
+             f"step {step}")
+    run["batch_stats_moved"] = f"{moved} of {len(stats)}"
+
+    # 4 steps as one launch of steps_per_launch=4 (a CUDA graph) against 4
+    # eager steps, cuDNN deterministic.
+    train_ds = cifar10.datasets(base)[0]
+    cfg = base.replace(train_steps=4, log_every=4, eval_every=0, checkpoint_every=0,
+                       telemetry_sinks="")
+    data = lambda start: train_iterator(train_ds, cfg.global_batch_size, seed=cfg.seed,
+                                        start_step=start, augment=cifar10.train_augment(cfg))
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {}
+        for k in (1, 4):
+            trainer = Trainer(cifar10.make_task(cfg), cfg.replace(steps_per_launch=k))
+            trainer.fit(data, num_steps=4)
+            runs[k] = trainer
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    vec = lambda t, part: torch.cat([x.float().reshape(-1) for x in
+                                     (t.state.params.values() if part == "params" else
+                                      t.state.model_state["batch_stats"].values())])
+    graph = {}
+    for part in ("params", "batch_stats"):
+        a, b = vec(runs[1], part), vec(runs[4], part)
+        graph[part] = dict(max_rel_diff=float((a - b).abs().max() / a.abs().max()),
+                           bitwise=bool(torch.equal(a, b)))
+    graph["losses_eager"] = runs[1].history[-1]["loss"]
+    graph["losses_graph"] = runs[4].history[-1]["loss"]
+    graph["graphs"] = runs[4].bundled_step(4).captured
+    run["graph_k4"] = graph
+    if graph["graphs"] != 1 or any(graph[p]["max_rel_diff"] > 1e-5
+                                   for p in ("params", "batch_stats")):
+        fail(f"cifar10: 4 steps as one CUDA graph against 4 eager steps: {graph} (limit 1e-5)")
+    trainer = runs[1]
+    batch_t = trainer.put_batch(next(data(4)))
+
+    def one_step():
+        trainer.state, _ = trainer._train_step(trainer.state, batch_t)
+
+    one_step()
+    run["profile"] = device_split(torch, one_step)
+    del runs, trainer, batch_t
+    log(f"cifar10: {json.dumps(run)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_mnist(torch, counters, smi: str, tmp: str) -> dict:
+    """MNIST MLP at the ``MnistConfig`` defaults (synthetic data), 20
+    steps and eval through the CLIs, and one profiled step."""
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import mnist
+
+    base = mnist.MnistConfig()
+    run = cli_train(torch, counters, "mnist", ["--train_steps", str(TRAIN_STEPS)],
+                    os.path.join(tmp, "mnist"), base.global_batch_size, smi, [])
+    trainer = Trainer(mnist.make_task(base), base)
+    batch_t = trainer.put_batch(next(train_iterator(mnist.datasets(base)[0],
+                                                    base.global_batch_size, seed=base.seed)))
+
+    def one_step():
+        trainer.state, _ = trainer._train_step(trainer.state, batch_t)
+
+    one_step()
+    run["profile"] = device_split(torch, one_step)
+    log(f"mnist: {json.dumps(run)}")
+    del trainer, batch_t
+    return run
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2803,6 +3222,7 @@ def main() -> int:
     phase_build(_build)
     rows = phase_kernels(torch, decode, paged_decode, precision)
     rows.update(phase_flash_kernels(torch, attention))
+    bert_rows = phase_bert_flash_kernels(torch, attention)
     rows.update(phase_ce_kernels(torch, cross_entropy))
     rows.update(phase_moe_kernels(torch, grouped_matmul))
     for name, errs in phase_head_dim_sweep(torch, attention, decode, paged_decode,
@@ -2827,6 +3247,9 @@ def main() -> int:
         moe = phase_moe_training(torch, counters, grouped_matmul, smi, os.path.join(tmp, "moe"))
         phase_moe_generate(torch, counters, grouped_matmul, os.path.join(tmp, "moe-init"))
         phase_train_config(torch, counters, smi, tmp)
+        bert = phase_bert_glue(torch, counters, smi, tmp)
+        phase_cifar10(torch, counters, smi, tmp)
+        phase_mnist(torch, counters, smi, tmp)
 
     model_cfg = transformer.gpt2_124m()
     t0 = time.perf_counter()
@@ -2838,6 +3261,9 @@ def main() -> int:
 
     for name in FLASH_KERNELS:
         rows[name]["tensor_core_launches"] = training["launches"][f"{name}_tensor_core"]
+        # BERT's path: its own count (20 steps, and 8 eval batches for the forward).
+        rows[name]["bert_glue"] = {**bert_rows[name], "launches": bert["launches"][name],
+                                   "launches_per_step": bert["launches_per_step"][name]}
     for name in ("flash_decode", "paged_decode"):
         for v in ("tensor_core", "simt", "split"):
             if f"{name}_{v}" in summaries[0]["launches"]:
@@ -2889,7 +3315,7 @@ def main() -> int:
                                    "library_fwd_bwd_ms", "library",
                                    "all_shapes", "worst_abs_err_all_cases", "design",
                                    "head_dim_sweep_max_abs_err", "tensor_core_launches",
-                                   "simt_launches", "split_launches")
+                                   "simt_launches", "split_launches", "bert_glue")
                if k in row},
         })
     log(json.dumps({"kernels": kernels}))

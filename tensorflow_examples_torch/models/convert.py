@@ -1,15 +1,25 @@
-"""The weight bridge between the JAX GPT-2 param tree and the port.
+"""The weight bridge between the JAX package's variable trees and the port.
 
-The reference's params are a nested dict (``wte/embedding``,
-``h_0/attn/qkv/kernel``, ...). Handed over as nested dicts of numpy
-arrays, or as an ``.npz`` of the flattened tree with ``/``-joined keys,
-they load into :class:`~tensorflow_examples_torch.models.transformer.GPT2`
-unchanged: the module's ``state_dict`` keys are the same paths with
-``.`` for ``/``, in the same layouts, an MoE block's
-``h_i/moe/{gate,w_in,b_in,w_out,b_out}`` included. :func:`to_param_tree` is the other
-direction: a module, or a trainer's ``{name: tensor}`` params, back to
-the nested numpy tree the JAX package loads. The port never sees a jax
-array.
+The reference's variables are nested dicts (``wte/embedding``,
+``h_0/attn/qkv/kernel``, ...; ``batch_stats`` beside ``params`` for a
+ResNet). Handed over as nested dicts of numpy arrays, or as an ``.npz``
+of the flattened tree with ``/``-joined keys, they load unchanged into
+the port's modules, whose ``state_dict`` keys are the same paths with
+``.`` for ``/`` in the same layouts:
+
+* GPT-2 (``models/transformer.GPT2``), an MoE block's
+  ``h_i/moe/{gate,w_in,b_in,w_out,b_out}`` included;
+* BERT (``models/bert.BertClassifier``): qkv ``[d, 3, H, hd]``, proj
+  ``[H, hd, d]``, ``classifier`` beside ``bert``;
+* ResNet (``models/resnet.ResNet``): conv kernels HWIO, each BatchNorm's
+  ``scale``/``bias`` from ``params`` and ``mean``/``var`` (the module's
+  buffers) from ``batch_stats``;
+* the MLP (``models/mlp.MLP``).
+
+:func:`variables_from_tree` gives the trainer's flat ``{name: tensor}``
+dicts of such a tree; :func:`to_param_tree` is the other direction: a
+module, or a trainer's params, back to the nested numpy tree the JAX
+package loads. The port never sees a jax array.
 """
 
 from __future__ import annotations
@@ -44,11 +54,22 @@ def save_npz(path: str, params: Mapping) -> None:
     np.savez(path, **flatten_tree(params))
 
 
-def load_params(model: GPT2, params: Mapping) -> GPT2:
-    """Copy a JAX-layout param tree (nested or ``/``-flattened) into
-    ``model`` in place. Every path must be present with the module's
-    shape; extra or missing paths raise, naming them."""
-    flat = flatten_tree(params)
+def variables_from_tree(variables: Mapping) -> dict[str, dict[str, torch.Tensor]]:
+    """A flax variables tree (``{"params": ..., "batch_stats": ...}``)
+    as ``{collection: {"a.b.c": f32 tensor}}``, the trainer's layout
+    (``params``, and ``TrainState.model_state`` for the rest)."""
+    return {name: {k.replace("/", "."): torch.as_tensor(np.array(v, np.float32))
+                   for k, v in flatten_tree(tree).items()}
+            for name, tree in variables.items()}
+
+
+def load_params(model: torch.nn.Module, params: Mapping,
+                batch_stats: Mapping | None = None) -> torch.nn.Module:
+    """Copy a JAX-layout param tree (nested or ``/``-flattened), and a
+    ResNet's ``batch_stats`` tree into its buffers, into ``model`` in
+    place. Every path must be present with the module's shape; extra or
+    missing paths raise, naming them."""
+    flat = {**flatten_tree(params), **flatten_tree(batch_stats or {})}
     own = {k.replace(".", "/"): t for k, t in model.state_dict().items()}
     missing, extra = sorted(own.keys() - flat.keys()), sorted(flat.keys() - own.keys())
     if missing or extra:

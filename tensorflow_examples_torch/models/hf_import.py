@@ -1,6 +1,6 @@
-"""Pretrained GPT-2 weights from HuggingFace: the port of the GPT-2 half
-of ``tensorflow_examples_tpu/models/hf_import.py`` (``import_gpt2``;
-``import_bert`` waits for the BERT port).
+"""Pretrained weights from HuggingFace: the port of
+``tensorflow_examples_tpu/models/hf_import.py`` (``import_gpt2`` and
+``import_bert``).
 
 :func:`import_gpt2` maps an HF ``GPT2LMHeadModel`` state dict onto the
 reference's param tree (the ``models/convert.py`` layout), from a model
@@ -13,6 +13,10 @@ bytes: numpy reads it) or ``pytorch_model.bin`` (``torch.load`` with
 ``weights_only=True``). Keys may carry the ``transformer.`` prefix of a
 saved ``GPT2LMHeadModel`` or not (a saved ``GPT2Model``); the tied
 ``lm_head.weight`` and the attention mask buffers are ignored.
+:func:`import_bert` does the same for an HF ``BertModel`` or
+``BertForSequenceClassification``: torch ``Linear`` weights [out, in]
+are transposed to flax's [in, out], and the three QKV Linears stack into
+the ``[d, 3, H, hd]`` kernel.
 :func:`export_gpt2` writes a param tree the other way, as a directory
 that both :func:`import_gpt2` and ``GPT2LMHeadModel.from_pretrained``
 load.
@@ -28,6 +32,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from tensorflow_examples_torch.models.bert import BertConfig
 from tensorflow_examples_torch.models.transformer import TransformerConfig
 
 _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64,
@@ -136,6 +141,62 @@ def import_gpt2(hf_model_or_path: Any,
             "mlp_proj": {"kernel": sd[f"{p}.mlp.c_proj.weight"],
                          "bias": sd[f"{p}.mlp.c_proj.bias"]},
         }
+    return cfg, params
+
+
+def import_bert(hf_model_or_path: Any) -> tuple[BertConfig, dict]:
+    """An HF ``BertModel`` or ``BertForSequenceClassification`` (or a
+    local directory of one) as ``(config, params)``: the reference's
+    ``BertClassifier`` tree of numpy arrays. ``classifier`` is there only
+    when the checkpoint has one; the caller keeps its fresh head
+    otherwise (``workloads/bert_glue.py``)."""
+    if isinstance(hf_model_or_path, (str, os.PathLike)):
+        hfc, sd = _load_directory(os.fspath(hf_model_or_path))
+    else:
+        hfc = hf_model_or_path.config.to_dict()
+        sd = {k: _np(v) for k, v in hf_model_or_path.state_dict().items()}
+    cfg = BertConfig(vocab_size=hfc["vocab_size"], max_len=hfc["max_position_embeddings"],
+                     type_vocab_size=hfc["type_vocab_size"],
+                     num_layers=hfc["num_hidden_layers"], num_heads=hfc["num_attention_heads"],
+                     d_model=hfc["hidden_size"], d_ff=hfc["intermediate_size"],
+                     layer_norm_eps=hfc["layer_norm_eps"])
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    pre = "bert." if any(k.startswith("bert.") for k in sd) else ""
+
+    def lin(prefix):  # torch Linear [out, in] -> flax Dense [in, out]
+        return {"kernel": sd[f"{prefix}.weight"].T, "bias": sd[f"{prefix}.bias"]}
+
+    def ln(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    emb = f"{pre}embeddings"
+    bert: dict = {
+        "word_embeddings": {"embedding": sd[f"{emb}.word_embeddings.weight"]},
+        "position_embeddings": {"embedding": sd[f"{emb}.position_embeddings.weight"]},
+        "token_type_embeddings": {"embedding": sd[f"{emb}.token_type_embeddings.weight"]},
+        "embeddings_ln": ln(f"{emb}.LayerNorm"),
+        "pooler": lin(f"{pre}pooler.dense"),
+    }
+    for i in range(cfg.num_layers):
+        p = f"{pre}encoder.layer.{i}"
+        qkv = ("query", "key", "value")
+        bert[f"layer_{i}"] = {
+            "attn_qkv": {
+                "kernel": np.stack([sd[f"{p}.attention.self.{n}.weight"].T.reshape(d, h, hd)
+                                    for n in qkv], axis=1),
+                "bias": np.stack([sd[f"{p}.attention.self.{n}.bias"].reshape(h, hd)
+                                  for n in qkv], axis=0),
+            },
+            "attn_proj": {"kernel": sd[f"{p}.attention.output.dense.weight"].T.reshape(h, hd, d),
+                          "bias": sd[f"{p}.attention.output.dense.bias"]},
+            "attn_ln": ln(f"{p}.attention.output.LayerNorm"),
+            "ffn_in": lin(f"{p}.intermediate.dense"),
+            "ffn_out": lin(f"{p}.output.dense"),
+            "ffn_ln": ln(f"{p}.output.LayerNorm"),
+        }
+    params: dict = {"bert": bert}
+    if "classifier.weight" in sd:
+        params["classifier"] = lin("classifier")
     return cfg, params
 
 

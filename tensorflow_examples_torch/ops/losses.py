@@ -1,5 +1,6 @@
-"""Loss helpers: the port of ``tensorflow_examples_tpu/ops/losses.py``
-(the two the GPT-2 step uses)."""
+"""Losses and classification metrics: the port of
+``tensorflow_examples_tpu/ops/losses.py``. Every loss and mean is taken
+in f32 whatever the logits' dtype, as the reference's."""
 
 from __future__ import annotations
 
@@ -26,3 +27,23 @@ def weighted_mean(values: torch.Tensor, weights: torch.Tensor | None) -> torch.T
         return values.mean()
     weights = weights.float()
     return (values * weights).sum() / weights.sum().clamp_min(1.0)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                          weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy over (optionally weighted) examples: logits
+    [..., C] of any float dtype, integer labels [...]; the log-softmax in
+    f32."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    return weighted_mean(-select_label(log_probs, labels), weights)
+
+
+def accuracy_metrics(logits: torch.Tensor, labels: torch.Tensor,
+                     weights: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """``accuracy``, weighted; with weights also their sum as ``weight``,
+    which the trainer's eval mean reads."""
+    correct = (torch.argmax(logits, dim=-1) == labels.long()).float()
+    out = {"accuracy": weighted_mean(correct, weights)}
+    if weights is not None:
+        out["weight"] = weights.float().sum()
+    return out

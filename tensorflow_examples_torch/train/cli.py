@@ -1,11 +1,16 @@
 """Train a workload with the PyTorch/CUDA port.
 
     python -m tensorflow_examples_torch.train.cli --workload gpt2 --train_steps 20
+    python -m tensorflow_examples_torch.train.cli --workload bert_glue --task cola
+    python -m tensorflow_examples_torch.train.cli --workload cifar10
+    python -m tensorflow_examples_torch.train.cli --workload mnist
 
 Every field of the workload's config dataclass is a flag of the same
 name (the counterpart of the reference's ``define_flags_from_config``);
 booleans take true/false. Runs on ``cuda`` unless ``--device cpu``.
-Without ``--data_dir`` the data are the seeded synthetic streams. With
+Without ``--data_dir`` the data are the seeded synthetic sets. A
+workload's ``train_augment(cfg)``, where it has one, augments each
+training batch on the host (CIFAR-10's crop and flip). With
 ``--workdir`` the run checkpoints there every ``--checkpoint_every``
 steps and at the end, resumes from the latest checkpoint (unless
 ``--resume false``), writes ``telemetry/metrics.jsonl`` and
@@ -29,9 +34,14 @@ from tensorflow_examples_torch.data.memory import eval_batches, train_iterator
 from tensorflow_examples_torch.train.loop import Trainer
 from tensorflow_examples_torch.utils.diagnostics import install_crash_handlers
 from tensorflow_examples_torch.utils.faults import configure_io_retry
-from tensorflow_examples_torch.workloads import gpt2
+from tensorflow_examples_torch.workloads import bert_glue, cifar10, gpt2, mnist
 
-WORKLOADS = {"gpt2": (gpt2, gpt2.Gpt2Config)}
+WORKLOADS = {"gpt2": (gpt2, gpt2.Gpt2Config), "bert_glue": (bert_glue, bert_glue.BertGlueConfig),
+             "cifar10": (cifar10, cifar10.Cifar10Config), "mnist": (mnist, mnist.MnistConfig)}
+# Workloads of the reference that the port does not run yet, refused by name.
+NOT_PORTED = {"imagenet": "ResNet-50 on ImageNet is not ported yet (it needs data/imagenet.py, "
+                          "the input workers, fastjpeg and lars); the model is "
+                          "models/resnet.resnet50"}
 
 
 def _parse_bool(s: str) -> bool:
@@ -50,18 +60,32 @@ def add_config_flags(parser: argparse.ArgumentParser, config) -> None:
         parser.add_argument(f"--{f.name}", type=kind, default=default, help=f"default {default!r}")
 
 
-def build_parser() -> argparse.ArgumentParser:
+def _workload(argv) -> str:
+    """The ``--workload`` of ``argv`` (default ``gpt2``): it decides which
+    config's fields become flags."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--workload", default="gpt2")
+    return pre.parse_known_args(argv)[0].workload
+
+
+def build_parser(workload: str = "gpt2") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", choices=sorted(WORKLOADS), default="gpt2")
-    add_config_flags(p, gpt2.Gpt2Config())  # the one workload ported so far
+    if workload in WORKLOADS:
+        add_config_flags(p, WORKLOADS[workload][1]())
     return p
 
 
 def parse_config(argv=None, description: str | None = None):
-    """(args, the workload module, its config) from the command line."""
-    parser = build_parser()
+    """(parser, args, the workload module, its config) from the command
+    line; a workload the port does not run yet is a usage error naming
+    it."""
+    workload = _workload(argv)
+    parser = build_parser(workload)
     if description:
         parser.description = description
+    if workload in NOT_PORTED:
+        parser.error(f"--workload {workload}: {NOT_PORTED[workload]}")
     args = parser.parse_args(argv)
     module, config_cls = WORKLOADS[args.workload]
     cfg = config_cls(**{f.name: getattr(args, f.name) for f in dataclasses.fields(config_cls)})
@@ -74,11 +98,12 @@ def main(argv=None) -> int:
     install_crash_handlers(cfg.workdir)
     configure_io_retry(cfg.io_retries, cfg.io_backoff_secs)
     train_ds, eval_ds = module.datasets(cfg)
+    augment = module.train_augment(cfg) if hasattr(module, "train_augment") else None
     trainer = Trainer(module.make_task(cfg), cfg)
     eval_bs = cfg.eval_batch_size or cfg.global_batch_size
     metrics = trainer.fit(
         lambda start: train_iterator(train_ds, cfg.global_batch_size, seed=cfg.seed,
-                                     start_step=start),
+                                     start_step=start, augment=augment),
         eval_iter_fn=lambda: eval_batches(eval_ds, eval_bs),
     )
     print(json.dumps({"workload": args.workload, "device": str(trainer.device),

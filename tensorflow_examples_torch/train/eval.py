@@ -4,8 +4,10 @@
 
 The counterpart of the reference's ``eval_main``: takes the training
 CLI's flags (the model's widths must be the run's), restores the newest
-intact checkpoint under ``--workdir`` and prints the eval metrics, with
-the restored step, as one JSON line. Without ``--workdir`` it is a usage
+intact checkpoint under ``--workdir`` and prints the eval metrics (after
+the task's ``eval_finalize``: GLUE's MCC, F1 or Pearson), with the
+restored step, as one JSON line. It loads only the eval split, through
+the workload's ``eval_dataset``. Without ``--workdir`` it is a usage
 error (exit code 2); a workdir without a checkpoint exits non-zero.
 """
 
@@ -30,7 +32,7 @@ def main(argv=None) -> int:
     if restored is None:
         raise SystemExit(f"no checkpoint under {cfg.workdir}")
     trainer.state = restored[0]
-    _, eval_ds = module.datasets(cfg)
+    eval_ds = module.eval_dataset(cfg)
     metrics = trainer.evaluate(eval_batches(eval_ds, cfg.eval_batch_size or cfg.global_batch_size))
     print(json.dumps({"workload": args.workload, "device": str(trainer.device),
                       "step": restored[1], **{f"eval_{k}": v for k, v in metrics.items()}}))

@@ -462,7 +462,8 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, eval_iter: Iterable) -> dict[str, float]:
         """Weighted mean of ``task.eval_fn`` over ``eval_iter``'s batches
-        (each batch's ``weight`` entry, else 1)."""
+        (each batch's ``weight`` entry, else 1), through
+        ``task.eval_finalize`` when the task has one."""
         if self.task.eval_fn is None:
             return {}
         params = self.policy.cast_compute(self.state.params)
@@ -477,7 +478,10 @@ class Trainer:
             count = w if count is None else count + w
         if count is None:
             return {}
-        return {k: float(v) / max(float(count), 1.0) for k, v in totals.items()}
+        means = {k: float(v) / max(float(count), 1.0) for k, v in totals.items()}
+        if self.task.eval_finalize is not None:
+            means = dict(self.task.eval_finalize(means))
+        return means
 
 
 @contextlib.contextmanager

@@ -1,16 +1,24 @@
-"""AdamW with a warmup-cosine schedule, global-norm clipping and gradient
-accumulation: the port of ``adamw_cosine`` and its parts from
-``tensorflow_examples_tpu/train/optimizers.py``.
+"""The workloads' optimizers and schedules: the port of ``adam``,
+``adamw_cosine``, ``adamw_linear`` and ``sgd_momentum_cosine`` and their
+parts from ``tensorflow_examples_tpu/train/optimizers.py``, with
+global-norm clipping and gradient accumulation (``lars`` waits for the
+ImageNet workload).
 
 optax's transformations are written out on tensors with optax's
 arithmetic, so a port run takes the reference's updates:
 
-* the schedule is a function of the update count, evaluated on the
-  device in f32 (update 0 uses ``schedule(0)`` = 0 under warmup);
+* a schedule is a function of the update count, evaluated on the
+  device in f32 (update 0 uses ``schedule(0)`` = 0 under warmup):
+  warmup-cosine, warmup-linear (optax ``join_schedules`` of two
+  ``linear_schedule``s) or a constant;
 * ``clip_by_global_norm`` scales every gradient by ``max_norm / norm``
   when the global norm is at least ``max_norm``;
-* AdamW: ``mu_hat / (sqrt(nu_hat) + eps)`` with eps outside the sqrt,
-  plus decoupled decay ``wd * p``, times ``-lr``;
+* Adam(W): ``mu_hat / (sqrt(nu_hat) + eps)`` with eps outside the sqrt,
+  plus decoupled decay ``wd * p`` (every parameter: optax's default has
+  no mask), times ``-lr``;
+* SGD: ``add_decayed_weights`` (``g + wd * p``), then optax's ``trace``
+  with Nesterov momentum (``t = g + m t``, update ``g + m t``), times
+  ``-lr``;
 * ``MultiSteps``: the mean of ``k`` micro-batch gradients goes to the
   inner chain every ``k``-th step; the steps between return zero
   updates and leave the inner state alone.
@@ -87,6 +95,39 @@ def warmup_cosine(cfg: TrainConfig, *, end_value: float = 0.0) -> Callable:
     return schedule
 
 
+def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Callable:
+    """optax ``linear_schedule``: from ``init_value`` to ``end_value``
+    over ``transition_steps`` counts, then held."""
+
+    def schedule(count):
+        count = torch.clamp(torch.as_tensor(count), 0, transition_steps).float()
+        frac = 1.0 - count / transition_steps
+        return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+def warmup_linear(cfg: TrainConfig) -> Callable:
+    """The BERT fine-tune schedule: linear from 0 to the peak rate over
+    ``warmup`` updates, then linear to 0 at ``train_steps`` (optax
+    ``join_schedules`` with the boundary at ``warmup``)."""
+    warmup = _updates(cfg, max(cfg.warmup_steps, 1))
+    rise = linear_schedule(0.0, cfg.learning_rate, warmup)
+    fall = linear_schedule(cfg.learning_rate, 0.0, max(_updates(cfg, cfg.train_steps) - warmup, 1))
+
+    def schedule(count):
+        count = torch.as_tensor(count)
+        return torch.where(count < warmup, rise(count), fall(count - warmup))
+
+    return schedule
+
+
+def constant(value: float) -> Callable:
+    """A fixed rate, as an f32 tensor on the count's device."""
+    return lambda count: torch.full((), value, dtype=torch.float32,
+                                    device=torch.as_tensor(count).device)
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     def update(grads, state, params=None):
         norm = global_norm(grads)
@@ -100,7 +141,8 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
 def adamw(schedule: Callable, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 1e-4) -> GradientTransformation:
     """optax ``adamw``: scale_by_adam, add_decayed_weights,
-    scale_by_learning_rate, in that order."""
+    scale_by_learning_rate, in that order; ``weight_decay`` 0 is optax
+    ``adam``."""
 
     def init(params):
         device = next(iter(params.values())).device
@@ -120,10 +162,35 @@ def adamw(schedule: Callable, *, b1: float = 0.9, b2: float = 0.999, eps: float 
 
         def step(m, v, p):
             u = (m / c1.to(m.dtype)) / (torch.sqrt(v / c2.to(v.dtype)) + eps)
-            return (u + weight_decay * p) * (-lr).to(u.dtype)
+            if weight_decay:
+                u = u + weight_decay * p
+            return u * (-lr).to(u.dtype)
 
         updates = tree_map(step, mu, nu, params)
         return updates, {"count": count, "mu": mu, "nu": nu, "lr_count": state["lr_count"] + 1}
+
+    return GradientTransformation(init, update)
+
+
+def sgd(schedule: Callable, *, momentum: float = 0.9, nesterov: bool = True,
+        weight_decay: float = 0.0) -> GradientTransformation:
+    """optax ``chain(add_decayed_weights(weight_decay), sgd(schedule,
+    momentum, nesterov))``: the decay (when nonzero), the momentum trace,
+    then ``-lr``."""
+
+    def init(params):
+        device = next(iter(params.values())).device
+        return {"trace": tree_map(torch.zeros_like, params),
+                "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def update(grads, state, params):
+        if weight_decay:
+            grads = tree_map(lambda g, p: g + weight_decay * p, grads, params)
+        trace = tree_map(lambda g, t: g + momentum * t, grads, state["trace"])
+        updates = tree_map(lambda g, t: g + momentum * t, grads, trace) if nesterov else trace
+        step = -schedule(state["count"])
+        return (tree_map(lambda u: step.to(u.dtype) * u, updates),
+                {"trace": trace, "count": state["count"] + 1})
 
     return GradientTransformation(init, update)
 
@@ -182,6 +249,25 @@ def adamw_cosine(cfg: TrainConfig) -> GradientTransformation:
     0.1 x the peak rate, clipping and accumulation from the config."""
     return _maybe_wrap(cfg, adamw(warmup_cosine(cfg, end_value=0.1 * cfg.learning_rate),
                                   b1=0.9, b2=0.95, weight_decay=cfg.weight_decay))
+
+
+def adam(cfg: TrainConfig) -> GradientTransformation:
+    """The MNIST optimizer: Adam at the constant ``learning_rate``."""
+    return _maybe_wrap(cfg, adamw(constant(cfg.learning_rate), weight_decay=0.0))
+
+
+def adamw_linear(cfg: TrainConfig) -> GradientTransformation:
+    """The BERT fine-tune optimizer: AdamW (b2 0.999, eps 1e-6) under
+    warmup-linear."""
+    return _maybe_wrap(cfg, adamw(warmup_linear(cfg), b1=0.9, b2=0.999, eps=1e-6,
+                                  weight_decay=cfg.weight_decay))
+
+
+def sgd_momentum_cosine(cfg: TrainConfig, *, nesterov: bool = True) -> GradientTransformation:
+    """The ResNet optimizer: weight decay, then SGD with (Nesterov)
+    momentum 0.9 under warmup-cosine to 0."""
+    return _maybe_wrap(cfg, sgd(warmup_cosine(cfg), momentum=0.9, nesterov=nesterov,
+                                weight_decay=cfg.weight_decay))
 
 
 def apply_updates(params: dict, updates: dict) -> dict:

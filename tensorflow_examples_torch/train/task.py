@@ -10,7 +10,11 @@
   router jitter), ``batch`` tensors on the device;
 * ``make_optimizer(config) -> GradientTransformation``;
 * ``eval_fn(params, model_state, batch) -> metrics`` with an optional
-  ``weight`` entry that weights the mean (padded-batch masking).
+  ``weight`` entry that weights the mean (padded-batch masking);
+* ``eval_finalize(means) -> metrics``, optional: turns the weighted
+  means into the final metrics where a score is a function of global
+  means, not a mean itself (GLUE's F1 and MCC from confusion rates,
+  Pearson from moments, ``ops/glue_metrics.py``).
 """
 
 from __future__ import annotations
@@ -33,3 +37,4 @@ class Task:
     loss_fn: LossFn
     make_optimizer: Callable[[TrainConfig], GradientTransformation]
     eval_fn: Callable[..., Mapping[str, torch.Tensor]] | None = None
+    eval_finalize: Callable[[dict], dict] | None = None

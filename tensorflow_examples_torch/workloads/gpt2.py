@@ -138,15 +138,19 @@ def make_task(cfg: Gpt2Config, **model_overrides) -> Task:
 
 def datasets(cfg: Gpt2Config):
     """(train, eval) token windows: files under ``data_dir`` or the
-    seeded synthetic bigram streams. A ``data_dir`` without a ``val``
-    split evaluates on synthetic data, with a warning, as the reference
-    does."""
+    seeded synthetic bigram streams."""
+    kw = dict(seq_len=cfg.seq_len, vocab_size=cfg.vocab_size)
+    return load_lm_tokens(cfg.data_dir, "train", **kw), eval_dataset(cfg)
+
+
+def eval_dataset(cfg: Gpt2Config):
+    """The ``val`` split; a ``data_dir`` without one evaluates on
+    synthetic data, with a warning, as the reference does."""
     has_val = bool(cfg.data_dir) and any(
         os.path.exists(os.path.join(cfg.data_dir, "val" + ext)) for ext in (".bin", ".npy", ".txt")
     )
     if cfg.data_dir and not has_val:
         logging.getLogger(__name__).warning(
             "--data_dir=%s has no val.{bin,npy,txt}; eval runs on SYNTHETIC data", cfg.data_dir)
-    kw = dict(seq_len=cfg.seq_len, vocab_size=cfg.vocab_size)
-    return (load_lm_tokens(cfg.data_dir, "train", **kw),
-            load_lm_tokens(cfg.data_dir if has_val else "", "val", **kw))
+    return load_lm_tokens(cfg.data_dir if has_val else "", "val", seq_len=cfg.seq_len,
+                          vocab_size=cfg.vocab_size)

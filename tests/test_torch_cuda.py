@@ -964,3 +964,122 @@ def test_prefetched_batches_equal_host_batches(dev):
         for g, w in zip(got, want):
             assert all(g[key].is_cuda and np.array_equal(g[key].cpu().numpy(), w[key])
                        for key in w)
+
+
+# ------------------------------------------- BERT GLUE and the image workloads
+
+BERT_SHAPE = (32, 12, 128, 64)  # BERT-base GLUE's attention: batch, heads, sequence, head_dim
+
+
+def _bert_bias(dev, case, b, s, rng):
+    """The f32 key bias of a padding mask: lengths in [8, s] (``ragged``)
+    or none masked (``no padding``)."""
+    if case == "no padding":
+        return torch.zeros(b, s, device=dev)
+    lengths = torch.from_numpy(rng.integers(8, s + 1, b))
+    return torch.where(torch.arange(s)[None] < lengths[:, None], 0.0, attention.NEG_INF).to(dev)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", ["ragged", "no padding"])
+def test_flash_kernels_at_the_bert_shape(dev, dtype, atol, case):
+    """BERT's route: non-causal at S 128 with a key bias, bf16 on the
+    tensor cores and f32 SIMT; each kernel against its plain version at
+    the flash tolerances, and a rerun gives the same bits."""
+    rng = np.random.default_rng(31)
+    b, h, s, d = BERT_SHAPE
+    q, k, v, do = (_randn(rng, (b * h, s, d), dev, dtype) for _ in range(4))
+    kb = _bert_bias(dev, case, b, s, rng)
+    dlse = torch.zeros(b * h, s, device=dev)
+    kw = dict(heads=h, causal=False, sm_scale=d ** -0.5)
+    before = _variant_counts()
+    o, lse = attention.flash_fwd(q, k, v, kb, **kw)
+    o_ref, lse_ref = attention.flash_fwd_plain(q, k, v, kb, **kw)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=atol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, dlse, kb)
+    got = (*attention.flash_bwd_dkv(*args, **kw), attention.flash_bwd_dq(*args, **kw))
+    tc = attention.uses_tensor_cores(dtype, d)
+    assert tc == (dtype == torch.bfloat16)
+    assert _variant_counts() == [(t + tc, si + (not tc)) for t, si in before]
+    ref = (*attention.flash_bwd_dkv_plain(*args, **kw), attention.flash_bwd_dq_plain(*args, **kw))
+    grad_tol = 5e-4 if dtype == torch.float32 else 5e-2
+    for name, a, r in zip(("dk", "dv", "dq"), got, ref):
+        scale = max(float(r.float().abs().max()), 1.0)
+        torch.testing.assert_close(a.float() / scale, r.float() / scale, atol=grad_tol,
+                                   rtol=grad_tol, msg=name)
+    again = (*attention.flash_fwd(q, k, v, kb, **kw), *attention.flash_bwd_dkv(*args, **kw),
+             attention.flash_bwd_dq(*args, **kw))
+    assert all(torch.equal(x, y) for x, y in zip((o, lse, *got), again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bert_flash_path_matches_the_plain_path(dev, dtype):
+    """A 2-layer BERT at head_dim 64 and S 128 on ragged masks: logits and
+    every gradient of the flash path against the plain softmax path (f32:
+    the JAX suite's 2e-4 and 5e-4; bf16: 5e-2 of each largest value), with
+    12 launches of each kernel's variant by the dtype's rule."""
+    from tensorflow_examples_torch.models import bert
+    from tensorflow_examples_torch.models.transformer import ParamView
+
+    rng = np.random.default_rng(5)
+    base = dict(vocab_size=300, max_len=128, num_layers=2, num_heads=2, d_model=128, d_ff=256,
+                dropout=0.0)
+    model = bert.BertClassifier(bert.BertConfig(**base), 2, seed=1, device=dev)
+    tokens = torch.from_numpy(rng.integers(1, 300, (8, 128))).to(dev)
+    mask = (_bert_bias(dev, "ragged", 8, 128, rng) == 0).int()
+    out = {}
+    for impl in ("xla", "flash"):
+        leaves = {k: p.detach().to(dtype).requires_grad_() for k, p in model.named_parameters()}
+        before = _variant_counts()
+        logits = bert.forward(bert.BertConfig(**base, attention=impl), ParamView(leaves), tokens,
+                              mask)
+        grads = torch.autograd.grad((logits ** 2).sum(), list(leaves.values()))
+        counts = [(t - t0, s - s0) for (t, s), (t0, s0) in zip(_variant_counts(), before)]
+        out[impl] = (logits, dict(zip(leaves, grads)), counts)
+    tc = dtype == torch.bfloat16
+    assert out["xla"][2] == [(0, 0)] * 3
+    assert out["flash"][2] == [(2 * tc, 2 * (not tc))] * 3
+    if dtype == torch.float32:
+        torch.testing.assert_close(out["flash"][0], out["xla"][0], atol=2e-4, rtol=2e-4)
+    for name, g in out["xla"][1].items():
+        a = out["flash"][1][name].float()
+        tol = 5e-4 if dtype == torch.float32 else 5e-2
+        scale = max(float(g.float().abs().max()), 1e-30) if dtype == torch.bfloat16 else 1.0
+        torch.testing.assert_close(a / scale, g.float() / scale, atol=tol, rtol=tol, msg=name)
+
+
+def test_resnet_graph_of_two_steps_equals_two_eager_steps(dev):
+    """CIFAR-10 ResNet-20 at steps_per_launch=2 (one CUDA graph of 2
+    steps, BatchNorm statistics carried in its static buffers) against
+    eager steps, cuDNN deterministic: the same losses, parameters and
+    running statistics, bit for bit."""
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import cifar10
+
+    cfg = cifar10.Cifar10Config(global_batch_size=16, train_steps=6, warmup_steps=2,
+                                log_every=2, eval_every=0, checkpoint_every=0,
+                                telemetry_sinks="")
+    ds = cifar10.datasets(cfg)[0]
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = []
+        for k in (1, 2):
+            trainer = Trainer(cifar10.make_task(cfg), cfg.replace(steps_per_launch=k))
+            trainer.fit(lambda s: train_iterator(ds, 16, seed=0, start_step=s,
+                                                 augment=cifar10.train_augment(cfg)),
+                        num_steps=6)
+            runs.append(trainer)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    eager, graph = runs
+    assert graph.bundled_step(2).captured == 1
+    assert [h["loss"] for h in graph.history] == [h["loss"] for h in eager.history]
+    for name, p in eager.state.params.items():
+        assert torch.equal(p, graph.state.params[name]), name
+    for name, t in eager.state.model_state["batch_stats"].items():
+        assert t.dtype == torch.float32
+        assert torch.equal(t, graph.state.model_state["batch_stats"][name]), name

@@ -432,7 +432,10 @@ def test_port_imports_no_jax():
     for new in ("serving/speculative.py", "telemetry/compilation.py", "core/precision.py",
                 "utils/faults.py", "utils/diagnostics.py", "data/prefetch.py",
                 "telemetry/profiling.py", "models/hf_import.py", "train/graphs.py",
-                "serving/overload.py", "telemetry/timeseries.py", "data/tokenizers.py"):
+                "serving/overload.py", "telemetry/timeseries.py", "data/tokenizers.py",
+                "models/bert.py", "models/resnet.py", "models/mlp.py", "ops/glue_metrics.py",
+                "data/augment.py", "native.py", "workloads/bert_glue.py",
+                "workloads/cifar10.py", "workloads/mnist.py"):
         assert f"tensorflow_examples_torch/{new}" in rel
     banned = ("jax", "flax", "optax", "absl", "tensorflow_examples_tpu")
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)

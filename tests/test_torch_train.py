@@ -479,7 +479,8 @@ NOT_YET_PORTED = frozenset({
 DEFAULTS_DIFFER = {"device": ("tpu", "cuda")}
 
 
-@pytest.mark.parametrize("name", ["TrainConfig", "Gpt2Config"])
+@pytest.mark.parametrize("name", ["TrainConfig", "Gpt2Config", "BertGlueConfig", "Cifar10Config",
+                                  "MnistConfig"])
 def test_config_defaults_match_the_reference(name):
     """Every default the two packages' configs share is equal, field by
     field (``device`` excepted, by name); a reference field the port
@@ -489,11 +490,18 @@ def test_config_defaults_match_the_reference(name):
     import dataclasses
 
     from tensorflow_examples_tpu.train import config as jax_config
+    from tensorflow_examples_tpu.workloads import bert_glue as jax_bert_glue
+    from tensorflow_examples_tpu.workloads import cifar10 as jax_cifar10
+    from tensorflow_examples_tpu.workloads import mnist as jax_mnist
     from tensorflow_examples_torch.train import config as torch_config
+    from tensorflow_examples_torch.workloads import bert_glue, cifar10, mnist
 
     ref_cls, port_cls = {
         "TrainConfig": (jax_config.TrainConfig, torch_config.TrainConfig),
         "Gpt2Config": (jax_gpt2.Gpt2Config, gpt2.Gpt2Config),
+        "BertGlueConfig": (jax_bert_glue.BertGlueConfig, bert_glue.BertGlueConfig),
+        "Cifar10Config": (jax_cifar10.Cifar10Config, cifar10.Cifar10Config),
+        "MnistConfig": (jax_mnist.MnistConfig, mnist.MnistConfig),
     }[name]
     ref, port = ref_cls(), port_cls()
     ref_fields = {f.name for f in dataclasses.fields(ref_cls)}
