@@ -247,6 +247,20 @@ non-zero:
    ``python -m tensorflow_examples_torch.serve`` processes (2 layers):
    one is ``kill -9``'d, restarted and readmitted, the tokens unchanged,
    and SIGTERM drains the CLI to exit 0;
+5h. mesh, the last phase: GPT-2 at 124M widths cut to 2 layers (batch 16 x 1024) on
+   worlds of ranks sharing the one card (``torch.distributed`` over gloo,
+   every collective staged through pinned host memory): a world of 2
+   runs ``{data: 2}``, ``{data: 2}`` with ZeRO-1, ``{fsdp: 2}``,
+   ``{model: 2}`` with ``tp_vocab``, ``{context: 2}`` over the zigzag
+   ring and over Ulysses, and a world of 4 runs ``{data: 2, model: 2}``:
+   each layout's 4-step f32 trajectory (dropout 0) within rtol 3e-3 of
+   the one-rank run of the same config, ZeRO-1 within 1e-6 of ``{data:
+   2}`` with fewer optimizer bytes a rank, the ranks' losses equal, bf16
+   step p50 per rank, and the launches of flash forward, dK/dV, dQ and
+   the CE forward and backward counted on every rank (each launched on
+   every rank); ``train.cli`` under torchrun on ``{data: 2}``, its
+   checkpoint restored on ``{model: 2}`` and gathered back bit for bit,
+   and a torchrun resume on ``{model: 2}`` from that step;
 6. the ``{"group_row_sum": {...}}`` line (not the port of a TPU kernel),
    the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
@@ -296,13 +310,21 @@ CE_SHAPE = (16384, 50257)      # the step's logits: batch 16 x 1024 tokens, GPT-
 CE_EDGES = (("V=4099", 64, 4099), ("V=1000", 64, 1000), ("N=1", 1, 50257))
 TRAIN_ATTN = (16, 12, 1024)    # the GPT-2 step's attention: batch, heads, sequence
 BERT_ATTN = (32, 12, 128)      # BERT-base GLUE's attention: batch, heads, sequence (D 64)
-# Flash edge cases (label, seq_q, seq_kv, causal, key bias, nonzero dlse), at batch 2.
+# Flash edge cases (label, seq_q, seq_kv, causal, key bias, nonzero dlse), at batch 2;
+# the ring's hops at GPT-2's seq 1024 over 2 context ranks take a nonzero
+# lse cotangent from the merge: the contiguous ring's 512 x 512 causal
+# diagonal and non-causal hop, zigzag's 256 x 256 causal diagonals, both
+# chunks' 512 queries over one 256 chunk and the late chunk over 512 keys.
 FLASH_EDGES = (
     ("seq_q<seq_kv", 300, 1000, True, None, False),
     ("uneven", 777, 777, True, None, False),
     ("key_bias -1e9", 256, 256, False, -1e9, False),
     ("key_bias NEG_INF", 200, 320, True, "NEG_INF", False),
     ("dlse", 512, 512, True, None, True),
+    ("ring hop dlse", 512, 512, False, None, True),
+    ("zigzag diagonal dlse", 256, 256, True, None, True),
+    ("zigzag earlier dlse", 512, 256, False, None, True),
+    ("zigzag later dlse", 256, 512, False, None, True),
 )
 # The MoE step's expert products (m, k, n): 8 x 1024 tokens, top-2, d 768, ff 3072.
 MOE_SHAPES = ((16384, 768, 3072), (16384, 3072, 768))
@@ -4028,6 +4050,244 @@ def phase_imagenet(torch, counters, smi: str, tmp: str, here: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ mesh
+
+MESH_LAYERS = 2   # the mesh phase's depth cut (GPT-2 124M widths, 12 layers by default)
+MESH_STEPS = 4    # steps a layout: an f32 trajectory, then bf16 steps timed
+MESH_LAYOUTS_2 = (  # (name, mesh, config overrides) in one world of 2 ranks on the card
+    ("data", {"data": 2}, {}),
+    ("data+zero1", {"data": 2}, {"zero1": True}),
+    ("fsdp", {"fsdp": 2}, {}),
+    ("model+tp_vocab", {"model": 2}, {"tp_vocab": True}),
+    ("context ring zigzag", {"context": 2}, {"attention": "flash"}),
+    ("context ulysses", {"context": 2}, {"attention": "ulysses"}),
+)
+MESH_LAYOUTS_4 = (("data+model", {"data": 2, "model": 2}, {}),)
+MESH_RTOL = 3e-3        # mesh against one device, f32 (tests/test_sharding.py:306-321)
+MESH_ZERO1_RTOL = 1e-6  # ZeRO-1 against data parallelism (tests/test_sharding.py:352)
+MESH_CLI = ["--workload", "gpt2", "--num_layers", str(MESH_LAYERS), "--warmup_steps", "2",
+            "--log_every", "1", "--eval_every", "0", "--checkpoint_every", "4",
+            "--telemetry_sinks", "jsonl"]
+
+
+def mesh_config(**kw):
+    """GPT-2 124M widths (d 768, 12 heads of 64, seq 1024, vocab 50257,
+    batch 16) at ``MESH_LAYERS`` layers, f32, dropout 0, no files."""
+    from tensorflow_examples_torch.workloads import gpt2
+
+    base = dict(num_layers=MESH_LAYERS, dropout=0.0, precision="f32", warmup_steps=2,
+                train_steps=MESH_STEPS, log_every=MESH_STEPS, eval_every=0, checkpoint_every=0,
+                watchdog_secs=0, telemetry_sinks="")
+    base.update(kw)
+    return gpt2.Gpt2Config(**base)
+
+
+def mesh_batches(cfg, n: int) -> list:
+    rng = np.random.RandomState(0)
+    return [{"tokens": rng.randint(0, cfg.vocab_size, size=(cfg.global_batch_size,
+                                                             cfg.seq_len + 1)).astype(np.int32)}
+            for _ in range(n)]
+
+
+def mesh_steps(torch, trainer, batches) -> tuple[list, list]:
+    """(losses, step ms) of ``trainer.train_step`` over ``batches``."""
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        losses.append(float(metrics["loss"]))  # syncs
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def mesh_counters():
+    from tensorflow_examples_torch.ops import attention, cross_entropy
+
+    return {"flash_fwd": attention.flash_fwd, "flash_bwd_dkv": attention.flash_bwd_dkv,
+            "flash_bwd_dq": attention.flash_bwd_dq, "ce_fwd": cross_entropy.ce_fwd,
+            "ce_bwd": cross_entropy.ce_bwd}
+
+
+def mesh_worker(rank: int, layouts, restore_dir: str | None, restore_argv) -> dict:
+    """One rank of a world on the card: each layout's f32 trajectory (its
+    launches of kernels 1-5 counted from 0 around it) and bf16 step
+    times, then, with ``restore_dir``, the checkpoint there restored on
+    ``{model: 2}`` and gathered back: rank 0 reports whether every param
+    equals the saved one bit for bit."""
+    import torch
+
+    from tensorflow_examples_torch.core import distributed
+    from tensorflow_examples_torch.sharding import ShardingConfig
+    from tensorflow_examples_torch.train.checkpoint import CheckpointManager
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    counters = mesh_counters()
+    device = distributed.local_device("cuda")
+    out = {"backend": torch.distributed.get_backend(), "device": str(device), "layouts": {}}
+    for name, mesh_kw, kw in layouts:
+        cfg = mesh_config(**{k: v for k, v in kw.items() if k != "zero1"},
+                          zero1=kw.get("zero1", False))
+        sc = ShardingConfig(mesh=mesh_kw, zero1=cfg.zero1)
+        mesh = sc.build_mesh(device=device)
+        batches = mesh_batches(cfg, MESH_STEPS)
+        res = {}
+        for precision in ("f32", "bf16"):
+            run_cfg = cfg.replace(precision=precision)
+            trainer = Trainer(gpt2.make_task(run_cfg, mesh=mesh), run_cfg, mesh=mesh, sharding=sc)
+            if precision == "f32":
+                reset_counts(counters)
+            losses, ms = mesh_steps(torch, trainer, batches)
+            if precision == "f32":
+                res["launches"] = {k: c.launches for k, c in counters.items()}
+                res["losses"] = losses
+                res["opt_bytes_per_device"] = trainer.byte_breakdown(per_device=True)["opt_state"]
+            else:
+                res["bf16_step_ms"] = ms
+                res["bf16_step_ms_p50"] = float(np.median(ms[1:]))
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["layouts"][name] = res
+    if restore_dir:
+        from tensorflow_examples_torch.train import cli
+
+        _, _, _, cfg = cli.parse_config(restore_argv)
+        sc = ShardingConfig(mesh={"model": 2})
+        mesh = sc.build_mesh(device=device)
+        trainer = Trainer(gpt2.make_task(cfg, mesh=mesh), cfg, mesh=mesh, sharding=sc)
+        ckpt = CheckpointManager(restore_dir, layout=trainer.layout, primary=rank == 0)
+        state, step = ckpt.restore_latest(trainer.state)
+        whole = trainer.layout.gather_state({"params": state.params})["params"]
+        if rank == 0:
+            saved, _ = ckpt.load_latest()
+            out["restore"] = {"step": step, "params": len(whole), "bitwise": all(
+                torch.equal(whole[k].cpu(), saved["params"][k]) for k in saved["params"]),
+                "qkv_local_heads": int(state.params["h_0.attn.qkv.kernel"].shape[2])}
+    return out
+
+
+def torchrun_cli(here: str, nproc: int, argv: list, timeout: int = 600) -> dict:
+    """``train.cli`` under ``torch.distributed.run`` (torchrun) with
+    ``nproc`` ranks on this host: exit code, rank 0's result line, the
+    log lines naming the backend and a restore."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+           "--master_port", str(free_port()), "-m", "tensorflow_examples_torch.train.cli", *argv]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        fail(f"torchrun {' '.join(argv)}: exit {p.returncode}\n{p.stderr[-4000:]}")
+    results = [json.loads(x) for x in p.stdout.splitlines() if x.startswith("{")]
+    if len(results) != 1:
+        fail(f"torchrun {' '.join(argv)}: {len(results)} result lines (only rank 0 prints one)")
+    notes = [x.split(": ", 1)[-1] for x in p.stderr.splitlines()
+             if "torch.distributed initialized" in x or "restored checkpoint" in x]
+    return {"result": results[0], "wall_s": wall, "notes": notes}
+
+
+def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
+    """GPT-2 training on meshes of ranks sharing the one card (gloo,
+    collectives staged through host memory): each layout's f32 4-step
+    trajectory against the one-rank run of the same config, ZeRO-1
+    against data parallelism, bf16 step p50 per rank, the launches of
+    kernels 1-5 on every rank; then ``train.cli`` under torchrun on
+    ``{data: 2}`` and a resume on ``{model: 2}``, the checkpoint restored
+    on ``{model: 2}`` bit for bit."""
+    from tensorflow_examples_torch.core import distributed
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"config": f"GPT-2 124M widths (d 768, 12 heads, seq 1024, vocab 50257, batch 16) "
+                     f"at {MESH_LAYERS} layers; f32 dropout 0 for the trajectories, bf16 timed",
+           "card": smi}
+    # The one-rank run of the same config (tp_vocab and Ulysses are the
+    # plain head and flash attention on one rank).
+    cfg = mesh_config()
+    trainer = Trainer(gpt2.make_task(cfg), cfg)
+    ref = out["one_rank_losses"] = mesh_steps(torch, trainer, mesh_batches(cfg, MESH_STEPS))[0]
+    trainer = Trainer(gpt2.make_task(cfg.replace(precision="bf16")), cfg.replace(precision="bf16"))
+    ms = mesh_steps(torch, trainer, mesh_batches(cfg, MESH_STEPS))[1]
+    out["one_rank_bf16_step_ms_p50"] = float(np.median(ms[1:]))
+    log(f"mesh: one rank, f32 losses {ref}; bf16 step p50 {out['one_rank_bf16_step_ms_p50']:.2f} "
+        f"ms; {smi}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train.cli under torchrun on {data: 2}: the checkpoint the world below restores.
+    workdir = os.path.join(tmp, "mesh-cli")
+    run_argv = [*MESH_CLI, "--train_steps", "4", "--workdir", workdir]
+    out["torchrun_data"] = torchrun_cli(here, 2, [*run_argv, "--mesh_data", "2"])
+    log(f"mesh: torchrun data 2: {json.dumps(out['torchrun_data'])}")
+
+    worlds = ((2, MESH_LAYOUTS_2, workdir), (4, MESH_LAYOUTS_4, None))
+    ranks_out = {}
+    for n, layouts, restore in worlds:
+        t0 = time.perf_counter()
+        ranks_out[n] = distributed.run_world(mesh_worker, n, layouts, restore,
+                                             [*run_argv, "--mesh_model", "2"], device="cuda",
+                                             timeout_s=900)
+        log(f"mesh: world of {n} ranks on one card, backend {ranks_out[n][0]['backend']} "
+            f"(host-staged collectives), {time.perf_counter() - t0:.1f} s")
+    restore = ranks_out[2][0]["restore"]
+    if not restore["bitwise"] or restore["step"] != 4 or restore["qkv_local_heads"] != 6:
+        fail(f"mesh: the {{data: 2}} checkpoint restored on {{model: 2}}: {restore}")
+    out["restore_model2"] = restore
+    out["torchrun_resume_model"] = torchrun_cli(here, 2, [*MESH_CLI, "--train_steps", "6",
+                                                          "--workdir", workdir,
+                                                          "--mesh_model", "2"])
+    resumed = out["torchrun_resume_model"]
+    if resumed["result"]["steps"] != 6 or not any("restored checkpoint at step 4" in x
+                                                  for x in resumed["notes"]):
+        fail(f"mesh: torchrun resume on model 2: {resumed}")
+    log(f"mesh: torchrun resume on model 2: {json.dumps(resumed)}")
+
+    launches = {k: [0] * 4 for k in mesh_counters()}
+    out["layouts"] = {}
+    for n, layouts, _ in worlds:
+        for name, mesh_kw, kw in layouts:
+            per_rank = [r["layouts"][name] for r in ranks_out[n]]
+            want = ref
+            losses = per_rank[0]["losses"]
+            if any(r["losses"] != losses for r in per_rank):
+                fail(f"mesh {name}: ranks disagree on the loss: {[r['losses'] for r in per_rank]}")
+            rel = float(np.max(np.abs(np.array(losses) - want) / np.abs(want)))
+            if not rel <= MESH_RTOL:
+                fail(f"mesh {name}: f32 losses {losses} vs one rank {want}: rel {rel:.3e} > "
+                     f"{MESH_RTOL}")
+            for k in launches:
+                for i, r in enumerate(per_rank):
+                    launches[k][i] += r["launches"][k]
+            out["layouts"][name] = {
+                "mesh": mesh_kw, **kw, "f32_losses": losses, "rel_vs_one_rank": rel,
+                "bf16_step_ms_p50_per_rank": [r["bf16_step_ms_p50"] for r in per_rank],
+                "launches_per_rank": [r["launches"] for r in per_rank],
+                "opt_bytes_per_device": per_rank[0]["opt_bytes_per_device"]}
+            log(f"mesh {name} {mesh_kw}: f32 losses {losses} rel {rel:.3e} vs one rank; bf16 "
+                f"step p50 ms per rank {out['layouts'][name]['bf16_step_ms_p50_per_rank']}; "
+                f"launches per rank {out['layouts'][name]['launches_per_rank']}; {smi}")
+    z1, dp = out["layouts"]["data+zero1"], out["layouts"]["data"]
+    z_rel = float(np.max(np.abs(np.array(z1["f32_losses"]) - dp["f32_losses"])
+                         / np.abs(dp["f32_losses"])))
+    if not z_rel <= MESH_ZERO1_RTOL or not z1["opt_bytes_per_device"] < dp["opt_bytes_per_device"]:
+        fail(f"mesh: zero1 vs data: rel {z_rel:.3e} (> {MESH_ZERO1_RTOL}?), optimizer bytes "
+             f"per device {z1['opt_bytes_per_device']} vs {dp['opt_bytes_per_device']}")
+    out["zero1_rel_vs_data"] = z_rel
+    out["launches_per_rank"] = launches  # kernels 1-5, every layout, ranks 0-3
+    idle = [k for k, per in launches.items() if any(v == 0 for v in per[:2])]
+    if idle:
+        fail(f"mesh: kernels {idle} not launched on every rank: {launches}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh: launches of kernels 1-5 per rank over every layout {json.dumps(launches)}; "
+        f"zero1 vs data rel {z_rel:.3e}; phase {out['phase_s']:.1f} s; {smi}")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -4085,7 +4345,13 @@ def main() -> int:
     summaries = phase_serving(torch, model, model_cfg, counters, smi)
     replica = phase_replica(torch, model, model_cfg, counters, smi, here)
     fleet = phase_fleet(torch, model, model_cfg, counters, smi, here)
+    del model
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        mesh = phase_mesh(torch, here, smi, tmp)
 
+    for name in TRAIN_KERNELS:
+        # The mesh path: every layout's launches, rank by rank.
+        rows[name]["mesh_launches_per_rank"] = mesh["launches_per_rank"][name]
     for name in FLASH_KERNELS:
         rows[name]["tensor_core_launches"] = training["launches"][f"{name}_tensor_core"]
         # BERT's path: its own count (20 steps, and 8 eval batches for the forward).
@@ -4142,7 +4408,8 @@ def main() -> int:
                                    "library_fwd_bwd_ms", "library",
                                    "all_shapes", "worst_abs_err_all_cases", "design",
                                    "head_dim_sweep_max_abs_err", "tensor_core_launches",
-                                   "simt_launches", "split_launches", "bert_glue")
+                                   "simt_launches", "split_launches", "bert_glue",
+                                   "mesh_launches_per_rank")
                if k in row},
         })
     log(json.dumps({"kernels": kernels}))

@@ -61,6 +61,17 @@ the jitter equals jax's bit for bit (``core/rng.StepNoise.router_jitter``). ``fo
 returns the summed aux loss and the mean dropped fraction of the MoE
 blocks, which the reference sows as intermediates.
 
+Meshes (``forward(..., mesh=...)``, per-rank code): the block takes
+this rank's shards under :data:`GPT2_RULES`, the reference's table. qkv
+``[d, 3, H, hd]`` is split over ``model`` by heads (dim 2; the kernel is
+flattened to ``[d, 3 * H/m * hd]`` only after the split), ``proj`` and
+``mlp_proj`` by rows, ``mlp_fc`` by columns: each normalized input
+enters through ``collectives.copy_to`` and each row-parallel output is
+summed with ``psum`` before its bias. Attention runs through
+``parallel/attention.mesh_attention`` (the ring or Ulysses over
+``context``), positions start at this rank's sequence shard, and a token
+table split by vocab looks its ids up on the rank holding them.
+
 Decoding (the reference's ``sample_tokens``, ``init_cache`` and
 ``generate``): :class:`KVCache` holds each layer's keys and values at
 [B, H, max_len, D] and the next write position; :func:`decode_step`
@@ -87,15 +98,19 @@ from torch import nn
 from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_contexts,
                                      noop_context_fn)
 
+from tensorflow_examples_torch.core import collectives as coll
 from tensorflow_examples_torch.core import rng as rng_mod
+from tensorflow_examples_torch.core.mesh import AxisNames
 from tensorflow_examples_torch.core.nans import check_finite
+from tensorflow_examples_torch.core.sharding import ShardingRules
 from tensorflow_examples_torch.core.precision import materialize as _w
 from tensorflow_examples_torch.core.precision import take_rows as _rows
 from tensorflow_examples_torch.ops.attention import NEG_INF, attention_reference, flash_attention
 from tensorflow_examples_torch.ops.decode import decode_attention_reference, flash_decode_attention
+from tensorflow_examples_torch.parallel.attention import mesh_attention
 from tensorflow_examples_torch.parallel.moe import moe_ffn
 
-ATTENTION_IMPLS = ("flash", "xla")
+ATTENTION_IMPLS = ("flash", "xla", "ring", "ulysses")
 _aten = torch.ops.aten
 # What a checkpointed block saves under each remat_policy ("none": nothing).
 REMAT_SAVES = {
@@ -114,7 +129,8 @@ class TransformerConfig:
     d_model: int = 768
     d_ff: int = 0  # 0 -> 4 * d_model
     dropout: float = 0.1
-    attention: str = "flash"  # flash (the flash kernels) | xla (plain)
+    attention: str = "flash"  # flash (the flash kernels) | xla (plain) | ring | ulysses
+    #   (the context-parallel algorithm on a mesh with context > 1; flash elsewhere)
     remat: bool = False  # recompute each block in the backward
     remat_policy: str = "none"  # none | dots | dots_no_batch: what a remat block saves
     # Mixture-of-Experts: 0 = dense MLP everywhere; E > 0 swaps the MLP of
@@ -141,6 +157,25 @@ class TransformerConfig:
 
 def gpt2_124m(**overrides) -> TransformerConfig:
     return TransformerConfig(**overrides)
+
+
+# TP/FSDP rules (core/sharding.py), the reference's GPT2_RULES: axes of
+# size 1 drop out, so one table serves pure DP through 2-D meshes. qkv
+# [d, 3, H, hd] is split by heads (dim 2), the projections row-parallel.
+_M, _F = AxisNames.MODEL, AxisNames.FSDP
+GPT2_RULES = ShardingRules([
+    (r"attn/qkv/kernel", (_F, None, _M, None)),
+    (r"attn/qkv/bias", (None, _M, None)),
+    (r"attn/proj/kernel", (_M, None, _F)),
+    (r"mlp_fc/kernel", (_F, _M)),
+    (r"mlp_fc/bias", (_M,)),
+    (r"mlp_proj/kernel", (_M, _F)),
+    # MoE expert parallelism: experts ride the `model` axis.
+    (r"moe/w_in", (_M, None, None)),
+    (r"moe/b_in", (_M, None)),
+    (r"moe/w_out", (_M, None, None)),
+    (r"moe/b_out", (_M, None)),
+])
 
 
 def _normal(shape, std, generator, device):
@@ -227,6 +262,17 @@ def _embed(model: "GPT2", tokens, positions):
     return _rows(model.wte.embedding, tokens) + _rows(model.wpe.embedding, positions)
 
 
+def _embed_vocab_parallel(wte, tokens, mesh):
+    """Rows of a token table split over ``model`` by vocab (this rank's
+    rows ``[i*V/m, (i+1)*V/m)``): each rank looks up the ids it holds and
+    ``psum`` adds the pieces, each id found on exactly one rank."""
+    rows = wte.shape[0]
+    local = tokens - mesh.axis_index(AxisNames.MODEL) * rows
+    mine = (local >= 0) & (local < rows)
+    emb = torch.nn.functional.embedding(torch.where(mine, local, 0), wte)
+    return coll.psum(emb * mine[..., None].to(emb.dtype), AxisNames.MODEL, mesh=mesh)
+
+
 def _layer_norm(x, ln, eps=1e-5):
     """flax ``LayerNorm``: mean and variance in f32 whatever ``x``'s
     dtype, the affine map in f32, the result in ``x``'s dtype."""
@@ -237,17 +283,20 @@ def _layer_norm(x, ln, eps=1e-5):
     return y.to(x.dtype)
 
 
-def _block_mlp(x, blk):
+def _block_mlp(x, blk, reduce=None):
+    """``reduce``: the ``model`` psum of the row-parallel product's
+    partial sums, before its (replicated) bias."""
     h = F.gelu(x @ _w(blk.mlp_fc.kernel) + blk.mlp_fc.bias, approximate="tanh")
-    return h @ _w(blk.mlp_proj.kernel) + blk.mlp_proj.bias
+    y = h @ _w(blk.mlp_proj.kernel)
+    return (reduce(y) if reduce is not None else y) + blk.mlp_proj.bias
 
 
-def _mlp(x, blk, cfg: TransformerConfig, layer: int, moe_rng):
+def _mlp(x, blk, cfg: TransformerConfig, layer: int, moe_rng, reduce=None):
     """Block ``layer``'s MLP of ``x`` [B, L, d]: (y, moe aux, moe drop),
     the last two None for a dense block. ``moe_rng``: the router jitter's
     source (``parallel/moe.moe_ffn``'s ``rng``; None: no jitter)."""
     if not cfg.use_moe(layer):
-        return _block_mlp(x, blk), None, None
+        return _block_mlp(x, blk, reduce), None, None
     moe, dt = blk.moe, x.dtype
     return moe_ffn(moe.gate, moe.w_in.to(dt), moe.b_in.to(dt), moe.w_out.to(dt), moe.b_out.to(dt),
                    x, capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k, rng=moe_rng,
@@ -262,16 +311,21 @@ def _qkv(x, attn):
     return y[..., 0, :, :], y[..., 1, :, :], y[..., 2, :, :]
 
 
-def _attn_out(att, attn):
-    """[..., H, hd] attention output -> [..., d] residual contribution."""
+def _attn_out(att, attn, reduce=None):
+    """[..., H, hd] attention output -> [..., d] residual contribution;
+    ``reduce`` as :func:`_block_mlp`'s."""
     w = _w(attn.proj.kernel)  # [H, hd, d]
-    return att.reshape(*att.shape[:-2], -1) @ w.reshape(-1, w.shape[-1]) + attn.proj.bias
+    y = att.reshape(*att.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+    return (reduce(y) if reduce is not None else y) + attn.proj.bias
 
 
-def _self_attend(q, k, v, impl: str):
-    """Causal self-attention of [B, S, H, hd] operands."""
+def _self_attend(q, k, v, impl: str, mesh=None):
+    """Causal self-attention of [B, S, H, hd] operands (this rank's
+    shards on a mesh: ``parallel/attention.mesh_attention``)."""
     swap = lambda t: t.transpose(1, 2)  # [B,S,H,D] <-> [B,H,S,D]
-    if impl == "flash":
+    if mesh is not None:
+        out = mesh_attention(swap(q), swap(k), swap(v), mesh=mesh, causal=True, impl=impl)
+    elif impl != "xla":
         out = flash_attention(swap(q), swap(k), swap(v), causal=True)
     else:
         out = attention_reference(swap(q), swap(k), swap(v), causal=True)
@@ -313,11 +367,24 @@ def remat_context(policy: str):
     return functools.partial(create_selective_checkpoint_contexts, list(REMAT_SAVES[policy]))
 
 
-def _block(x, blk, cfg: TransformerConfig, drop: Dropout, layer: int, moe_rng):
-    """One training block: (x, moe aux, moe drop), as :func:`_mlp`."""
-    q, k, v = _qkv(_layer_norm(x, blk.ln_1), blk.attn)
-    x = x + drop(_attn_out(_self_attend(q, k, v, cfg.attention), blk.attn), 2 * layer + 1)
-    y, aux, dropped = _mlp(_layer_norm(x, blk.ln_2), blk, cfg, layer, moe_rng)
+def _block(x, blk, cfg: TransformerConfig, drop: Dropout, layer: int, moe_rng, mesh=None):
+    """One training block: (x, moe aux, moe drop), as :func:`_mlp`. On a
+    mesh with ``model`` > 1 (tensor parallelism, Megatron's layout) the
+    block holds its heads' slice of qkv and its rows of ``proj``, and
+    its ``d_ff`` slice of the MLP: each normalized input enters the
+    sharded products through ``copy_to`` (its backward sums the
+    partial input gradients over ``model``) and each row-parallel
+    output is summed with ``psum`` before its bias."""
+    enter = reduce = None
+    if mesh is not None and mesh.axis_size(AxisNames.MODEL) > 1:
+        enter = functools.partial(coll.copy_to, axis=AxisNames.MODEL, mesh=mesh)
+        reduce = functools.partial(coll.psum, axis=AxisNames.MODEL, mesh=mesh)
+    h = _layer_norm(x, blk.ln_1)
+    q, k, v = _qkv(enter(h) if enter else h, blk.attn)
+    att = _self_attend(q, k, v, cfg.attention, mesh)
+    x = x + drop(_attn_out(att, blk.attn, reduce), 2 * layer + 1)
+    h = _layer_norm(x, blk.ln_2)
+    y, aux, dropped = _mlp(enter(h) if enter else h, blk, cfg, layer, moe_rng, reduce)
     return x + drop(y, 2 * layer + 2), aux, dropped
 
 
@@ -371,20 +438,43 @@ class ParamView:
 
 
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *, train: bool = False,
-            noise: rng_mod.StepNoise | None = None, moe_stats: bool = False):
+            noise: rng_mod.StepNoise | None = None, moe_stats: bool = False, mesh=None,
+            return_hidden: bool = False):
     """The training forward: logits [B, L, vocab] of ``tokens`` [B, L] in
     the parameters' dtype. ``params`` is a :class:`GPT2` or a
     :class:`ParamView`. ``train`` turns dropout and the MoE router jitter
     on, drawn from ``noise``, the step's staged ``core/rng.StepNoise``
     (None: neither). ``moe_stats``: return
     ``(logits, moe_aux, moe_drop)``, the MoE blocks' summed aux loss and
-    mean dropped fraction (f32 scalars; 0 for a dense model)."""
+    mean dropped fraction (f32 scalars; 0 for a dense model).
+    ``return_hidden``: the final normalized hidden states [B, L, d] in
+    place of the logits (the vocab-parallel head's input).
+
+    ``mesh`` (``core/mesh.Mesh``): ``tokens`` are this rank's rows and,
+    with ``context`` > 1, its contiguous sequence shard (positions start
+    at ``context index * L``); ``params`` hold this rank's shards under
+    :data:`GPT2_RULES` (FSDP pieces already gathered), with a token
+    table split by vocab over ``model`` when its rows are fewer than
+    ``vocab_size`` (``workloads/gpt2.py`` ``tp_vocab``)."""
     if cfg.attention not in ATTENTION_IMPLS:
         raise ValueError(f"attention={cfg.attention!r} not in {ATTENTION_IMPLS}")
+    if mesh is not None and mesh.trivial:
+        mesh = None
+    if mesh is not None and cfg.moe_experts and mesh.axis_size(AxisNames.MODEL) > 1:
+        raise NotImplementedError("expert parallelism (MoE over the model axis) is not "
+                                  "ported yet; run MoE on data/fsdp meshes")
     noise = noise if train else None
     drop = Dropout(cfg.dropout, noise)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = drop(_embed(params, tokens, positions[None]), 0)
+    start = 0
+    if mesh is not None:
+        start = mesh.axis_index(AxisNames.CONTEXT) * tokens.shape[1]
+    positions = torch.arange(start, start + tokens.shape[1], device=tokens.device)
+    if mesh is not None and params.wte.embedding.shape[0] < cfg.vocab_size:
+        x = (_embed_vocab_parallel(params.wte.embedding, tokens, mesh)
+             + _rows(params.wpe.embedding, positions[None]))
+    else:
+        x = _embed(params, tokens, positions[None])
+    x = drop(x, 0)
     check_finite(x, "the embeddings")
     remat = cfg.remat and torch.is_grad_enabled()
     context_fn = remat_context(cfg.remat_policy) if remat else None
@@ -393,7 +483,7 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *, train: bool
         moe_rng = None
         if noise is not None and cfg.use_moe(layer):
             moe_rng = functools.partial(noise.router_jitter, layer)
-        args = (x, params.block(layer), cfg, drop, layer, moe_rng)
+        args = (x, params.block(layer), cfg, drop, layer, moe_rng, mesh)
         if remat:
             # No default generator draws inside a block (dropout and jitter
             # come from the step's noise), so nothing to stash for the
@@ -407,8 +497,12 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *, train: bool
         if aux is not None:
             auxes.append(aux)
             drops.append(dropped)
-    logits = _layer_norm(x, params.ln_f) @ params.wte.embedding.T
-    check_finite(logits, "the LM head")
+    hidden = _layer_norm(x, params.ln_f)
+    if return_hidden:
+        logits = hidden
+    else:
+        logits = hidden @ params.wte.embedding.T
+        check_finite(logits, "the LM head")
     if not moe_stats:
         return logits
     if not auxes:
@@ -462,7 +556,7 @@ def _decode_attend(cfg: TransformerConfig, q, k, v, cache: KVCache, layer: int):
     ck, cv = cache.k[layer], cache.v[layer]
     ck[:, :, i0:i0 + q_len] = swap(k).to(ck.dtype)
     cv[:, :, i0:i0 + q_len] = swap(v).to(cv.dtype)
-    attend = flash_decode_attention if cfg.attention == "flash" else decode_attention_reference
+    attend = decode_attention_reference if cfg.attention == "xla" else flash_decode_attention
     out = attend(swap(q).contiguous(), ck, cv, i0 + q_len, sm_scale=cfg.head_dim ** -0.5)
     return swap(out)
 

@@ -178,3 +178,69 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     nll = cross_entropy_per_example(logits.reshape(-1, vocab), labels.reshape(-1),
                                     fused=fused)
     return weighted_mean(nll, None if weights is None else weights.reshape(-1))
+
+
+# ------------------------------------------------------------------ meshes
+
+
+def mesh_cross_entropy_per_example(logits: torch.Tensor, labels: torch.Tensor, *, mesh,
+                                   fused: bool = True) -> torch.Tensor:
+    """Per-example NLL [B, S] of this rank's token shard: logits [B, S, V]
+    and labels [B, S] are its rows (and its ``context`` sequence shard),
+    so the fused kernels run locally with no collective, the reference's
+    token-sharded ``shard_map``. The reference also splits the sequence
+    over ``model`` where it divides; here ``model`` ranks compute the
+    same tokens, because splitting replicated logits would cost a
+    ``[tokens, vocab]`` gradient gather over ``model`` in the backward:
+    the vocab-parallel head (:func:`tp_cross_entropy_from_hidden`) is
+    the route that divides the head's work over ``model``."""
+    del mesh  # every rank already holds exactly its tokens
+    v = logits.shape[-1]
+    return cross_entropy_per_example(logits.reshape(-1, v), labels.reshape(-1),
+                                     fused=fused).reshape(labels.shape)
+
+
+def tp_cross_entropy_from_hidden(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
+                                 *, mesh, axis_name: str = "model",
+                                 vocab_size: int | None = None) -> torch.Tensor:
+    """Per-example NLL [N] with the vocab split over ``axis_name`` (the
+    Megatron parallel LM head): ``hidden`` [N, d] (post ``ln_f``,
+    replicated over the axis), ``wte`` the tied table, whole [V, d] or
+    this rank's rows [ceil(V/m), d] (``vocab_size`` then names V), and
+    int ``labels`` [N]. Each rank computes its [N, V/m] logits in f32,
+    and only the online-softmax partials cross ranks: the row max
+    (``pmax``, not differentiated: a stabilizer), the rescaled sum of
+    exponentials and the label's logit (``psum``). A vocab that does not
+    divide gives the last rank fewer rows, the reference's padding
+    without the pad. Degenerates to the fused kernels when the axis is
+    trivial."""
+    vocab = vocab_size or wte.shape[0]
+    m = 1 if mesh is None else mesh.axis_size(axis_name)
+    if m == 1:
+        logits = hidden.float() @ wte.float().T
+        return cross_entropy_per_example(logits, labels)
+    from tensorflow_examples_torch.core import collectives as coll
+
+    v_local = -(-vocab // m)
+    i = mesh.axis_index(axis_name)
+    if wte.shape[0] == vocab:  # whole table: this rank's rows, gradients summed over the axis
+        w = coll.copy_to(wte, axis_name, mesh=mesh)[i * v_local:min((i + 1) * v_local, vocab)]
+    elif wte.shape[0] == v_local and vocab % m == 0:
+        w = wte
+    else:
+        raise ValueError(f"wte rows {wte.shape[0]} are neither the vocab {vocab} nor its "
+                         f"{m}-way shard")
+    s = coll.copy_to(hidden, axis_name, mesh=mesh).float() @ w.float().T
+    labels = labels.long()
+    if s.shape[1]:
+        row_max = s.amax(dim=1)
+        sumexp = torch.exp(s - row_max[:, None]).sum(dim=1)
+        col = i * v_local + torch.arange(s.shape[1], device=s.device)
+        label_logit = torch.where(col[None] == labels[:, None], s, 0.0).sum(dim=1)
+    else:  # a vocab smaller than the shards leaves this rank none
+        row_max = torch.full(s.shape[:1], NEG_INF, device=s.device)
+        sumexp = label_logit = torch.zeros(s.shape[:1], device=s.device) + 0.0 * s.sum()
+    gm = coll.pmax(row_max, axis_name, mesh=mesh)
+    gl = coll.psum(sumexp * torch.exp(row_max - gm), axis_name, mesh=mesh)
+    gt = coll.psum(label_logit, axis_name, mesh=mesh)
+    return gm + torch.log(torch.clamp(gl, min=1e-30)) - gt

@@ -17,8 +17,18 @@ serves at ``/window``. A post-warmup recompile of the training step
 (``telemetry/compilation.py``) lands as a ``kind="compile_warning"``
 line, a completed profiler window (``telemetry/profiling.py``) rides
 the final line as ``"profile"``, and the watchdog's fatal exit calls
-``emergency_flush``. The fleet allgather of the reference is not
-ported (``last_fleet_line`` stays None).
+``emergency_flush``.
+
+Every window line is followed by a ``kind="fleet"`` line when the hub
+has a ``FleetMonitor`` (``telemetry/fleet.py``; ``from_config`` makes
+one): the ranks' health vectors allgathered, a collective at every
+rank's window. It is ``last_fleet_line``, which the server answers at
+``/fleet``; the watchdog's fatal path writes the monitor's cached
+snapshot instead, with no collective. On a mesh only rank 0 writes
+sinks and the trace (``from_config`` gives any other ``host`` none),
+every line carries its rank as ``host``, and the final line carries the
+``sharding`` object (``sharding_info``: mesh shape, param-sharding
+digest, ZeRO-1).
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ class Telemetry:
                  peak_flops_total: float = 0.0, peak_is_estimate: bool = True,
                  tokens_per_example: int = 1, trace_file: str | None = None,
                  flush_every: int = 1, device: torch.device | None = None,
-                 memory: memory_mod.MemoryMonitor | None = None):
+                 memory: memory_mod.MemoryMonitor | None = None, fleet=None, host: int = 0):
         self.sinks = sinks
         self.registry = registry_mod.default_registry()
         self.tracer = spans_mod.default_tracer()
@@ -54,7 +64,9 @@ class Telemetry:
         self.flush_every = max(int(flush_every), 1)
         self.device = device if device is not None else torch.device("cpu")
         self.memory = memory
-        self.host = 0
+        self.fleet = fleet  # a telemetry/fleet.FleetMonitor, or None: no fleet lines
+        self.host = int(host)
+        self.sharding_info: dict | None = None  # the final line's "sharding" object
         self.server = None  # a started telemetry/serve.MetricsServer, closed with the hub
         self.last_line: dict | None = None  # the latest window, eval or final line
         self.last_fleet_line: dict | None = None
@@ -73,12 +85,17 @@ class Telemetry:
             self.registry.gauge("telemetry/peak_is_estimate").set(float(peak_is_estimate))
 
     @classmethod
-    def from_config(cls, cfg, *, n_params: int = 0,
-                    device: torch.device | None = None) -> "Telemetry":
+    def from_config(cls, cfg, *, n_params: int = 0, device: torch.device | None = None,
+                    host: int = 0, n_devices: int = 1) -> "Telemetry":
         """From the TrainConfig's sink spec, trace toggle, flush cadence
-        and peak override, and the workload's size."""
+        and peak override, and the workload's size; ``host`` is this
+        rank (only rank 0 writes files) and ``n_devices`` the mesh's
+        size (the MFU's peak is the whole mesh's)."""
+        from tensorflow_examples_torch.telemetry import fleet as fleet_mod
+
         device = device if device is not None else torch.device("cpu")
-        sinks = sinks_mod.make_sinks(cfg.telemetry_sinks, cfg.workdir)
+        primary = host == 0
+        sinks = sinks_mod.make_sinks(cfg.telemetry_sinks, cfg.workdir) if primary else []
         # Processed tokens per example: seq_len for token workloads.
         tokens = int(getattr(cfg, "seq_len", 0) or 0) or 1
         if cfg.telemetry_peak_tflops > 0:
@@ -86,13 +103,15 @@ class Telemetry:
         else:
             name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
             peak, known = accounting.peak_flops_per_device(name)
-        trace = sinks_mod.trace_path(cfg.workdir) if cfg.workdir and cfg.telemetry_trace else None
+        trace = (sinks_mod.trace_path(cfg.workdir)
+                 if cfg.workdir and cfg.telemetry_trace and primary else None)
         return cls(sinks, flops_per_step=accounting.train_step_flops(
                        n_params, cfg.global_batch_size, tokens),
-                   peak_flops_total=peak, peak_is_estimate=not known,
+                   peak_flops_total=peak * n_devices, peak_is_estimate=not known,
                    tokens_per_example=tokens, trace_file=trace,
                    flush_every=cfg.telemetry_flush_every, device=device,
-                   memory=memory_mod.MemoryMonitor(device=device))
+                   memory=memory_mod.MemoryMonitor(device=device),
+                   fleet=fleet_mod.FleetMonitor.from_config(cfg), host=host)
 
     # ------------------------------------------------------------ intake
 
@@ -137,7 +156,7 @@ class Telemetry:
         line = {
             "schema_version": schema.SCHEMA_VERSION,
             "kind": kind,
-            "host": 0,
+            "host": self.host,
             "step": int(step),
             "time_unix": time.time(),
             "session_start_unix": self._session_start,
@@ -151,6 +170,8 @@ class Telemetry:
             line["exit_reason"] = exit_reason or "complete"
             if self.profile_info is not None:
                 line["profile"] = dict(self.profile_info)
+            if self.sharding_info is not None:
+                line["sharding"] = dict(self.sharding_info)
         if self.memory is not None and kind in ("window", "final"):
             try:
                 if not self._emergency:
@@ -167,12 +188,25 @@ class Telemetry:
             except Exception:
                 log.exception("telemetry sink %s failed to write (continuing)",
                               type(sink).__name__)
-        if kind in ("window", "eval", "final"):
+        if kind == "fleet":
+            self.last_fleet_line = line
+        elif kind in ("window", "eval", "final"):
             self.last_line = line  # /window serves scalar lines only
-        self._windows_since_flush += 1
-        if self._windows_since_flush >= self.flush_every:
-            self.flush()
+        if kind == "window" and self.fleet is not None:
+            self._emit_fleet(step, counters)
+        if kind != "fleet":  # the fleet line rides its window's flush
+            self._windows_since_flush += 1
+            if self._windows_since_flush >= self.flush_every:
+                self.flush()
         return line
+
+    def _emit_fleet(self, step: int, counters: Mapping[str, int]) -> None:
+        try:
+            payload = self.fleet.gather(counters)
+        except Exception:  # pragma: no cover - collective teardown races
+            log.exception("fleet gather failed (continuing)")
+            return
+        self.log_window(step, {}, kind="fleet", extra={"fleet": payload})
 
     def last_window_age(self) -> float | None:
         """Seconds since the last window, eval or final line (``/health``)."""
@@ -214,6 +248,12 @@ class Telemetry:
         memory fields of the last sample), the metrics server closed, the
         trace and every sink to disk."""
         self._emergency = True
+        if self.fleet is not None:  # the last known fleet state, no collective
+            try:
+                self.log_window(self._last_step, {}, kind="fleet",
+                                extra={"fleet": self.fleet.snapshot(self.fit_counters())})
+            except Exception:  # pragma: no cover - the process exits next; best effort
+                log.exception("watchdog-fatal fleet snapshot failed")
         try:
             self.final_window(self._last_step, {}, exit_reason="watchdog_fatal")
         except Exception:  # pragma: no cover - the process exits next; best effort

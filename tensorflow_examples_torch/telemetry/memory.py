@@ -66,16 +66,21 @@ def _leaves(tree: Any):
         yield tree
 
 
-def tree_bytes(tree: Any) -> int:
+def tree_bytes(tree: Any, *, per_device: bool = False, pieces: Any = None) -> int:
     """Total bytes of the tensors and arrays of a nested structure (dicts,
-    lists, tuples, dataclasses such as ``TrainState``). The reference's
-    ``per_device`` (a sharded leaf's share) waits for meshes."""
+    lists, tuples, dataclasses such as ``TrainState``). On a mesh a leaf
+    is this rank's piece of a tensor cut into ``pieces`` (a tree of ints
+    of ``tree``'s structure, ``sharding/layout.StateLayout.pieces``; None:
+    every leaf whole): ``per_device=True`` counts the pieces this rank
+    holds, ``False`` the whole tensors' bytes, as the reference's."""
+    counts = [1] * len(list(_leaves(tree))) if pieces is None or per_device else list(
+        _leaves(pieces))
     total = 0
-    for leaf in _leaves(tree):
+    for leaf, n in zip(_leaves(tree), counts):
         if torch.is_tensor(leaf):
-            total += leaf.numel() * leaf.element_size()
+            total += leaf.numel() * leaf.element_size() * n
         elif isinstance(leaf, np.ndarray):
-            total += int(leaf.nbytes)
+            total += int(leaf.nbytes) * n
     return total
 
 

@@ -12,7 +12,16 @@ its own checkpoints, not the reference's orbax ones.
 ``save`` copies the state to the host on the calling thread (a device
 sync, then the step may go on mutating nothing it saved) and writes it
 on a background thread, one write at a time; ``wait`` and ``close``
-join it and re-raise its error. ``max_to_keep`` steps are kept.
+join it and re-raise its error.
+
+On a mesh (``layout``, a ``sharding/layout.StateLayout``) every rank
+calls ``save``: the whole tensors are gathered from the ranks' pieces (a
+collective) and only the ``primary`` rank writes them, in the same
+format, so a checkpoint never depends on the mesh that wrote it.
+``restore_latest`` reads the whole tensors on every rank, checks them
+against the live state's whole shapes and cuts this rank's pieces for
+the live mesh, whatever its shape: parameters restore bitwise across
+mesh shapes. ``max_to_keep`` steps are kept.
 ``restore_latest`` verifies each step's manifest, newest first, and
 falls back to the newest intact step with a warning that names the
 corrupt file; it checks the saved tree against the live state and names
@@ -70,11 +79,14 @@ def _as_dict(state) -> dict:
 
 
 class CheckpointManager:
-    def __init__(self, workdir: str, *, max_to_keep: int = 3):
+    def __init__(self, workdir: str, *, max_to_keep: int = 3, layout=None, primary: bool = True):
         self.directory = os.path.abspath(os.path.join(workdir, "checkpoints"))
         self.max_to_keep = max(int(max_to_keep), 1)
+        self.layout = layout
+        self.primary = primary
         self._thread: threading.Thread | None = None
         self._pending_step: int | None = None
+        self._saved_here: int | None = None  # a non-primary rank's last saved step
         self._error: BaseException | None = None
 
     def __enter__(self) -> "CheckpointManager":
@@ -94,7 +106,8 @@ class CheckpointManager:
 
     def latest_step(self) -> int | None:
         """The newest step saved or being saved."""
-        steps = self.all_steps() + ([self._pending_step] if self._pending_step is not None else [])
+        steps = self.all_steps() + [s for s in (self._pending_step, self._saved_here)
+                                    if s is not None]
         return max(steps) if steps else None
 
     def step_dir(self, step: int) -> str:
@@ -106,9 +119,15 @@ class CheckpointManager:
         """Copy ``state`` to the host now, write it on a thread."""
         self.wait()  # one write at a time; an earlier write's error raises here
         with span("checkpoint_save", step=step):
+            tree = _as_dict(state)
+            if self.layout is not None:
+                tree.update(self.layout.gather_state(
+                    {k: tree[k] for k in ("params", "opt_state", "model_state")}))
+            if not self.primary:
+                self._saved_here = step
+                return
             host = optimizers.tree_map(
-                lambda t: t.detach().to("cpu", copy=True) if torch.is_tensor(t) else t,
-                _as_dict(state))
+                lambda t: t.detach().to("cpu", copy=True) if torch.is_tensor(t) else t, tree)
         host["step"] = int(step)
         default_registry().counter("checkpoint/saves").inc()
         self._pending_step = step
@@ -214,8 +233,14 @@ class CheckpointManager:
             return None
         saved, step = found
         live = _as_dict(state)
+        parts = ("params", "opt_state", "model_state")
         if validate:
-            _validate_structure(step, saved, live)
+            template = live
+            if self.layout is not None:
+                template = {**live, **self.layout.full_template({k: live[k] for k in parts})}
+            _validate_structure(step, saved, template)
+        if self.layout is not None:
+            saved = {**saved, **self.layout.cut_state({k: saved[k] for k in parts})}
         put = lambda s, x: s.to(x.device, x.dtype) if torch.is_tensor(x) else s
         restored = {k: optimizers.tree_map(put, saved[k], live[k])
                     for k in ("params", "opt_state", "model_state")}

@@ -25,16 +25,32 @@ up; ``TPU_FAULT_INJECT`` arms the fault plan of ``utils/faults.py``.
 Prints the final metrics, the final eval's included, as one JSON line.
 ``python -m tensorflow_examples_torch.train.eval`` evaluates the latest
 checkpoint of a workdir.
+
+On a mesh, one process a rank under ``torchrun``:
+
+    torchrun --nproc_per_node 2 -m tensorflow_examples_torch.train.cli \
+        --mesh_data 2 --workdir /tmp/run   # or --mesh_fsdp / --mesh_model /
+                                           # --mesh_context, --zero1 true
+
+The process group starts from ``torchrun``'s environment
+(``core/distributed.initialize``: NCCL with a card a rank, gloo when ranks
+share one), the ``--mesh_*`` flags (or ``--sharding_config``) shape the
+mesh, every rank feeds its rows of the same seeded global batches, and
+only rank 0 writes checkpoints, telemetry and the JSON line. A resume
+may use another mesh shape: checkpoints hold whole tensors.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import logging
 
+from tensorflow_examples_torch.core import distributed
 from tensorflow_examples_torch.data.memory import eval_batches, train_iterator
+from tensorflow_examples_torch.sharding import ShardingConfig
 from tensorflow_examples_torch.train.loop import Trainer
 from tensorflow_examples_torch.utils.diagnostics import install_crash_handlers
 from tensorflow_examples_torch.utils.faults import configure_io_retry
@@ -110,11 +126,21 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     install_crash_handlers(cfg.workdir)
     configure_io_retry(cfg.io_retries, cfg.io_backoff_secs)
-    train_fn, eval_fn = iterators(module, cfg)
-    trainer = Trainer(module.make_task(cfg), cfg)
-    metrics = trainer.fit(train_fn, eval_iter_fn=eval_fn)
-    print(json.dumps({"workload": args.workload, "device": str(trainer.device),
-                      "steps": trainer.state.step, **metrics}))
+    distributed.initialize(device=cfg.device)
+    try:
+        sharding = (ShardingConfig.load(cfg.sharding_config) if cfg.sharding_config
+                    else ShardingConfig.from_train_config(cfg))
+        mesh = sharding.build_mesh(device=distributed.local_device(cfg.device))
+        train_fn, eval_fn = iterators(module, cfg)
+        takes_mesh = "mesh" in inspect.signature(module.make_task).parameters
+        task = module.make_task(cfg, mesh=mesh) if takes_mesh else module.make_task(cfg)
+        trainer = Trainer(task, cfg, mesh=mesh, sharding=sharding)
+        metrics = trainer.fit(train_fn, eval_iter_fn=eval_fn)
+        if distributed.is_primary():
+            print(json.dumps({"workload": args.workload, "device": str(trainer.device),
+                              "mesh": dict(mesh.shape), "steps": trainer.state.step, **metrics}))
+    finally:
+        distributed.shutdown()
     return 0
 
 

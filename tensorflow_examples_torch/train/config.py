@@ -3,17 +3,26 @@
 loop read, with the same names and defaults, except ``device``, which
 names a PyTorch device (``cuda`` unless the caller asks for ``cpu``).
 
-Meshes are not ported yet; their fields are absent rather than ignored.
+The mesh fields shape the ``torch.distributed`` mesh (``core/mesh.py``)
+over the ranks of the process group, one rank a device. Pipeline
+parallelism is not ported yet: ``mesh_pipe`` and the microbatch fields
+are absent rather than ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from tensorflow_examples_torch.core.mesh import MeshConfig
+
 
 @dataclasses.dataclass
 class TrainConfig:
     device: str = "cuda"  # cuda | cpu
+    mesh_data: int = -1  # -1: all remaining ranks on the data axis
+    mesh_fsdp: int = 1
+    mesh_model: int = 1
+    mesh_context: int = 1
 
     # Optimization
     global_batch_size: int = 128
@@ -30,6 +39,12 @@ class TrainConfig:
     #   multiples of K
     precision: str = "bf16"  # f32 | bf16 | bf16_full
     remat: bool = False  # recompute each block in the backward
+    zero1: bool = False  # shard optimizer state over the batch axes even
+    #   for replicated params (ZeRO-1 / weight-update sharding)
+    sharding_config: str = ""  # path to a ShardingConfig JSON (sharding/):
+    #   when set, it is the single source of truth for mesh shape, rules,
+    #   batch axes and ZeRO-1 (the mesh_*/zero1 knobs are ignored).
+    #   Training persists the active config to workdir/sharding.json
 
     # Loop cadence
     log_every: int = 100
@@ -94,9 +109,17 @@ class TrainConfig:
     #   the device name (an unknown name gives a labelled 1 TFLOP/s)
     metrics_port: int = 0  # > 0: serve /metrics, /health, /window and /fleet on
     #   this port while fit runs (telemetry/serve.MetricsServer); 0 disables
+    straggler_skew_factor: float = 2.0  # fleet straggler threshold
+    #   (telemetry/fleet.py): a rank whose step-time p95 exceeds this
+    #   multiple of the others' median is named on the kind="fleet" line
+    #   and in a WARNING (0 disables the warning, not the lines)
     compile_warmup: int = 1  # expected signatures per training step function
     #   (telemetry/compilation.py): a new one past this many is a recompile,
     #   logged and written as a kind="compile_warning" line
+
+    def mesh_config(self) -> MeshConfig:
+        return MeshConfig(data=self.mesh_data, fsdp=self.mesh_fsdp, model=self.mesh_model,
+                          context=self.mesh_context)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

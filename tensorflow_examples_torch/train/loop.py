@@ -42,9 +42,32 @@ stalled input fetch, step or log flush, and exits 87 past
 ``utils/faults.py`` hooks in where the reference's does. Each log window
 lands a telemetry line (``telemetry/hub.py``) and keeps the window's
 means in ``history``; every exit path lands a ``final`` line and closes
-the sinks and the checkpoint writer. Meshes are a later slice. The
-trainer runs on ``cuda`` unless ``config.device`` is ``cpu``, and
-raises without a GPU.
+the sinks and the checkpoint writer. The trainer runs on ``cuda``
+(``cuda:LOCAL_RANK``) unless ``config.device`` is ``cpu``, and raises
+without a GPU.
+
+Meshes (``core/mesh.py``): one :class:`~..sharding.ShardingConfig` is
+the source of truth, passed in, read from ``config.sharding_config``, or
+made from the ``mesh_*``/``zero1`` fields and the task's rules. Every
+rank of the process group runs the trainer: it initializes the whole
+model from the seed and keeps its pieces (``sharding/layout.py``); each
+step reads its rows of the global batch (the order of the reference's
+``batch_sharding``), gathers FSDP pieces on use, averages gradients over
+the batch and context axes, and under ``zero1`` reduce-scatters them,
+updates its piece of the moments and all-gathers the parameters. Loss,
+metrics and the gradient norm are global, so every rank's bad-step
+guard and log window agree. ``fit`` allgathers the placement digest,
+checks and refreshes ``workdir/sharding.json`` (a drifted rules table
+raises :class:`~..sharding.ShardingMismatchError`), checkpoints whole
+tensors from the primary rank and restores onto any mesh shape; only the
+primary writes telemetry files or serves the metrics endpoints, and the
+final line carries the ``sharding`` object. ``evaluate`` sums its
+weighted totals over the batch axes (and averages them over
+``context``); ``per_host`` eval streams are padded to the longest rank's
+with zero-weight batches (:func:`_pad_per_host_batches`). Under the
+``gloo`` backend on the card (several ranks on one GPU), collectives are
+staged through host memory, which a CUDA graph cannot hold, so
+``steps_per_launch`` > 1 raises there.
 
 Memory (``telemetry/memory.py``): the hub's monitor writes the fit-start
 breakdown line and the watermark of every window; a fit that dies of an
@@ -60,8 +83,10 @@ after each eval.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import logging
+import os
 import sys
 import time
 from typing import Callable, Iterable, Iterator, Mapping
@@ -69,11 +94,16 @@ from typing import Callable, Iterable, Iterator, Mapping
 import numpy as np
 import torch
 
-from tensorflow_examples_torch.core import nans, rng
-from tensorflow_examples_torch.core.device import resolve_device
+from tensorflow_examples_torch.core import collectives as coll
+from tensorflow_examples_torch.core import distributed, nans, rng
 from tensorflow_examples_torch.core.precision import PrecisionPolicy
+from tensorflow_examples_torch.core.sharding import ShardingRules, batch_rows
 from tensorflow_examples_torch.data.prefetch import bundle_batches, device_prefetch, put_batch
 from tensorflow_examples_torch.models.convert import flatten_tree
+from tensorflow_examples_torch.sharding import (ShardingConfig, ShardingMismatchError,
+                                                resolve_params, verify_digest_agreement)
+from tensorflow_examples_torch.sharding.config import rules_to_json
+from tensorflow_examples_torch.sharding.layout import StateLayout
 from tensorflow_examples_torch.telemetry.compilation import CompilationSentinel
 from tensorflow_examples_torch.telemetry import memory as memory_mod
 from tensorflow_examples_torch.telemetry.hub import Telemetry
@@ -92,20 +122,35 @@ log = logging.getLogger(__name__)
 
 
 class Trainer:
-    """Runs a :class:`Task` under a :class:`TrainConfig` on one device.
+    """Runs a :class:`Task` under a :class:`TrainConfig` on this rank's
+    device of a mesh (one device in one process).
 
     ``init_params``: an optional param tree in the reference's layout
     (nested dicts of arrays, or ``/``-joined flat keys) that replaces the
     task's random init, e.g. weights carried over from the JAX package.
+    ``mesh`` (``core/mesh.Mesh``) and ``sharding``: see the module
+    docstring; a task whose model splits over ``model`` or ``context``
+    must be made for the same mesh (``gpt2.make_task(cfg, mesh=mesh)``).
     """
 
-    def __init__(self, task: Task, config: TrainConfig, *, init_params: Mapping | None = None):
+    def __init__(self, task: Task, config: TrainConfig, *, init_params: Mapping | None = None,
+                 mesh=None, sharding: ShardingConfig | None = None):
         self.task = task
         self.config = config
-        self.device = resolve_device(config.device)
+        self.device = distributed.local_device(config.device)
         if self.device.type == "cuda":
             # f32 means f32: TF32 matmuls keep ~3 decimal digits.
             torch.backends.cuda.matmul.allow_tf32 = False
+        if sharding is None:
+            path = getattr(config, "sharding_config", "")
+            sharding = (ShardingConfig.load(path) if path else
+                        ShardingConfig.from_train_config(config, rules=task.sharding_rules))
+        self.mesh = mesh if mesh is not None else sharding.build_mesh(device=self.device)
+        if mesh is not None:  # what actually runs, for sharding.json and telemetry
+            sharding = dataclasses.replace(sharding, mesh=dict(mesh.shape))
+        self.sharding = sharding
+        self._rules = sharding.sharding_rules(default=task.sharding_rules or ShardingRules())
+        self.layout: StateLayout | None = None  # set by _init_state on a mesh
         self.policy = PrecisionPolicy.create(config.precision)
         self._seed_key = rng.PRNGKey(config.seed + 1)
         if config.bad_step_policy not in resilience.POLICIES:
@@ -143,19 +188,123 @@ class Trainer:
             params = {k: torch.as_tensor(np.asarray(given[k], np.float32)) for k in params}
         params = {k: v.detach().to(self.device, self.policy.param_dtype) for k, v in params.items()}
         self.n_params = sum(p.numel() for p in params.values())
-        log.info("initialized %s: %.2fM params on %s", self.task.name, self.n_params / 1e6,
-                 self.device)
-        return TrainState.create(params=params, tx=self.task.make_optimizer(self.config),
-                                 model_state=variables)
+        self._resolution = resolve_params(params, self.mesh, self._rules)
+        tx = self.task.make_optimizer(self.config)
+        log.info("initialized %s: %.2fM params on %s, mesh %s", self.task.name,
+                 self.n_params / 1e6, self.device, self.mesh.shape)
+        if self.mesh.trivial:
+            return TrainState.create(params=params, tx=tx, model_state=variables)
+        layout = self.layout = StateLayout(self.mesh, self._rules, params, tx,
+                                           zero1=self.sharding.zero1,
+                                           batch_axes=self.sharding.batch_axes)
+        if variables and layout.n_grad > 1:
+            raise NotImplementedError(
+                f"{self.task.name} keeps running statistics ({sorted(variables)}), which a "
+                "batch split over ranks would need to reduce across them: not ported yet")
+        params = layout.shard_params(params)
+        return TrainState(step=0, params=params, opt_state=tx.init(layout.opt_view(params)),
+                          model_state=variables, tx=tx)
+
+    def sharding_digest(self) -> str:
+        """Stable hash of the param -> spec table (the reference's bytes;
+        mesh-shape independent), on the final telemetry line and in
+        ``workdir/sharding.json``."""
+        return self._resolution.digest()
+
+    def _sync_sharding_json(self, workdir: str) -> None:
+        """Validate against, then refresh, ``workdir/sharding.json``: a
+        saved digest that differs from the live one means the rules
+        drifted since the checkpoints were written, a config error named
+        path by path (a mesh-shape change hashes alike and reshards)."""
+        path = os.path.join(workdir, "sharding.json")
+        if os.path.exists(path):
+            try:
+                saved_cfg, extra = ShardingConfig.load_with_extra(path)
+            except (ValueError, OSError) as e:
+                raise ShardingMismatchError(
+                    f"unreadable sharding config at {path}: {e} - move it aside if the workdir "
+                    "is being repurposed") from e
+            saved_digest = extra.get("param_sharding_digest")
+            live = self._resolution
+            if saved_digest and saved_digest != live.digest():
+                template = {r.path.replace("/", "."): torch.empty(r.shape, device="meta")
+                            for r in live.rows}
+                theirs = resolve_params(template, self.mesh,
+                                        saved_cfg.sharding_rules(default=ShardingRules())
+                                        ).spec_by_path()
+                mine = live.spec_by_path()
+                drifted = [p for p in sorted(set(mine) | set(theirs))
+                           if mine.get(p) != theirs.get(p)]
+                shown = "\n  ".join(f"{p}: saved {theirs.get(p)} vs live {mine.get(p)}"
+                                    for p in drifted[:10]) or (
+                    "(digest drift outside the resolvable param table)")
+                more = f"\n  ... and {len(drifted) - 10} more" if len(drifted) > 10 else ""
+                raise ShardingMismatchError(
+                    f"sharding rules drifted vs {path} (saved digest {saved_digest}, live "
+                    f"{live.digest()}): checkpoints in this workdir were written under "
+                    "different placement rules. Mesh-shape changes reshard fine; rule changes "
+                    f"need a fresh workdir (or delete sharding.json deliberately).\n  "
+                    f"{shown}{more}")
+        if distributed.is_primary():
+            # The resolved rules: a config that inherited the task's table
+            # writes it out, so the file stands alone.
+            to_save = (self.sharding if self.sharding.rules else
+                       dataclasses.replace(self.sharding, rules=rules_to_json(self._rules)))
+            try:
+                os.makedirs(workdir, exist_ok=True)
+                to_save.save(path, extra={"param_sharding_digest": self.sharding_digest(),
+                                          "mesh_shape": self.sharding.mesh_shape_dict(self.mesh)})
+            except OSError:  # metadata: never kill a training job over it
+                log.warning("could not persist %s (continuing)", path, exc_info=True)
+
+    def byte_breakdown(self, *, per_device: bool = False) -> dict[str, int]:
+        """Tensor bytes of params, optimizer state and non-trainable
+        collections: whole tensors, or (``per_device``) this rank's
+        pieces, the ZeRO-1 and FSDP memory claims' unit."""
+        parts = {"params": self.state.params, "opt_state": self.state.opt_state,
+                 "model_state": self.state.model_state}
+        pieces = self.layout.pieces(parts) if self.layout is not None else {}
+        return {k: memory_mod.tree_bytes(v, per_device=per_device, pieces=pieces.get(k))
+                for k, v in parts.items()}
 
     # ------------------------------------------------------------- steps
 
+    def local_batch(self, batch: Mapping) -> dict:
+        """This rank's rows of a global host batch (all of it in one
+        process)."""
+        if self.layout is None or not self.layout.batch_axes:
+            return dict(batch)
+        return {k: v[batch_rows(len(v), self.mesh, self.layout.batch_axes)]
+                for k, v in batch.items()}
+
     def put_batch(self, batch: Mapping) -> dict[str, torch.Tensor]:
-        return put_batch(batch, self.device)
+        """This rank's rows of a host batch, on the device."""
+        return put_batch(self.local_batch(batch), self.device)
 
     def step_key(self, step: int) -> np.ndarray:
-        """Step ``step``'s key: ``step_rng(PRNGKey(seed + 1), step)``."""
-        return rng.step_rng(self._seed_key, step)
+        """Step ``step``'s key: ``step_rng(PRNGKey(seed + 1), step)``, with
+        this rank's batch and sequence shard folded in where the mesh
+        splits them (each shard draws its own dropout masks; ranks that
+        compute the same tokens draw the same ones)."""
+        key = rng.step_rng(self._seed_key, step)
+        if self.layout is not None and self.layout.grad_axes:
+            key = rng.fold_in(key, self.mesh.axis_index(self.layout.grad_axes))
+        return key
+
+    def _compute_params(self, params: Mapping) -> Mapping:
+        """What a step's forward reads: compute-dtype copies, FSDP pieces
+        gathered on use."""
+        cast = self.policy.cast_compute(params)
+        return self.layout.gathered(cast) if self.layout is not None else cast
+
+    def _apply_gradients(self, state: TrainState, grads: Mapping) -> TrainState:
+        if self.layout is None:
+            return state.apply_gradients(grads)
+        view = self.layout.opt_view(state.params)
+        updates, opt_state = state.tx.update(grads, state.opt_state, view)
+        params = self.layout.from_opt_view(optimizers.apply_updates(view, updates))
+        return dataclasses.replace(state, step=state.step + 1, params=params,
+                                   opt_state=opt_state)
 
     def _train_step(self, state: TrainState, batch: Mapping[str, torch.Tensor], noise=None):
         """One step; ``noise`` (default: the trainer's own, staged from the
@@ -167,16 +316,20 @@ class Trainer:
         leaves = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
         with (_debug_nans(state.step) if debug else contextlib.nullcontext()):
             loss, metrics, new_model_state = self.task.loss_fn(
-                self.policy.cast_compute(leaves), state.model_state,
+                self._compute_params(leaves), state.model_state,
                 self.policy.cast_compute(batch), rng=noise, train=True,
             )
             nans.check_finite(loss, "the loss")
             grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-        with torch.no_grad():
-            new_state = state.apply_gradients(grads)
-            new_state.model_state = new_model_state
+        with torch.no_grad(), (optimizers.sharded_norms(self.layout.global_sumsq)
+                               if self.layout is not None else contextlib.nullcontext()):
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["loss"] = loss.detach().float()
+            if self.layout is not None:
+                grads = self.layout.reduce_grads(grads)
+                metrics = {k: self.layout.mean_metric(v) for k, v in metrics.items()}
+            new_state = self._apply_gradients(state, grads)
+            new_state.model_state = new_model_state
             metrics["grad_norm"] = optimizers.global_norm(grads)
             if self._device_guard:
                 bad = ~(torch.isfinite(metrics["loss"]) & torch.isfinite(metrics["grad_norm"]))
@@ -230,11 +383,20 @@ class Trainer:
         if k > 1 and cfg.debug_nans and self.device.type == "cuda":
             raise ValueError(f"debug_nans syncs with the host at every check, which a CUDA graph "
                              f"of steps_per_launch={k} steps cannot hold; use steps_per_launch=1")
+        if k > 1 and self.mesh.backend == "gloo" and self.device.type == "cuda":
+            raise ValueError(f"steps_per_launch={k} captures a CUDA graph, and the gloo backend's "
+                             "collectives go through host memory, which a graph cannot hold; "
+                             "use steps_per_launch=1 (or NCCL, one card a rank)")
+        primary = distributed.is_primary()
         # Config mistakes raise before any handler or thread exists.
         faults_engine = faults.active()
         guard = self._guard = resilience.BadStepGuard.from_config(cfg)
-        telemetry = self.telemetry = Telemetry.from_config(cfg, n_params=self.n_params,
-                                                           device=self.device)
+        telemetry = self.telemetry = Telemetry.from_config(
+            cfg, n_params=self.n_params, device=self.device, host=distributed.process_index(),
+            n_devices=self.mesh.size)
+        telemetry.sharding_info = {"mesh_shape": self.sharding.mesh_shape_dict(self.mesh),
+                                   "param_sharding_digest": self.sharding_digest(),
+                                   "zero1": bool(self.sharding.zero1)}
         self.sentinel.on_recompile = telemetry.compile_warning
         watchdog = None
         if cfg.watchdog_secs > 0 or cfg.watchdog_fatal_secs > 0:
@@ -251,15 +413,20 @@ class Trainer:
         if telemetry.memory is not None:
             telemetry.memory.tracked = lambda: (self.state, held["batch"])
         try:
-            server = MetricsServer.from_config(cfg, telemetry=telemetry, watchdog=watchdog)
+            server = (MetricsServer.from_config(cfg, telemetry=telemetry, watchdog=watchdog)
+                      if primary else None)
             if server is not None:
                 try:
                     telemetry.server = server.start()
                 except OSError as e:  # a taken port must not kill the run
                     log.warning("metrics server failed to bind port %d (%s); continuing "
                                 "without live endpoints", server.requested_port, e)
+            # Every rank must place the parameters alike before any
+            # checkpoint is touched.
+            verify_digest_agreement(self.sharding_digest())
             if cfg.workdir:
-                self._ckpt = CheckpointManager(cfg.workdir)
+                self._sync_sharding_json(cfg.workdir)
+                self._ckpt = CheckpointManager(cfg.workdir, layout=self.layout, primary=primary)
                 if cfg.resume:
                     restored = self._ckpt.restore_latest(self.state)
                     if restored is not None:
@@ -290,7 +457,8 @@ class Trainer:
 
             def build_iter(start: int):
                 src = train_data(start) if resumable else source
-                it = device_prefetch(src if k == 1 else bundle_batches(src, k), self.device,
+                local = src if self.layout is None else _LocalRows(src, self.local_batch)
+                it = device_prefetch(local if k == 1 else bundle_batches(local, k), self.device,
                                      depth=max(cfg.prefetch_depth, 1),
                                      depth_max=cfg.prefetch_depth_max,
                                      max_skips=cfg.max_skipped_batches)
@@ -495,19 +663,31 @@ class Trainer:
         return build_iter(step)
 
     @torch.no_grad()
-    def evaluate(self, eval_iter: Iterable) -> dict[str, float]:
+    def evaluate(self, eval_iter: Iterable, *, per_host: bool = False) -> dict[str, float]:
         """Weighted mean of ``task.eval_fn`` over ``eval_iter``'s batches
         (each batch's ``weight`` entry, else 1), through
-        ``task.eval_finalize`` when the task has one."""
+        ``task.eval_finalize`` when the task has one. On a mesh every rank
+        reads the same global batches and evaluates its rows; the weighted
+        totals are summed over the batch axes and averaged over
+        ``context`` (its ranks split each example's tokens). ``per_host``:
+        each rank's iterator yields its own rows (per-rank shards, on a
+        mesh of batch axes only); shorter streams are padded with
+        zero-weight batches (:func:`_pad_per_host_batches`)."""
         if self.task.eval_fn is None:
             return {}
-        params = self.policy.cast_compute(self.state.params)
+        layout = self.layout
+        if per_host and layout is not None and set(layout.grad_axes) - set(layout.batch_axes):
+            raise ValueError("per-host eval streams need a mesh of batch axes only: model and "
+                             "context ranks must read the same rows")
+        params = self._compute_params(self.state.params)
         totals: dict[str, torch.Tensor] = {}
         count = None
+        batches = _pad_per_host_batches(iter(eval_iter)) if per_host and layout else eval_iter
         try:
-            for batch in eval_iter:
+            for batch in batches:
+                batch = put_batch(batch, self.device) if per_host else self.put_batch(batch)
                 m = dict(self.task.eval_fn(params, self.state.model_state,
-                                           self.policy.cast_compute(self.put_batch(batch))))
+                                           self.policy.cast_compute(batch)))
                 w = m.pop("weight", torch.ones((), device=self.device)).float()
                 for k, v in m.items():
                     totals[k] = totals[k] + v.float() * w if k in totals else v.float() * w
@@ -518,10 +698,69 @@ class Trainer:
                 close()
         if count is None:
             return {}
+        if layout is not None:
+            ctx = tuple(a for a in layout.grad_axes if a not in layout.batch_axes)
+            n_ctx = self.mesh.axis_size(ctx) if ctx else 1
+            totals = {k: coll._all_reduce(v, layout.grad_axes, self.mesh) / n_ctx
+                      for k, v in totals.items()}
+            count = coll._all_reduce(count, layout.batch_axes, self.mesh)
         means = {k: float(v) / max(float(count), 1.0) for k, v in totals.items()}
         if self.task.eval_finalize is not None:
             means = dict(self.task.eval_finalize(means))
         return means
+
+
+class _LocalRows:
+    """This rank's rows of each batch of a global stream; an error of the
+    stream's (a corrupt batch the prefetcher skips) passes through and
+    the stream goes on."""
+
+    def __init__(self, src, rows):
+        self._src, self._rows = iter(src), rows
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._rows(next(self._src))
+
+
+def _pad_per_host_batches(it: Iterator) -> Iterator:
+    """Equalize per-rank eval streams: every rank yields batches until
+    the longest stream is exhausted, padding with zero-weight copies
+    (``mask`` of zeros), one batch resident at a time, as the reference.
+
+    Per batch the ranks allgather a status flag (0 exhausted, 1 a batch,
+    2 a batch of another shape than this rank's last): a ragged batch on
+    any rank, or a rank with no batch at all (no padding template),
+    raises the same error on every rank instead of leaving its peers in
+    the next collective. Every batch must share one shape."""
+    pad = None
+    first = True
+    while True:
+        batch = next(it, None)
+        ragged = (batch is not None and pad is not None
+                  and any(k in pad and np.shape(v) != pad[k].shape for k, v in batch.items()))
+        flags = distributed.allgather_host(np.asarray(0 if batch is None else (2 if ragged else 1)))
+        if (flags == 2).max():
+            raise ValueError("per-host eval batches must share one shape; a host yielded a "
+                             "differently-shaped batch (pad ragged final batches with zero-mask "
+                             f"rows); status flags: {flags}")
+        if first and flags.min() != flags.max():
+            raise ValueError("per-host eval requires at least one local batch on every host "
+                             "(needed as the zero-weight padding template); have-batch flags "
+                             f"across hosts: {flags}")
+        first = False
+        if flags.max() == 0:
+            return
+        if batch is None:
+            yield pad
+            continue
+        batch = dict(batch)
+        if "mask" not in batch:
+            batch["mask"] = np.ones(len(next(iter(batch.values()))), np.float32)
+        pad = {k: np.zeros_like(v) for k, v in batch.items()}
+        yield batch
 
 
 @contextlib.contextmanager

@@ -35,6 +35,8 @@ captured in a CUDA graph: no host value enters it after capture).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Callable
@@ -48,6 +50,27 @@ from tensorflow_examples_torch.train.config import TrainConfig
 class GradientTransformation:
     init: Callable
     update: Callable
+    # True where the update reads a whole tensor's norm (LARS's trust
+    # ratio), which a rank holding a shard of the tensor cannot compute.
+    whole_tensors: bool = False
+
+
+# Set by sharded_norms: maps {name: this rank's sum of squares} to the
+# global sum, for a step whose tensors are this rank's shards.
+_SUMSQ_REDUCE: contextvars.ContextVar = contextvars.ContextVar("sumsq_reduce", default=None)
+
+
+@contextlib.contextmanager
+def sharded_norms(reduce: Callable):
+    """Within: :func:`global_norm` of a ``{name: tensor}`` dict sums each
+    tensor's squares through ``reduce({name: local sum of squares}) ->
+    global sum``, so clipping and the reported norm see the whole
+    gradient when each rank holds shards of it (``sharding/layout.py``)."""
+    token = _SUMSQ_REDUCE.set(reduce)
+    try:
+        yield
+    finally:
+        _SUMSQ_REDUCE.reset(token)
 
 
 def tree_map(fn, tree, *rest):
@@ -66,7 +89,11 @@ def tree_leaves(tree) -> list:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
+    """sqrt of the sum of squares of every leaf, in f32 (across ranks
+    inside :func:`sharded_norms`)."""
+    reduce = _SUMSQ_REDUCE.get()
+    if reduce is not None and isinstance(tree, dict):
+        return torch.sqrt(reduce({k: torch.sum(t.float().square()) for k, t in tree.items()}))
     return torch.sqrt(sum(torch.sum(t.float().square()) for t in tree_leaves(tree)))
 
 
@@ -227,7 +254,7 @@ def lars_transform(schedule: Callable, *, weight_decay: float = 0.0,
         updates = tree_map(lambda x, t: x + momentum * t, u, trace) if nesterov else trace
         return updates, {"count": state["count"] + 1, "trace": trace}
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, whole_tensors=True)
 
 
 def chain(*parts: GradientTransformation) -> GradientTransformation:
@@ -241,7 +268,7 @@ def chain(*parts: GradientTransformation) -> GradientTransformation:
             new.append(st)
         return grads, tuple(new)
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, any(p.whole_tensors for p in parts))
 
 
 def multi_steps(inner: GradientTransformation, k: int) -> GradientTransformation:
@@ -266,7 +293,7 @@ def multi_steps(inner: GradientTransformation, k: int) -> GradientTransformation
             "acc": tree_map(lambda a: torch.where(emit, torch.zeros_like(a), a), acc),
         }
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, inner.whole_tensors)
 
 
 def _maybe_wrap(cfg: TrainConfig, tx: GradientTransformation) -> GradientTransformation:

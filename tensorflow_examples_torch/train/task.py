@@ -14,7 +14,10 @@
 * ``eval_finalize(means) -> metrics``, optional: turns the weighted
   means into the final metrics where a score is a function of global
   means, not a mean itself (GLUE's F1 and MCC from confusion rates,
-  Pearson from moments, ``ops/glue_metrics.py``).
+  Pearson from moments, ``ops/glue_metrics.py``);
+* ``sharding_rules``, optional: the (param-path regex -> spec) table
+  that places the parameters on a mesh (``core/sharding.py``); None
+  replicates every parameter.
 """
 
 from __future__ import annotations
@@ -38,3 +41,4 @@ class Task:
     make_optimizer: Callable[[TrainConfig], GradientTransformation]
     eval_fn: Callable[..., Mapping[str, torch.Tensor]] | None = None
     eval_finalize: Callable[[dict], dict] | None = None
+    sharding_rules: Any = None

@@ -1,5 +1,5 @@
 """GPT-2 124M causal-LM workload: the port of the non-pipeline path of
-``tensorflow_examples_tpu/workloads/gpt2.py`` (no vocab-parallel head).
+``tensorflow_examples_tpu/workloads/gpt2.py``.
 
 ``Gpt2Config`` keeps the reference's recipe (AdamW b2 0.95, warmup-cosine
 from 6e-4, weight decay 0.1, clip 1.0, bf16 compute, dropout 0.1, batch
@@ -15,6 +15,18 @@ top-``moe_top_k`` MoE (``models/transformer.py``): the loss is then
 dropped fraction), as the reference's. ``moe_impl`` "" takes the device's
 default dispatch: ``grouped`` (the grouped-matmul kernels) on the card,
 ``scatter`` on the CPU.
+
+On a mesh (``make_task(cfg, mesh=...)``, ``core/mesh.py``) the task runs
+this rank's part of the step: its rows of the batch and, with
+``context`` > 1, its contiguous shard of the sequence (``seq_len`` must
+divide by ``context``), through the mesh-aware forward
+(``models/transformer.py``) under :data:`transformer.GPT2_RULES`. The
+loss is token-sharded (``ops/cross_entropy.mesh_cross_entropy_per_example``)
+or, with ``tp_vocab`` on a ``model`` > 1 mesh, vocab-parallel
+(``tp_cross_entropy_from_hidden``). ``tp_vocab`` also splits the tied
+table over ``model`` by vocab when the vocab divides (the rule is
+prepended, first match wins); GPT-2's odd 50257 keeps it replicated and
+the head still runs vocab-parallel, as in the reference.
 
 ``remat_policy`` (with ``remat``) picks what a recomputed block saves
 (``models/transformer.py``); ``pretrained`` names a local HF
@@ -33,7 +45,11 @@ import torch
 
 from tensorflow_examples_torch.data.sources import load_lm_tokens
 from tensorflow_examples_torch.models import convert, hf_import, transformer
-from tensorflow_examples_torch.ops.cross_entropy import cross_entropy_per_example
+from tensorflow_examples_torch.core.mesh import AxisNames
+from tensorflow_examples_torch.core.sharding import ShardingRules
+from tensorflow_examples_torch.ops.cross_entropy import (cross_entropy_per_example,
+                                                         mesh_cross_entropy_per_example,
+                                                         tp_cross_entropy_from_hidden)
 from tensorflow_examples_torch.ops.losses import weighted_mean
 from tensorflow_examples_torch.train import optimizers
 from tensorflow_examples_torch.train.config import TrainConfig
@@ -48,7 +64,7 @@ class Gpt2Config(TrainConfig):
     num_heads: int = 12
     d_model: int = 768
     dropout: float = 0.1
-    attention: str = "flash"  # flash | xla
+    attention: str = "flash"  # flash | xla | ring | ulysses (the context-parallel algorithm)
     remat_policy: str = "none"  # none | dots | dots_no_batch: what a --remat block saves
     fused_ce: bool = True  # the fused cross-entropy kernels (False: plain f32 reference)
     pretrained: str = ""  # local HF GPT2LMHeadModel directory to start from
@@ -58,6 +74,9 @@ class Gpt2Config(TrainConfig):
     moe_top_k: int = 1
     moe_aux_weight: float = 0.01
     moe_impl: str = ""  # "" = grouped on CUDA, scatter on the CPU; pin one to compare
+    # Vocab-parallel LM head and CE over the `model` axis (Megatron's
+    # parallel cross-entropy); needs mesh_model > 1 to take effect.
+    tp_vocab: bool = False
 
     global_batch_size: int = 16
     train_steps: int = 20000
@@ -84,11 +103,28 @@ def model_config(cfg: Gpt2Config) -> transformer.TransformerConfig:
     )
 
 
-def make_task(cfg: Gpt2Config, **model_overrides) -> Task:
-    """The task; ``model_overrides`` replace fields of
+def _context_shard(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's contiguous shard of ``x``'s sequence dim (1)."""
+    c = mesh.axis_size(AxisNames.CONTEXT)
+    if c == 1:
+        return x
+    if x.shape[1] % c:
+        raise ValueError(f"seq_len {x.shape[1]} must divide by mesh_context {c}")
+    s = x.shape[1] // c
+    i = mesh.axis_index(AxisNames.CONTEXT)
+    return x[:, i * s:(i + 1) * s].contiguous()
+
+
+def make_task(cfg: Gpt2Config, mesh=None, **model_overrides) -> Task:
+    """The task; ``mesh``: the ``core/mesh.Mesh`` the trainer runs on
+    (None: one device). ``model_overrides`` replace fields of
     :func:`model_config`'s result (e.g. ``moe_capacity_factor``, which the
     reference's workload config does not carry either)."""
     mcfg = dataclasses.replace(model_config(cfg), **model_overrides)
+    if mesh is not None and mesh.trivial:
+        mesh = None
+    model_axis = 1 if mesh is None else mesh.axis_size(AxisNames.MODEL)
+    tp_vocab = cfg.tp_vocab and model_axis > 1
 
     def init_fn(seed: int, device: torch.device):
         if cfg.pretrained:
@@ -111,11 +147,21 @@ def make_task(cfg: Gpt2Config, **model_overrides) -> Task:
 
     def token_nll(params, batch, *, rng, train):
         inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-        logits, moe_aux, moe_drop = transformer.forward(
-            mcfg, transformer.ParamView(params), inputs, train=train,
-            noise=rng if train else None, moe_stats=True)
-        nll = cross_entropy_per_example(logits.reshape(-1, logits.shape[-1]),
-                                        labels.reshape(-1), fused=cfg.fused_ce)
+        if mesh is not None:
+            inputs, labels = _context_shard(inputs, mesh), _context_shard(labels, mesh)
+        view = transformer.ParamView(params)
+        out, moe_aux, moe_drop = transformer.forward(
+            mcfg, view, inputs, train=train, noise=rng if train else None, moe_stats=True,
+            mesh=mesh, return_hidden=tp_vocab)
+        if tp_vocab:
+            nll = tp_cross_entropy_from_hidden(out.reshape(-1, out.shape[-1]),
+                                               view.wte.embedding, labels.reshape(-1),
+                                               mesh=mesh, vocab_size=cfg.vocab_size)
+        elif mesh is not None:
+            nll = mesh_cross_entropy_per_example(out, labels, mesh=mesh, fused=cfg.fused_ce)
+        else:
+            nll = cross_entropy_per_example(out.reshape(-1, out.shape[-1]),
+                                            labels.reshape(-1), fused=cfg.fused_ce)
         return nll.reshape(labels.shape), moe_aux, moe_drop
 
     def loss_fn(params, model_state, batch, *, rng, train):
@@ -132,8 +178,14 @@ def make_task(cfg: Gpt2Config, **model_overrides) -> Task:
             float(per_example.shape[0]), device=per_example.device)
         return {"nll": weighted_mean(per_example, mask), "weight": weight}
 
+    rules = transformer.GPT2_RULES
+    if tp_vocab and cfg.vocab_size % model_axis == 0:
+        # Vocab-split table (first match wins: prepended) only when the
+        # vocab divides; the parallel CE itself takes any vocab.
+        rules = ShardingRules([(r"wte/embedding", (AxisNames.MODEL, None))]) + rules
     return Task(name="gpt2_124m", init_fn=init_fn, loss_fn=loss_fn,
-                make_optimizer=optimizers.adamw_cosine, eval_fn=eval_fn)
+                make_optimizer=optimizers.adamw_cosine, eval_fn=eval_fn,
+                sharding_rules=rules)
 
 
 def datasets(cfg: Gpt2Config):

@@ -433,6 +433,98 @@ def test_tensor_core_backward_reruns_are_bit_identical(dev, head_dim):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+# The ring's hops at GPT-2's seq 1024 over 2 context ranks, each with
+# the merge's nonzero lse cotangent: the contiguous ring's 512 x 512
+# diagonal and non-causal hop, zigzag's 256 x 256 diagonals, both chunks'
+# 512 queries over one 256 chunk, the late chunk over 512 keys.
+RING_HOPS = [(512, 512, True), (512, 512, False), (256, 256, True), (512, 256, False),
+             (256, 512, False)]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("seq_q,seq_kv,causal", RING_HOPS)
+def test_flash_backward_with_a_ring_dlse_matches_plain(dev, dtype, atol, seq_q, seq_kv, causal):
+    _check_flash_kernels(dev, dtype, atol, seq_q, seq_kv, causal, None, head_dim=64)
+
+
+def _ring_on_one_card(rank: int, dtype_name: str, impl: str) -> dict:
+    from tensorflow_examples_torch.core.mesh import MeshConfig, create_mesh
+    from tensorflow_examples_torch.parallel.attention import mesh_attention
+
+    dtype = getattr(torch, dtype_name)
+    mesh = create_mesh(MeshConfig(data=1, context=2), device=torch.device("cuda"))
+    rng = np.random.default_rng(17)
+    full = [_randn(rng, (2, 12, 1024, 64), torch.device("cuda"), dtype) for _ in range(3)]
+    s = 512
+    local = [t[:, :, rank * s:(rank + 1) * s].contiguous().requires_grad_(True) for t in full]
+    before = [f.launches for f in FLASH_KERNELS]
+    out = mesh_attention(*local, mesh=mesh, causal=True, impl=impl)
+    grads = torch.autograd.grad(out.float().square().sum(), local)
+    launched = [f.launches - b for f, b in zip(FLASH_KERNELS, before)]
+    leaves = [t.detach().requires_grad_(True) for t in full]
+    ref = attention.flash_attention(*leaves, causal=True)
+    ref_grads = torch.autograd.grad(ref.float().square().sum(), leaves)
+    sl = slice(rank * s, (rank + 1) * s)
+    errs = {"out": float((out.float() - ref[:, :, sl].float()).abs().max()),
+            "ref_max": float(ref.float().abs().max())}
+    for name, g, r in zip("qkv", grads, ref_grads):
+        errs[f"d{name}"] = float((g.float() - r[:, :, sl].float()).abs().max())
+        errs[f"d{name}_max"] = float(r.float().abs().max())
+    return {"errs": errs, "launched": launched,
+            "backend": torch.distributed.get_backend()}
+
+
+@pytest.mark.parametrize("dtype_name,impl", [("float32", "ring"), ("bfloat16", "ring"),
+                                             ("bfloat16", "ulysses")])
+def test_two_rank_context_attention_on_one_card_matches_flash(dev, tmp_path, dtype_name, impl):
+    """Two ranks share the card over gloo (host-staged collectives): the
+    zigzag ring (and Ulysses) of GPT-2's attention, [2, 12, 1024, 64]
+    split over 2 context ranks, against the flash kernels on the whole
+    sequence, output and the gradients of sum(out**2)."""
+    from tensorflow_examples_torch.core import distributed
+
+    ranks = distributed.run_world(_ring_on_one_card, 2, dtype_name, impl, device="cuda",
+                                  timeout_s=240, store_dir=str(tmp_path))
+    fwd_tol, grad_tol = (2e-5, 5e-4) if dtype_name == "float32" else (2e-2, 5e-2)
+    for r in ranks:
+        assert r["backend"] == "gloo"
+        e = r["errs"]
+        assert e["out"] <= fwd_tol * max(e["ref_max"], 1.0), e
+        for name in ("dq", "dk", "dv"):
+            assert e[name] <= grad_tol * max(e[f"{name}_max"], 1.0), (name, e)
+        # zigzag: 3 forward launches at hop 0 and 1 at hop 1; Ulysses: 1
+        assert r["launched"][0] == (4 if impl == "ring" else 1), r["launched"]
+        assert min(r["launched"]) >= 1
+
+
+def _graphs_under_gloo(rank: int) -> str:
+    from tensorflow_examples_torch.sharding import ShardingConfig
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    cfg = gpt2.Gpt2Config(vocab_size=64, seq_len=16, num_layers=1, num_heads=2, d_model=32,
+                          global_batch_size=4, train_steps=2, steps_per_launch=2, log_every=2,
+                          eval_every=0, checkpoint_every=0, telemetry_sinks="")
+    sc = ShardingConfig(mesh={"data": 2})
+    mesh = sc.build_mesh()
+    trainer = Trainer(gpt2.make_task(cfg), cfg, mesh=mesh, sharding=sc)
+    try:
+        trainer.fit(iter([]))
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def test_k_step_graphs_refuse_gloo_on_the_card(dev, tmp_path):
+    """Two ranks on one card run gloo, whose collectives go through host
+    memory: a CUDA graph of k steps cannot hold them, and fit says so."""
+    from tensorflow_examples_torch.core import distributed
+
+    for msg in distributed.run_world(_graphs_under_gloo, 2, device="cuda", timeout_s=240,
+                                     store_dir=str(tmp_path)):
+        assert "gloo" in msg and "steps_per_launch=2" in msg, msg
+
+
 def test_flash_kernels_refuse_what_they_cannot_launch(dev):
     q = torch.zeros(2, 16, UNSUPPORTED_HEAD_DIM, device=dev)
     with pytest.raises(ValueError, match="head_dim"):

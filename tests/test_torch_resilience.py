@@ -285,11 +285,12 @@ def test_every_jsonl_line_passes_both_schemas(tmp_path):
     trainer.fit(lambda start: train_iterator(_DS, 8, seed=0, start_step=start),
                 eval_iter_fn=lambda: eval_batches(eval_ds, 8))
     lines = read_lines(tmp_path)
-    assert [x["kind"] for x in lines] == ["memory", "window", "eval", "window", "eval", "final"]
+    assert [x["kind"] for x in lines] == ["memory", "window", "fleet", "eval", "window", "fleet",
+                                          "eval", "final"]
     for line in lines:
         assert jax_schema.validate_line(line) == [], line
         assert schema.validate_line(line) == [], line
-    window = lines[3]
+    window = lines[4]
     assert window["counters"]["train/steps_total"] == 4
     assert window["counters"]["checkpoint/saves"] == 1
     assert window["derived"]["goodput"] == 1.0 and window["derived"]["mfu"] > 0

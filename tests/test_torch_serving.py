@@ -446,7 +446,11 @@ def test_port_imports_no_jax():
                 "telemetry/slo.py", "serving/router.py", "serving/journal.py",
                 "serving/supervisor.py", "serving/prober.py", "serving/chaos.py",
                 "serve_fleet.py", "data/workers.py", "data/imagenet.py", "data/sources.py",
-                "workloads/imagenet.py", "telemetry/memory.py", "telemetry/serve.py"):
+                "workloads/imagenet.py", "telemetry/memory.py", "telemetry/serve.py",
+                "core/distributed.py", "core/mesh.py", "core/collectives.py",
+                "core/sharding.py", "sharding/config.py", "sharding/resolve.py",
+                "sharding/layout.py", "parallel/ring.py", "parallel/attention.py",
+                "telemetry/fleet.py"):
         assert f"tensorflow_examples_torch/{new}" in rel
     banned = ("jax", "flax", "optax", "absl", "tensorflow_examples_tpu", "tensorflow")
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)

@@ -466,13 +466,11 @@ def test_trainer_runs_on_cuda_unless_asked_and_never_falls_back(monkeypatch):
     assert gpt2.Gpt2Config().fused_ce is True  # the JAX default
 
 
-# Reference config fields the port has not ported yet (ROADMAP A owes
-# them: the mesh fields with the parallel layer, the fleet skew with the
-# rest of telemetry), shrinking as they land: reported, not failed.
+# Reference config fields the port has not ported yet (ROADMAP A7b owes
+# them with pipeline parallelism), shrinking as they land: reported, not
+# failed.
 NOT_YET_PORTED = frozenset({
-    "mesh_context", "mesh_data", "mesh_fsdp", "mesh_model", "mesh_pipe", "num_microbatches",
-    "pipe_interleave", "pipeline_schedule", "sharding_config", "straggler_skew_factor",
-    "tp_vocab", "zero1",
+    "mesh_pipe", "num_microbatches", "pipe_interleave", "pipeline_schedule",
 })
 # Defaults that differ on purpose: the port runs on the card.
 DEFAULTS_DIFFER = {"device": ("tpu", "cuda")}
