@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Two on-card probes of the PyTorch/CUDA port, beside ``chip_smoke.py``.
+"""Three on-card probes of the PyTorch/CUDA port, beside ``chip_smoke.py``.
 
     python3 chip_probe.py steps [--root DIR] [--steps N]
     python3 chip_probe.py profiler [--train-config] [--windows N] [--lead-ms MS]
+    python3 chip_probe.py determinism [--runs N] [--steps N]
 
 ``steps`` times the eager training step of the port checked out in
 ``DIR`` (default: the checkout around this script) at chip_smoke.py's
@@ -24,10 +25,28 @@ repeated over ``N`` windows. With ``--train-config`` chip_smoke.py's
 its profiler window. Every other window waits ``--lead-ms`` on the host
 between the profiler's start and the first decode step; the line
 printed counts, for each lead, the windows that differ and the launches
-the profiler lost, beside the gap between the first paged kernel's
-device timestamp and the first ``cudaGraphLaunch``'s host timestamp (a
-kernel cannot start before its launch, so a negative gap is clock skew
-between the two). Each window that differs prints a line of its own.
+the profiler lost, beside the gap between the first paged kernel's device
+timestamp and the first ``cudaGraphLaunch``'s host timestamp (a kernel
+cannot start before its launch, so a negative gap is clock skew between
+the two) and the smallest gap between the host's last synchronize
+returning and the last paged kernel's device end (a kernel cannot end
+after the synchronize that waits for it returns: a negative gap is the
+skew the other way, at the window's end). Each window that differs
+prints a line of its own, with the paged kernels of each decode step
+(the kernels split at the 7 largest gaps between them), so a step that
+lost one shows where in the window it was.
+
+``determinism`` asks whether BERT-base GLUE training, the run
+chip_smoke.py's ``bert resume`` check compares, is bitwise repeatable:
+``--runs`` times ``--steps`` steps through ``Trainer.fit`` (bf16, dropout
+0.1, flash attention, batch 32 x 128, the seeded init and stream), each
+compared with the first; then one step under
+``torch.use_deterministic_algorithms(True, warn_only=True)``, whose
+warnings name every op of the step that PyTorch knows to be
+nondeterministic on CUDA; then, from the state after ``--steps`` - 5
+steps, the next step's gradients ``--reruns`` times, each held to the
+first tensor by tensor: the parameters whose gradients differ name the
+op that is not repeatable.
 
 Needs one CUDA card; prints one JSON line per measurement.
 """
@@ -75,6 +94,93 @@ def steps(root: str, n: int) -> dict:
         del trainer
         torch.cuda.empty_cache()
     return out
+
+
+def _step_sizes(starts) -> list[int]:
+    """Kernels a decode step, splitting the sorted device starts at the 7
+    largest gaps (8 steps a window)."""
+    if len(starts) < 2:
+        return [len(starts)]
+    gaps = sorted(range(1, len(starts)), key=lambda i: starts[i] - starts[i - 1])[-7:]
+    cuts = [0, *sorted(gaps), len(starts)]
+    return [b - a for a, b in zip(cuts, cuts[1:])]
+
+
+def determinism(runs: int, n_steps: int, reruns: int) -> dict:
+    import warnings
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from tensorflow_examples_torch.data.memory import train_iterator
+    from tensorflow_examples_torch.ops import _build
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import bert_glue
+
+    _build.build_all()
+    base = bert_glue.BertGlueConfig(attention="flash", train_steps=n_steps, warmup_steps=2,
+                                    log_every=1, eval_every=0, checkpoint_every=0,
+                                    telemetry_sinks="")
+    train_ds, _ = bert_glue.datasets(base)
+    histories = []
+    for _ in range(runs):
+        trainer = Trainer(bert_glue.make_task(base), base)
+        trainer.fit(train_iterator(train_ds, base.global_batch_size, seed=base.seed),
+                    num_steps=n_steps)
+        histories.append([h["loss"] for h in trainer.history])
+        del trainer
+        torch.cuda.empty_cache()
+    first = histories[0]
+    differ = []
+    for i, h in enumerate(histories[1:], start=1):
+        steps_off = [s for s, (a, b) in enumerate(zip(first, h), start=1) if a != b]
+        if steps_off:
+            differ.append({"run": i, "first_step_off": steps_off[0],
+                           "worst_rel": max(abs(a - b) / abs(b) for a, b in zip(first, h))})
+    trainer = Trainer(bert_glue.make_task(base), base)
+    batch = trainer.put_batch(next(train_iterator(train_ds, base.global_batch_size,
+                                                  seed=base.seed)))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.state, _ = trainer._train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" does not have a deterministic")[0]
+                      for w in caught if "deterministic" in str(w.message)})
+    del trainer
+    torch.cuda.empty_cache()
+    # One step's gradients from one state, again and again.
+    from tensorflow_examples_torch.core import rng
+
+    at = n_steps - 5
+    trainer = Trainer(bert_glue.make_task(base), base)
+    trainer.fit(train_iterator(train_ds, base.global_batch_size, seed=base.seed), num_steps=at)
+    batch = trainer.policy.cast_compute(trainer.put_batch(next(train_iterator(
+        train_ds, base.global_batch_size, seed=base.seed, start_step=at))))
+    first, rerun_diffs = None, []
+    for i in range(reruns):
+        leaves = {k: p.detach().requires_grad_() for k, p in trainer.state.params.items()}
+        loss, _, _ = trainer.task.loss_fn(
+            trainer.policy.cast_compute(leaves), trainer.state.model_state, batch,
+            rng=rng.StepNoise(trainer.step_key(at)), train=True)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        if first is None:
+            first = (float(loss), grads)
+            continue
+        off = {k: float((g.float() - first[1][k].float()).abs().max())
+               for k, g in grads.items() if not torch.equal(g, first[1][k])}
+        if off or float(loss) != first[0]:
+            rerun_diffs.append({"rerun": i, "loss_equal": float(loss) == first[0],
+                                "params_differing": len(off),
+                                "worst": sorted(off.items(), key=lambda kv: -kv[1])[:8]})
+    return {"runs": runs, "steps": n_steps, "losses_run_0": histories[0],
+            "runs_differing": differ, "nondeterministic_ops": flagged,
+            "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG", ""),
+            "reruns_of_step": at + 1, "reruns": reruns, "reruns_differing": rerun_diffs}
 
 
 def profiler(windows: int, train_config: bool, lead_ms: float) -> dict:
@@ -146,6 +252,9 @@ def profiler(windows: int, train_config: bool, lead_ms: float) -> dict:
                          if e.device_type == DeviceType.CUDA and "paged_decode_kernel" in e.name)
         first_cpu = min((e.time_range.start for e in events
                          if e.device_type == DeviceType.CPU), default=None)
+        kernel_ends = [e.time_range.end for e in events
+                       if e.device_type == DeviceType.CUDA and "paged_decode_kernel" in e.name]
+        syncs = [e.time_range.end for e in events if "cudaDeviceSynchronize" in e.name]
         row = {"window": w, "lead_ms": lead, "counted": counted, "profiled": seen,
                "graph_launches": len(launches),
                "first_launch_minus_first_host_event_us": (
@@ -153,22 +262,31 @@ def profiler(windows: int, train_config: bool, lead_ms: float) -> dict:
                # A kernel cannot start before its launch: a negative gap is
                # the skew between the device and host timestamps.
                "first_kernel_minus_first_launch_us": (kernels[0] - launches[0]
-                                                      if kernels and launches else None)}
+                                                      if kernels and launches else None),
+               # The last synchronize returns after the last kernel ends.
+               "last_sync_minus_last_kernel_end_us": (max(syncs) - max(kernel_ends)
+                                                      if syncs and kernel_ends else None)}
         runs[lead].append(row)
         if seen != counted:
-            print(json.dumps({"differs": row}), flush=True)
+            print(json.dumps({"differs": {**row, "paged_kernels_a_step": _step_sizes(kernels)}}),
+                  flush=True)
     for e in entries:
         engine.pool.free(e[0])
     summary = {}
     for lead, rows in runs.items():
         gaps = [r["first_kernel_minus_first_launch_us"] for r in rows
                 if r["first_kernel_minus_first_launch_us"] is not None]
+        tails = [r["last_sync_minus_last_kernel_end_us"] for r in rows
+                 if r["last_sync_minus_last_kernel_end_us"] is not None]
         summary[f"lead_{lead:g}ms"] = {
             "windows": len(rows), "windows_differing": sum(r["profiled"] != r["counted"]
                                                            for r in rows),
             "launches_lost": sum(r["counted"] - r["profiled"] for r in rows),
             "first_kernel_minus_first_launch_us_min": min(gaps) if gaps else None,
-            "first_kernel_minus_first_launch_us_median": float(np.median(gaps)) if gaps else None}
+            "first_kernel_minus_first_launch_us_median": float(np.median(gaps)) if gaps else None,
+            "last_sync_minus_last_kernel_end_us_min": min(tails) if tails else None,
+            "last_sync_minus_last_kernel_end_us_median": (float(np.median(tails)) if tails
+                                                          else None)}
     return {"train_config_first": train_config, **summary}
 
 
@@ -182,6 +300,10 @@ def main() -> int:
     p.add_argument("--train-config", action="store_true")
     p.add_argument("--windows", type=int, default=40)
     p.add_argument("--lead-ms", type=float, default=50.0)
+    d = sub.add_parser("determinism")
+    d.add_argument("--runs", type=int, default=4)
+    d.add_argument("--steps", type=int, default=20)
+    d.add_argument("--reruns", type=int, default=100)
     args = ap.parse_args()
     import torch
 
@@ -189,8 +311,12 @@ def main() -> int:
         print("chip_probe: needs a CUDA card", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    result = (steps(os.path.abspath(args.root), args.steps) if args.probe == "steps"
-              else profiler(args.windows, args.train_config, args.lead_ms))
+    if args.probe == "steps":
+        result = steps(os.path.abspath(args.root), args.steps)
+    elif args.probe == "determinism":
+        result = determinism(args.runs, args.steps, args.reruns)
+    else:
+        result = profiler(args.windows, args.train_config, args.lead_ms)
     result["wall_s"] = time.perf_counter() - t0
     result["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -119,8 +119,9 @@ non-zero:
    configuration's profiled decode steps hold the paged kernel's
    replay-counted launches to the profiler's count;
 5a. train_config: the rest of the training config at the full
-   ``Gpt2Config`` defaults (bf16, batch 16 x 1024, fused CE, dropout 0.1
-   unless a check says 0; no depth cut): (a) 8 steps as 2 launches of
+   ``Gpt2Config`` widths and defaults (bf16, batch 16 x 1024, fused CE,
+   dropout 0.1 unless a check says 0), cut to ``TRAIN_CONFIG_LAYERS``
+   layers: (a) 8 steps as 2 launches of
    ``steps_per_launch=4`` (one CUDA graph of 4 steps) against 8 eager
    steps at dropout 0 in f32, final params within 1e-5 relative (and
    whether bitwise), the flash and CE kernels counted from the eager
@@ -260,7 +261,20 @@ non-zero:
    the CE forward and backward counted on every rank (each launched on
    every rank); ``train.cli`` under torchrun on ``{data: 2}``, its
    checkpoint restored on ``{model: 2}`` and gathered back bit for bit,
-   and a torchrun resume on ``{model: 2}`` from that step;
+   and a torchrun resume on ``{model: 2}`` from that step. Pipeline and
+   expert parallelism: the world of 2 also runs ``{pipe: 2}`` under 1F1B
+   and under GPipe, and at 4 layers plain 1F1B and interleaved 1F1B
+   (``pipe_interleave`` 2, held to plain 1F1B at rtol 1e-5); the world of
+   4 runs ``{data: 2, pipe: 2}``, ``{model: 2, pipe: 2}`` (flash, heads
+   split inside the stages) and ``{data: 2, model: 2}`` with 8 experts
+   (expert parallelism, capacity factor 4: no token drops), the last
+   against the one-rank MoE run with its routing replayed on each rank's
+   tokens (``pinned_routing``, the router without jitter in both runs, a
+   flipped decision allowed only at a near-tie); the flash and CE
+   launches of each pipeline layout are held to its schedule's count
+   rank by rank; ``train.cli`` under torchrun on ``{data: 1, pipe: 2}``
+   for 4 steps, resumed to 6 on ``{pipe: 2}`` with
+   ``--pipe_interleave 1``;
 6. the ``{"group_row_sum": {...}}`` line (not the port of a TPU kernel),
    the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
@@ -295,6 +309,7 @@ GMM_SOURCE = "tensorflow_examples_torch/ops/csrc/grouped_matmul.cu"
 GMM_REPLACES = "tensorflow_examples_tpu/parallel/moe.py:190 (megablox gmm.py:{})"
 BF16_DENSE_PEAK = 989.4e12     # H100 SXM bf16 tensor cores, dense: the MFU denominator
 TRAIN_STEPS = 20
+TRAIN_CONFIG_LAYERS = 4  # train_config's depth cut (12 by default): its checks hold at any depth
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 TRAIN_KERNELS = (*FLASH_KERNELS, "ce_fwd", "ce_bwd")
 # torch.profiler drops device activity timestamped before its trace
@@ -1597,9 +1612,10 @@ def phase_generate(torch, counters, workdir: str) -> dict:
 
 
 def phase_train_config(torch, counters, smi: str, tmp: str) -> dict:
-    """The rest of the training config at the full ``Gpt2Config`` defaults
-    (bf16, batch 16 x 1024, fused CE; dropout 0.1 unless a check says 0),
-    checks (a)-(h) of the module docstring."""
+    """The rest of the training config at the ``Gpt2Config`` widths and
+    defaults (bf16, batch 16 x 1024, fused CE; dropout 0.1 unless a check
+    says 0), cut to ``TRAIN_CONFIG_LAYERS`` layers, checks (a)-(h) of the
+    module docstring."""
     import collections
     import functools
     import gc
@@ -1617,7 +1633,7 @@ def phase_train_config(torch, counters, smi: str, tmp: str) -> dict:
     from tensorflow_examples_torch.workloads import gpt2
 
     base = gpt2.Gpt2Config(warmup_steps=2, log_every=4, eval_every=0, checkpoint_every=0,
-                           telemetry_sinks="", train_steps=8)
+                           telemetry_sinks="", train_steps=8, num_layers=TRAIN_CONFIG_LAYERS)
     ds, _ = gpt2.datasets(base)
     data = lambda start: train_iterator(ds, base.global_batch_size, seed=base.seed,
                                         start_step=start)
@@ -4062,9 +4078,32 @@ MESH_LAYOUTS_2 = (  # (name, mesh, config overrides) in one world of 2 ranks on 
     ("context ring zigzag", {"context": 2}, {"attention": "flash"}),
     ("context ulysses", {"context": 2}, {"attention": "ulysses"}),
 )
-MESH_LAYOUTS_4 = (("data+model", {"data": 2, "model": 2}, {}),)
+# Pipeline and expert-parallel layouts. Worker keys beside the config's:
+# "bf16" False skips the timed bf16 run, "capacity" is the MoE capacity
+# factor, and a layout's f32 losses are held to its "ref" run.
+MESH_PIPE_LAYERS = 4  # interleaving: 2 stages x 2 virtual stages a rank
+MESH_MICROBATCHES = 4  # Gpt2Config's num_microbatches default
+MESH_EP_CAPACITY = 4.0  # the seeded init routes up to 2.35x the mean load to one expert
+MESH_LAYOUTS_2 += (
+    ("pipe 1f1b", {"pipe": 2}, {}),
+    ("pipe gpipe", {"pipe": 2}, {"pipeline_schedule": "gpipe"}),
+    ("pipe 1f1b 4 layers", {"pipe": 2}, {"num_layers": MESH_PIPE_LAYERS, "bf16": False,
+                                         "ref": "one rank 4 layers"}),
+    ("pipe interleaved", {"pipe": 2}, {"num_layers": MESH_PIPE_LAYERS, "pipe_interleave": 2,
+                                       "ref": "pipe 1f1b 4 layers"}),
+)
+MESH_LAYOUTS_4 = (("data+model", {"data": 2, "model": 2}, {}),
+                  ("data+pipe", {"data": 2, "pipe": 2}, {}),
+                  ("model+pipe flash", {"model": 2, "pipe": 2}, {"attention": "flash"}),
+                  ("data+model moe ep", {"data": 2, "model": 2},
+                   {"moe_experts": 8, "moe_top_k": 2, "capacity": MESH_EP_CAPACITY,
+                    "ref": "one rank moe"}))
+MESH_PIPE_LAYOUTS = ("pipe 1f1b", "pipe gpipe", "pipe 1f1b 4 layers", "pipe interleaved",
+                     "data+pipe", "model+pipe flash")
 MESH_RTOL = 3e-3        # mesh against one device, f32 (tests/test_sharding.py:306-321)
 MESH_ZERO1_RTOL = 1e-6  # ZeRO-1 against data parallelism (tests/test_sharding.py:352)
+MESH_INTERLEAVE_RTOL = 1e-5  # interleaved against plain 1F1B (tests/test_train_gpt2.py:352)
+MESH_WORKER_KEYS = ("bf16", "capacity", "ref")
 MESH_CLI = ["--workload", "gpt2", "--num_layers", str(MESH_LAYERS), "--warmup_steps", "2",
             "--log_every", "1", "--eval_every", "0", "--checkpoint_every", "4",
             "--telemetry_sinks", "jsonl"]
@@ -4089,15 +4128,51 @@ def mesh_batches(cfg, n: int) -> list:
             for _ in range(n)]
 
 
-def mesh_steps(torch, trainer, batches) -> tuple[list, list]:
-    """(losses, step ms) of ``trainer.train_step`` over ``batches``."""
+def mesh_steps(torch, trainer, batches, drops: list | None = None) -> tuple[list, list]:
+    """(losses, step ms) of ``trainer.train_step`` over ``batches``; an
+    MoE step's ``moe_drop`` is appended to ``drops``."""
     losses, ms = [], []
     for batch in batches:
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch)
         losses.append(float(metrics["loss"]))  # syncs
         ms.append((time.perf_counter() - t0) * 1e3)
+        if drops is not None and "moe_drop" in metrics:
+            drops.append(float(metrics["moe_drop"]))
     return losses, ms
+
+
+def pipe_launches_want(name: str, kw: dict, mesh_kw: dict, rank: int) -> dict:
+    """Kernels 1-5 a pipeline layout launches on ``rank`` in MESH_STEPS
+    f32 steps: 1F1B runs each microbatch's stage forward twice (the
+    forward tick, and again in the backward tick) and its backward once,
+    and the last stage adds the head's CE the same way; GPipe runs each
+    microbatch's stage once each way and the head on every rank, over
+    the rank's whole batch."""
+    n_pipe = mesh_kw["pipe"]
+    layers = kw.get("num_layers", MESH_LAYERS) // n_pipe
+    stage = rank % n_pipe  # pipe is the minor axis of every layout here
+    m = MESH_MICROBATCHES
+    if kw.get("pipeline_schedule") == "gpipe":
+        per = {"flash_fwd": m * layers, "flash_bwd_dkv": m * layers, "flash_bwd_dq": m * layers,
+               "ce_fwd": 1, "ce_bwd": 1}
+    else:
+        last = stage == n_pipe - 1
+        per = {"flash_fwd": 2 * m * layers, "flash_bwd_dkv": m * layers,
+               "flash_bwd_dq": m * layers, "ce_fwd": 2 * m if last else 0,
+               "ce_bwd": m if last else 0}
+    return {k: v * MESH_STEPS for k, v in per.items()}
+
+
+class rank_routing(pinned_routing):
+    """``pinned_routing`` without the router jitter, for comparing an
+    expert-parallel rank with the one-rank run: the jitter's keys differ
+    between them by design (the expert-parallel router folds each route
+    axis's index into its key), so both runs route without it, and a
+    rank replays the one-rank run's decisions for its own tokens."""
+
+    def route(self, tokens, gate_w, *, top_k, rng, jitter):
+        return super().route(tokens, gate_w, top_k=top_k, rng=None, jitter=0.0)
 
 
 def mesh_counters():
@@ -4108,16 +4183,21 @@ def mesh_counters():
             "ce_bwd": cross_entropy.ce_bwd}
 
 
-def mesh_worker(rank: int, layouts, restore_dir: str | None, restore_argv) -> dict:
+def mesh_worker(rank: int, layouts, restore_dir: str | None, restore_argv,
+                recorded=None) -> dict:
     """One rank of a world on the card: each layout's f32 trajectory (its
     launches of kernels 1-5 counted from 0 around it) and bf16 step
     times, then, with ``restore_dir``, the checkpoint there restored on
     ``{model: 2}`` and gathered back: rank 0 reports whether every param
-    equals the saved one bit for bit."""
+    equals the saved one bit for bit. ``recorded``: the one-rank MoE
+    run's routing, which an expert-parallel layout's f32 run replays on
+    this rank's tokens (:class:`rank_routing`)."""
     import torch
 
     from tensorflow_examples_torch.core import distributed
+    from tensorflow_examples_torch.parallel import moe as moe_mod
     from tensorflow_examples_torch.sharding import ShardingConfig
+    from tensorflow_examples_torch.telemetry.registry import default_registry
     from tensorflow_examples_torch.train.checkpoint import CheckpointManager
     from tensorflow_examples_torch.train.loop import Trainer
     from tensorflow_examples_torch.workloads import gpt2
@@ -4126,25 +4206,47 @@ def mesh_worker(rank: int, layouts, restore_dir: str | None, restore_argv) -> di
     device = distributed.local_device("cuda")
     out = {"backend": torch.distributed.get_backend(), "device": str(device), "layouts": {}}
     for name, mesh_kw, kw in layouts:
-        cfg = mesh_config(**{k: v for k, v in kw.items() if k != "zero1"},
-                          zero1=kw.get("zero1", False))
+        cfg_kw = {k: v for k, v in kw.items() if k not in MESH_WORKER_KEYS}
+        cfg = mesh_config(**cfg_kw)
+        overrides = {"moe_capacity_factor": kw["capacity"]} if "capacity" in kw else {}
         sc = ShardingConfig(mesh=mesh_kw, zero1=cfg.zero1)
         mesh = sc.build_mesh(device=device)
         batches = mesh_batches(cfg, MESH_STEPS)
         res = {}
-        for precision in ("f32", "bf16"):
+        for precision in ("f32", "bf16") if kw.get("bf16", True) else ("f32",):
             run_cfg = cfg.replace(precision=precision)
-            trainer = Trainer(gpt2.make_task(run_cfg, mesh=mesh), run_cfg, mesh=mesh, sharding=sc)
+            trainer = Trainer(gpt2.make_task(run_cfg, mesh=mesh, **overrides), run_cfg,
+                              mesh=mesh, sharding=sc)
+            routing = contextlib.nullcontext()
+            if precision == "f32" and cfg.moe_experts:
+                # This rank routes tokens [i n, (i + 1) n) of the one-rank
+                # run's flattened batch: its data rows, then its model block.
+                n = cfg.global_batch_size * cfg.seq_len // mesh.axis_size(("data", "model"))
+                i = mesh.axis_index(("data", "model"))
+                routing = rank_routing(moe_mod, [
+                    [torch.as_tensor(e[i * n:(i + 1) * n], device=device) for e in call]
+                    for call in recorded])
             if precision == "f32":
                 reset_counts(counters)
-            losses, ms = mesh_steps(torch, trainer, batches)
+            drops = []
+            with routing:
+                losses, ms = mesh_steps(torch, trainer, batches, drops)
             if precision == "f32":
                 res["launches"] = {k: c.launches for k, c in counters.items()}
                 res["losses"] = losses
                 res["opt_bytes_per_device"] = trainer.byte_breakdown(per_device=True)["opt_state"]
+                if cfg.moe_experts:
+                    res["moe_drop"] = drops
+                    res["routing_flips"] = (routing.flips, routing.worst_gap)
             else:
                 res["bf16_step_ms"] = ms
                 res["bf16_step_ms_p50"] = float(np.median(ms[1:]))
+                if cfg.moe_experts:
+                    res["bf16_moe_drop"] = drops
+                if mesh.axis_size("pipe") > 1 and cfg.pipeline_schedule == "1f1b":
+                    gauges = default_registry().gauge_values()  # the last bf16 step's schedule
+                    res["bf16_1f1b"] = {k: gauges[f"pipeline/{k}"] for k in
+                                        ("ticks", "idle_ticks", "wall_s", "exchange_s")}
             del trainer
             gc.collect()
             torch.cuda.empty_cache()
@@ -4167,16 +4269,29 @@ def mesh_worker(rank: int, layouts, restore_dir: str | None, restore_argv) -> di
     return out
 
 
-def torchrun_cli(here: str, nproc: int, argv: list, timeout: int = 600) -> dict:
-    """``train.cli`` under ``torch.distributed.run`` (torchrun) with
-    ``nproc`` ranks on this host: exit code, rank 0's result line, the
-    log lines naming the backend and a restore."""
+def torchrun_pair(here: str, first: list, second: list) -> tuple[dict, dict]:
+    """Two ``train.cli`` runs under ``torch.distributed.run`` (torchrun),
+    2 ranks each, side by side on the card (neither is timed), checked
+    in the calling thread (:func:`torchrun_result`)."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(torchrun_run, here, 2, argv) for argv in (first, second)]
+        done = [r.result() for r in runs]
+    return torchrun_result(first, *done[0]), torchrun_result(second, *done[1])
+
+
+def torchrun_run(here: str, nproc: int, argv: list, timeout: int = 600):
+    """(the finished process, its wall seconds)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
            "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
            "--master_port", str(free_port()), "-m", "tensorflow_examples_torch.train.cli", *argv]
     t0 = time.perf_counter()
     p = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=timeout)
-    wall = time.perf_counter() - t0
+    return p, time.perf_counter() - t0
+
+
+def torchrun_result(argv: list, p, wall: float) -> dict:
+    """A torchrun run's exit code checked, rank 0's result line, and the
+    log lines naming the backend and a restore."""
     if p.returncode != 0:
         fail(f"torchrun {' '.join(argv)}: exit {p.returncode}\n{p.stderr[-4000:]}")
     results = [json.loads(x) for x in p.stdout.splitlines() if x.startswith("{")]
@@ -4190,12 +4305,17 @@ def torchrun_cli(here: str, nproc: int, argv: list, timeout: int = 600) -> dict:
 def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
     """GPT-2 training on meshes of ranks sharing the one card (gloo,
     collectives staged through host memory): each layout's f32 4-step
-    trajectory against the one-rank run of the same config, ZeRO-1
+    trajectory against its reference (the one-rank run of the same
+    config; interleaved 1F1B against plain 1F1B; expert parallelism
+    against the one-rank MoE run with the routing replayed), ZeRO-1
     against data parallelism, bf16 step p50 per rank, the launches of
-    kernels 1-5 on every rank; then ``train.cli`` under torchrun on
-    ``{data: 2}`` and a resume on ``{model: 2}``, the checkpoint restored
-    on ``{model: 2}`` bit for bit."""
+    kernels 1-5 on every rank (a pipeline layout's held to its
+    schedule's count); then ``train.cli`` under torchrun on ``{data: 2}``
+    and a resume on ``{model: 2}``, the checkpoint restored on ``{model:
+    2}`` bit for bit, and on ``{data: 1, pipe: 2}`` resumed on ``{pipe:
+    2}``."""
     from tensorflow_examples_torch.core import distributed
+    from tensorflow_examples_torch.parallel import moe as moe_mod
     from tensorflow_examples_torch.train.loop import Trainer
     from tensorflow_examples_torch.workloads import gpt2
 
@@ -4203,26 +4323,44 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out = {"config": f"GPT-2 124M widths (d 768, 12 heads, seq 1024, vocab 50257, batch 16) "
-                     f"at {MESH_LAYERS} layers; f32 dropout 0 for the trajectories, bf16 timed",
-           "card": smi}
-    # The one-rank run of the same config (tp_vocab and Ulysses are the
-    # plain head and flash attention on one rank).
+                     f"at {MESH_LAYERS} layers ({MESH_PIPE_LAYERS} for interleaving); f32 "
+                     "dropout 0 for the trajectories, bf16 timed", "card": smi}
+    # The one-rank runs the layouts are held to (tp_vocab and Ulysses are
+    # the plain head and flash attention on one rank; a pipeline the
+    # model unsplit): dense at MESH_LAYERS and at MESH_PIPE_LAYERS, and
+    # the MoE config with its routing recorded, without jitter.
     cfg = mesh_config()
     trainer = Trainer(gpt2.make_task(cfg), cfg)
     ref = out["one_rank_losses"] = mesh_steps(torch, trainer, mesh_batches(cfg, MESH_STEPS))[0]
     trainer = Trainer(gpt2.make_task(cfg.replace(precision="bf16")), cfg.replace(precision="bf16"))
     ms = mesh_steps(torch, trainer, mesh_batches(cfg, MESH_STEPS))[1]
     out["one_rank_bf16_step_ms_p50"] = float(np.median(ms[1:]))
-    log(f"mesh: one rank, f32 losses {ref}; bf16 step p50 {out['one_rank_bf16_step_ms_p50']:.2f} "
-        f"ms; {smi}")
+    refs = {"one rank": ref}
+    cfg4 = mesh_config(num_layers=MESH_PIPE_LAYERS)
+    trainer = Trainer(gpt2.make_task(cfg4), cfg4)
+    refs["one rank 4 layers"] = mesh_steps(torch, trainer, mesh_batches(cfg4, MESH_STEPS))[0]
+    ep_kw = {name: kw for name, _, kw in MESH_LAYOUTS_4}["data+model moe ep"]
+    cfg_moe = mesh_config(moe_experts=ep_kw["moe_experts"], moe_top_k=ep_kw["moe_top_k"])
+    trainer = Trainer(gpt2.make_task(cfg_moe, moe_capacity_factor=ep_kw["capacity"]), cfg_moe)
+    with rank_routing(moe_mod) as routing:
+        refs["one rank moe"] = mesh_steps(torch, trainer, mesh_batches(cfg_moe, MESH_STEPS))[0]
+    recorded = [[e.cpu().numpy() for e in call] for call in routing.calls]
+    out["one_rank_refs"] = refs
+    log(f"mesh: one rank, f32 losses {json.dumps(refs)}; bf16 step p50 "
+        f"{out['one_rank_bf16_step_ms_p50']:.2f} ms; {smi}")
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
 
-    # train.cli under torchrun on {data: 2}: the checkpoint the world below restores.
+    # train.cli under torchrun on {data: 2} (the checkpoint the world below
+    # restores) and, beside it, on {data: 1, pipe: 2} to step 4.
     workdir = os.path.join(tmp, "mesh-cli")
+    pipe_dir = os.path.join(tmp, "mesh-pipe-cli")
     run_argv = [*MESH_CLI, "--train_steps", "4", "--workdir", workdir]
-    out["torchrun_data"] = torchrun_cli(here, 2, [*run_argv, "--mesh_data", "2"])
+    out["torchrun_data"], out["torchrun_pipe"] = torchrun_pair(
+        here, [*run_argv, "--mesh_data", "2"],
+        [*MESH_CLI, "--train_steps", "4", "--workdir", pipe_dir, "--mesh_data", "1",
+         "--mesh_pipe", "2"])
     log(f"mesh: torchrun data 2: {json.dumps(out['torchrun_data'])}")
 
     worlds = ((2, MESH_LAYOUTS_2, workdir), (4, MESH_LAYOUTS_4, None))
@@ -4230,47 +4368,89 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
     for n, layouts, restore in worlds:
         t0 = time.perf_counter()
         ranks_out[n] = distributed.run_world(mesh_worker, n, layouts, restore,
-                                             [*run_argv, "--mesh_model", "2"], device="cuda",
-                                             timeout_s=900)
+                                             [*run_argv, "--mesh_model", "2"], recorded,
+                                             device="cuda", timeout_s=900)
         log(f"mesh: world of {n} ranks on one card, backend {ranks_out[n][0]['backend']} "
             f"(host-staged collectives), {time.perf_counter() - t0:.1f} s")
     restore = ranks_out[2][0]["restore"]
     if not restore["bitwise"] or restore["step"] != 4 or restore["qkv_local_heads"] != 6:
         fail(f"mesh: the {{data: 2}} checkpoint restored on {{model: 2}}: {restore}")
     out["restore_model2"] = restore
-    out["torchrun_resume_model"] = torchrun_cli(here, 2, [*MESH_CLI, "--train_steps", "6",
-                                                          "--workdir", workdir,
-                                                          "--mesh_model", "2"])
+    # The resumes, side by side: {data: 2}'s on {model: 2}, the pipeline's
+    # on {pipe: 2} with an explicit interleave of 1 (the same storage key).
+    out["torchrun_resume_model"], out["torchrun_resume_pipe"] = torchrun_pair(
+        here, [*MESH_CLI, "--train_steps", "6", "--workdir", workdir, "--mesh_model", "2"],
+        [*MESH_CLI, "--train_steps", "6", "--workdir", pipe_dir, "--mesh_pipe", "2",
+         "--pipe_interleave", "1"])
     resumed = out["torchrun_resume_model"]
     if resumed["result"]["steps"] != 6 or not any("restored checkpoint at step 4" in x
                                                   for x in resumed["notes"]):
         fail(f"mesh: torchrun resume on model 2: {resumed}")
     log(f"mesh: torchrun resume on model 2: {json.dumps(resumed)}")
+    piped, resumed = out["torchrun_pipe"], out["torchrun_resume_pipe"]
+    if piped["result"]["steps"] != 4 or piped["result"]["mesh"]["pipe"] != 2 or \
+            resumed["result"]["steps"] != 6 or not any(
+                "restored checkpoint at step 4" in x for x in resumed["notes"]) or \
+            not np.isfinite(resumed["result"]["loss"]):
+        fail(f"mesh: torchrun on pipe 2 and its resume: {piped} {resumed}")
+    log(f"mesh: torchrun data 1 pipe 2: {json.dumps(piped)}; resumed on pipe 2, interleave 1: "
+        f"{json.dumps(resumed)}")
 
     launches = {k: [0] * 4 for k in mesh_counters()}
+    pipe_launches = {k: [0] * 4 for k in mesh_counters()}
     out["layouts"] = {}
     for n, layouts, _ in worlds:
         for name, mesh_kw, kw in layouts:
             per_rank = [r["layouts"][name] for r in ranks_out[n]]
-            want = ref
             losses = per_rank[0]["losses"]
             if any(r["losses"] != losses for r in per_rank):
                 fail(f"mesh {name}: ranks disagree on the loss: {[r['losses'] for r in per_rank]}")
+            ref_name = kw.get("ref", "one rank")
+            if ref_name in refs:
+                want, rtol = refs[ref_name], MESH_RTOL
+            else:
+                want, rtol = out["layouts"][ref_name]["f32_losses"], MESH_INTERLEAVE_RTOL
             rel = float(np.max(np.abs(np.array(losses) - want) / np.abs(want)))
-            if not rel <= MESH_RTOL:
-                fail(f"mesh {name}: f32 losses {losses} vs one rank {want}: rel {rel:.3e} > "
-                     f"{MESH_RTOL}")
+            if not rel <= rtol:
+                fail(f"mesh {name}: f32 losses {losses} vs {ref_name} {want}: rel {rel:.3e} > "
+                     f"{rtol}")
             for k in launches:
                 for i, r in enumerate(per_rank):
                     launches[k][i] += r["launches"][k]
-            out["layouts"][name] = {
-                "mesh": mesh_kw, **kw, "f32_losses": losses, "rel_vs_one_rank": rel,
-                "bf16_step_ms_p50_per_rank": [r["bf16_step_ms_p50"] for r in per_rank],
-                "launches_per_rank": [r["launches"] for r in per_rank],
+                    if name in MESH_PIPE_LAYOUTS:
+                        pipe_launches[k][i] += r["launches"][k]
+            if name in MESH_PIPE_LAYOUTS:
+                want_l = [pipe_launches_want(name, kw, mesh_kw, i) for i in range(n)]
+                if [r["launches"] for r in per_rank] != want_l:
+                    fail(f"mesh {name}: launches per rank {[r['launches'] for r in per_rank]}, "
+                         f"the schedule's {want_l}")
+            row = out["layouts"][name] = {
+                "mesh": mesh_kw, **kw, "f32_losses": losses, "ref": ref_name,
+                "rel_vs_ref": rel, "launches_per_rank": [r["launches"] for r in per_rank],
                 "opt_bytes_per_device": per_rank[0]["opt_bytes_per_device"]}
-            log(f"mesh {name} {mesh_kw}: f32 losses {losses} rel {rel:.3e} vs one rank; bf16 "
-                f"step p50 ms per rank {out['layouts'][name]['bf16_step_ms_p50_per_rank']}; "
-                f"launches per rank {out['layouts'][name]['launches_per_rank']}; {smi}")
+            if "bf16_step_ms_p50" in per_rank[0]:
+                row["bf16_step_ms_p50_per_rank"] = [r["bf16_step_ms_p50"] for r in per_rank]
+            if "bf16_1f1b" in per_rank[0]:
+                # The bubble: the table's idle ticks a rank, and the share
+                # of the schedule's host wall spent in its hops.
+                row["bf16_1f1b_per_rank"] = [r["bf16_1f1b"] for r in per_rank]
+            if "moe_drop" in per_rank[0]:
+                flips = [r["routing_flips"] for r in per_rank]
+                row.update(moe_drop=[r["moe_drop"] for r in per_rank],
+                           bf16_moe_drop=[r["bf16_moe_drop"] for r in per_rank],
+                           routing_flips=flips)
+                if any(d != 0.0 for r in per_rank for d in r["moe_drop"] + r["bf16_moe_drop"]):
+                    fail(f"mesh {name}: tokens dropped at capacity factor {kw['capacity']}: "
+                         f"{row['moe_drop']} {row['bf16_moe_drop']}")
+                if not all(gap < NEAR_TIE for _, gap in flips):
+                    fail(f"mesh {name}: a replayed routing decision was no near-tie: {flips}")
+            log(f"mesh {name} {mesh_kw}: f32 losses {losses} rel {rel:.3e} vs {ref_name}; bf16 "
+                f"step p50 ms per rank {row.get('bf16_step_ms_p50_per_rank')}; launches per "
+                f"rank {row['launches_per_rank']}"
+                + (f"; 1F1B ticks, idle ticks, wall and hop seconds of the last bf16 step per "
+                   f"rank {row['bf16_1f1b_per_rank']}" if "bf16_1f1b_per_rank" in row else "")
+                + (f"; moe_drop {row['moe_drop']}, replayed routing flips and largest gap per "
+                   f"rank {row['routing_flips']}" if "moe_drop" in row else "") + f"; {smi}")
     z1, dp = out["layouts"]["data+zero1"], out["layouts"]["data"]
     z_rel = float(np.max(np.abs(np.array(z1["f32_losses"]) - dp["f32_losses"])
                          / np.abs(dp["f32_losses"])))
@@ -4279,12 +4459,14 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
              f"per device {z1['opt_bytes_per_device']} vs {dp['opt_bytes_per_device']}")
     out["zero1_rel_vs_data"] = z_rel
     out["launches_per_rank"] = launches  # kernels 1-5, every layout, ranks 0-3
+    out["pipe_launches_per_rank"] = pipe_launches  # the pipeline layouts alone
     idle = [k for k, per in launches.items() if any(v == 0 for v in per[:2])]
     if idle:
         fail(f"mesh: kernels {idle} not launched on every rank: {launches}")
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"mesh: launches of kernels 1-5 per rank over every layout {json.dumps(launches)}; "
-        f"zero1 vs data rel {z_rel:.3e}; phase {out['phase_s']:.1f} s; {smi}")
+    log(f"mesh: launches of kernels 1-5 per rank over every layout {json.dumps(launches)}, "
+        f"over the pipeline layouts {json.dumps(pipe_launches)}; zero1 vs data rel "
+        f"{z_rel:.3e}; phase {out['phase_s']:.1f} s; {smi}")
     return out
 
 
@@ -4352,6 +4534,7 @@ def main() -> int:
     for name in TRAIN_KERNELS:
         # The mesh path: every layout's launches, rank by rank.
         rows[name]["mesh_launches_per_rank"] = mesh["launches_per_rank"][name]
+        rows[name]["pipe_launches_per_rank"] = mesh["pipe_launches_per_rank"][name]
     for name in FLASH_KERNELS:
         rows[name]["tensor_core_launches"] = training["launches"][f"{name}_tensor_core"]
         # BERT's path: its own count (20 steps, and 8 eval batches for the forward).
@@ -4409,7 +4592,7 @@ def main() -> int:
                                    "all_shapes", "worst_abs_err_all_cases", "design",
                                    "head_dim_sweep_max_abs_err", "tensor_core_launches",
                                    "simt_launches", "split_launches", "bert_glue",
-                                   "mesh_launches_per_rank")
+                                   "mesh_launches_per_rank", "pipe_launches_per_rank")
                if k in row},
         })
     log(json.dumps({"kernels": kernels}))

@@ -25,8 +25,14 @@ cotangent of it is already the whole one.
   swapped exchange. Each takes several tensors and moves them in one
   call, so a rank's backward meets the same collectives in the same
   order as its peers'.
+* :func:`gather_replicated` is the tiled all-gather of per-shard work
+  into a replicated value (expert parallelism's combined outputs): its
+  backward keeps this rank's slice of the (whole) cotangent.
 * :func:`pmax` and :func:`pmean` are not differentiated (a stabilizer,
-  metrics).
+  metrics); :func:`pmean_scaled` is a mean whose backward scales the
+  cotangent by a given factor (the expert-parallel router's statistics).
+* :func:`point_to_point` posts table-driven sends and receives (the 1F1B
+  schedule's hops); it is not differentiated.
 
 The backend is read here and nowhere else: on ``gloo`` every operand on
 a CUDA device is copied through a pinned host buffer, for every
@@ -135,6 +141,29 @@ def _permute(xs: Sequence[torch.Tensor], axis, mesh, sends: Sequence[int],
     return [_back(o, x) for o, x in zip(outs, xs)]
 
 
+def point_to_point(ops: Sequence[tuple], axis, *, mesh) -> list[torch.Tensor]:
+    """Sends and receives on the axis' group, posted in one batch in the
+    order given; not differentiated. Each op is ``("send", tensor,
+    peer)`` or ``("recv", like, peer)`` (``like``: a tensor of the
+    shape and dtype that arrives), ``peer`` an axis index. Returns the
+    received tensors, in order. Both sides of a pair must post it, and
+    two messages between one pair in one direction pair up in posting
+    order (the 1F1B schedule's table-driven hops)."""
+    members, group, staged = mesh.members(axis), mesh.group(axis), _staged(mesh)
+    posted, outs = [], []
+    for kind, t, peer in ops:
+        if kind == "send":
+            posted.append(dist.P2POp(dist.isend, _host(t, staged), members[peer], group=group))
+        else:
+            recv = _out(t.shape, t, staged)
+            posted.append(dist.P2POp(dist.irecv, recv, members[peer], group=group))
+            outs.append((recv, t))
+    if posted:
+        for work in dist.batch_isend_irecv(posted):
+            work.wait()
+    return [_back(o, like) for o, like in outs]
+
+
 def _all_to_all(x: torch.Tensor, axis, mesh, split_axis: int, concat_axis: int) -> torch.Tensor:
     group = mesh.group(axis)
     if group is None:
@@ -228,6 +257,29 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all(g, axis, mesh, concat_axis, split_axis), None, None, None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = (mesh.axis_index(axis), x.shape[dim], dim)
+        return _all_gather(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, size, dim = ctx.args
+        return g.narrow(dim, i * size, size).contiguous(), None, None, None
+
+
+class _PmeanScaled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, scale):
+        ctx.scale = scale
+        return _all_reduce(x, axis, mesh) / mesh.axis_size(axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None, None, None
+
+
 class _Depend(torch.autograd.Function):
     """``x`` unchanged, with ``deps`` in its backward graph (zero
     cotangents): keeps a collective whose outputs this rank does not
@@ -277,6 +329,18 @@ def all_gather(x: torch.Tensor, axis: AxisName, *, mesh, dim: int = 0) -> torch.
     """Concatenate the axis' shards along ``dim`` (backward:
     reduce-scatter)."""
     return _AllGather.apply(x, axis, mesh, dim) if mesh.group(axis) is not None else x
+
+
+def gather_replicated(x: torch.Tensor, axis: AxisName, *, mesh, dim: int = 0) -> torch.Tensor:
+    """Concatenate the axis' shards along ``dim`` into a value every rank
+    then computes alike (backward: this rank's slice of the cotangent,
+    which each rank already holds whole)."""
+    return _GatherReplicated.apply(x, axis, mesh, dim) if mesh.group(axis) is not None else x
+
+
+def pmean_scaled(x: torch.Tensor, axis: AxisName, *, mesh, scale: float) -> torch.Tensor:
+    """All-reduce mean whose backward is the cotangent times ``scale``."""
+    return _PmeanScaled.apply(x, axis, mesh, scale) if mesh.group(axis) is not None else x
 
 
 def reduce_scatter(x: torch.Tensor, axis: AxisName, *, mesh, dim: int = 0) -> torch.Tensor:

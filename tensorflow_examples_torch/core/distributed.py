@@ -25,6 +25,7 @@ from __future__ import annotations
 import datetime
 import logging
 import os
+import pickle
 import queue
 import shutil
 import tempfile
@@ -132,8 +133,9 @@ def _world_worker(fn, rank: int, world_size: int, init_method: str, device: str,
     try:
         initialize(device=device, init_method=init_method, world_size=world_size, rank=rank,
                    local_world_size=world_size, timeout_s=timeout_s)
-        out = fn(rank, *args)
-        results.put((rank, True, out))
+        # By value: the queue's own pickler shares a tensor's storage by a
+        # handle into this process, which is gone once the rank exits.
+        results.put((rank, True, pickle.dumps(fn(rank, *args))))
     except BaseException:  # noqa: BLE001 - reported to the parent, which raises
         results.put((rank, False, traceback.format_exc()))
     finally:
@@ -145,7 +147,8 @@ def run_world(fn, world_size: int, *args, device: str = "cpu", timeout_s: float 
     """Run ``fn(rank, *args)`` in ``world_size`` spawned processes joined
     in one process group (a ``file://`` store under ``store_dir``, a
     fresh temporary directory by default); returns each rank's result,
-    in rank order. ``fn``, ``args`` and the results are pickled. A rank
+    in rank order. ``fn``, ``args`` and the results are pickled, the
+    results by value (tensors in them included). A rank
     that raises, or a world still running after ``timeout_s`` (a wedged
     collective), kills every process and raises."""
     import multiprocessing as mp
@@ -172,7 +175,7 @@ def run_world(fn, world_size: int, *args, device: str = "cpu", timeout_s: float 
                                    f"{timeout_s:.0f} s (ranks done: {sorted(out)})") from None
             if not ok:
                 raise RuntimeError(f"rank {rank} of {world_size} failed:\n{payload}")
-            out[rank] = payload
+            out[rank] = pickle.loads(payload)
         for p in procs:
             p.join(timeout=30)
     finally:

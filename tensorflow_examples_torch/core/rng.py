@@ -185,9 +185,9 @@ class StepNoise:
     generator and a block's buffer are made at their first draw."""
 
     def __init__(self, key: np.ndarray | None = None):
-        self.key = None
+        self.key = self.base = None
         self._generators: dict[int, torch.Generator] = {}
-        self._jitter: dict[int, tuple] = {}  # layer -> (device buffer, lo, hi)
+        self._jitter: dict[int, tuple] = {}  # layer -> (device buffer, lo, hi, fold)
         if key is not None:
             self.stage(key)
 
@@ -195,14 +195,17 @@ class StepNoise:
     def generators(self) -> list[torch.Generator]:
         return list(self._generators.values())
 
-    def stage(self, key: np.ndarray) -> "StepNoise":
+    def stage(self, key: np.ndarray, base: np.ndarray | None = None) -> "StepNoise":
         """Reseed every generator and refill every jitter buffer for the
-        step of ``key`` (the copies run on the current stream)."""
+        step of ``key`` (the copies run on the current stream). ``base``:
+        the step's key before a mesh folded this rank's shard into it
+        (default ``key``), which a folded jitter starts from."""
         self.key = key
+        self.base = key if base is None else base
         for site, gen in self._generators.items():
             gen.manual_seed(site_seed(key, site))
-        for layer, (buf, lo, hi) in self._jitter.items():
-            self._fill(layer, buf, lo, hi)
+        for layer, entry in self._jitter.items():
+            self._fill(layer, *entry)
         return self
 
     def dropout_uniform(self, site: int, shape, device) -> torch.Tensor:
@@ -212,15 +215,25 @@ class StepNoise:
             gen.manual_seed(site_seed(self.key, site))
         return torch.rand(shape, generator=gen, device=device)
 
-    def router_jitter(self, layer: int, shape, lo: float, hi: float, device) -> torch.Tensor:
+    def router_jitter(self, layer: int, shape, lo: float, hi: float, device,
+                      fold: tuple | None = None) -> torch.Tensor:
+        """``fold``: indices folded, in order, into the router key of the
+        unfolded step key (``base``), as the reference's expert-parallel
+        dispatch folds each route axis's index (``parallel/moe.moe_ffn_ep``)."""
         entry = self._jitter.get(layer)
         if entry is None:
-            entry = self._jitter[layer] = (torch.empty(shape, device=device), lo, hi)
+            entry = self._jitter[layer] = (torch.empty(shape, device=device), lo, hi, fold)
             self._fill(layer, *entry)
         return entry[0]
 
-    def _fill(self, layer: int, buf: torch.Tensor, lo: float, hi: float) -> None:
-        host = torch.from_numpy(uniform(router_key(self.key, layer), tuple(buf.shape), lo, hi))
+    def _fill(self, layer: int, buf: torch.Tensor, lo: float, hi: float, fold) -> None:
+        if fold is None:
+            key = router_key(self.key, layer)
+        else:
+            key = router_key(self.base, layer)
+            for i in fold:
+                key = fold_in(key, i)
+        host = torch.from_numpy(uniform(key, tuple(buf.shape), lo, hi))
         if buf.is_cuda:
             # A pinned block is reused only once its copy has run, so the
             # copy need not block the host.

@@ -166,7 +166,13 @@ def encode(cfg: BertConfig, params, tokens: torch.Tensor, attention_mask=None,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     emb = F.embedding(tokens, enc.word_embeddings.embedding)
     emb = emb + F.embedding(positions, enc.position_embeddings.embedding)[None]
-    emb = emb + F.embedding(token_type_ids, enc.token_type_embeddings.embedding)
+    # The type table has 2 rows, each looked up by half the batch's
+    # tokens: a one-hot product, whose backward is a matmul. The embedding
+    # backward over so many repeats of one row is not bitwise repeatable
+    # on the card (chip_probe.py determinism); the forward gives the same
+    # rows exactly.
+    table = enc.token_type_embeddings.embedding
+    emb = emb + F.one_hot(token_type_ids.long(), table.shape[0]).to(table.dtype) @ table
     x = drop(_layer_norm(emb, enc.embeddings_ln, cfg.layer_norm_eps), 0)
     bias = key_bias(attention_mask)
     for i in range(cfg.num_layers):

@@ -70,7 +70,9 @@ enters through ``collectives.copy_to`` and each row-parallel output is
 summed with ``psum`` before its bias. Attention runs through
 ``parallel/attention.mesh_attention`` (the ring or Ulysses over
 ``context``), positions start at this rank's sequence shard, and a token
-table split by vocab looks its ids up on the rank holding them.
+table split by vocab looks its ids up on the rank holding them. An MoE
+block runs ``parallel/moe.moe_ffn_ep``: its experts split over
+``model``, the router's jitter key folded by each route axis's index.
 
 Decoding (the reference's ``sample_tokens``, ``init_cache`` and
 ``generate``): :class:`KVCache` holds each layer's keys and values at
@@ -108,7 +110,7 @@ from tensorflow_examples_torch.core.precision import take_rows as _rows
 from tensorflow_examples_torch.ops.attention import NEG_INF, attention_reference, flash_attention
 from tensorflow_examples_torch.ops.decode import decode_attention_reference, flash_decode_attention
 from tensorflow_examples_torch.parallel.attention import mesh_attention
-from tensorflow_examples_torch.parallel.moe import moe_ffn
+from tensorflow_examples_torch.parallel.moe import moe_ffn, moe_ffn_ep
 
 ATTENTION_IMPLS = ("flash", "xla", "ring", "ulysses")
 _aten = torch.ops.aten
@@ -291,16 +293,21 @@ def _block_mlp(x, blk, reduce=None):
     return (reduce(y) if reduce is not None else y) + blk.mlp_proj.bias
 
 
-def _mlp(x, blk, cfg: TransformerConfig, layer: int, moe_rng, reduce=None):
+def _mlp(x, blk, cfg: TransformerConfig, layer: int, moe_rng, reduce=None, mesh=None):
     """Block ``layer``'s MLP of ``x`` [B, L, d]: (y, moe aux, moe drop),
     the last two None for a dense block. ``moe_rng``: the router jitter's
-    source (``parallel/moe.moe_ffn``'s ``rng``; None: no jitter)."""
+    source (``parallel/moe.moe_ffn``'s ``rng``; None: no jitter). On a
+    mesh an MoE block runs ``moe_ffn_ep`` (expert parallelism over
+    ``model``; the single-program path where ``model`` is 1)."""
     if not cfg.use_moe(layer):
         return _block_mlp(x, blk, reduce), None, None
     moe, dt = blk.moe, x.dtype
-    return moe_ffn(moe.gate, moe.w_in.to(dt), moe.b_in.to(dt), moe.w_out.to(dt), moe.b_out.to(dt),
-                   x, capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k, rng=moe_rng,
-                   impl=cfg.moe_impl)
+    args = (moe.gate, moe.w_in.to(dt), moe.b_in.to(dt), moe.w_out.to(dt), moe.b_out.to(dt), x)
+    kw = dict(capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k, rng=moe_rng,
+              impl=cfg.moe_impl)
+    if mesh is not None:
+        return moe_ffn_ep(*args, mesh=mesh, **kw)
+    return moe_ffn(*args, **kw)
 
 
 def _qkv(x, attn):
@@ -319,12 +326,14 @@ def _attn_out(att, attn, reduce=None):
     return (reduce(y) if reduce is not None else y) + attn.proj.bias
 
 
-def _self_attend(q, k, v, impl: str, mesh=None):
+def _self_attend(q, k, v, impl: str, mesh=None, stage: bool = False):
     """Causal self-attention of [B, S, H, hd] operands (this rank's
-    shards on a mesh: ``parallel/attention.mesh_attention``)."""
+    shards on a mesh: ``parallel/attention.mesh_attention``; ``stage``:
+    inside a pipeline stage)."""
     swap = lambda t: t.transpose(1, 2)  # [B,S,H,D] <-> [B,H,S,D]
     if mesh is not None:
-        out = mesh_attention(swap(q), swap(k), swap(v), mesh=mesh, causal=True, impl=impl)
+        out = mesh_attention(swap(q), swap(k), swap(v), mesh=mesh, causal=True, impl=impl,
+                             stage=stage)
     elif impl != "xla":
         out = flash_attention(swap(q), swap(k), swap(v), causal=True)
     else:
@@ -367,24 +376,31 @@ def remat_context(policy: str):
     return functools.partial(create_selective_checkpoint_contexts, list(REMAT_SAVES[policy]))
 
 
-def _block(x, blk, cfg: TransformerConfig, drop: Dropout, layer: int, moe_rng, mesh=None):
+def _block(x, blk, cfg: TransformerConfig, drop: Dropout, layer: int, moe_rng, mesh=None,
+           stage: bool = False):
     """One training block: (x, moe aux, moe drop), as :func:`_mlp`. On a
     mesh with ``model`` > 1 (tensor parallelism, Megatron's layout) the
     block holds its heads' slice of qkv and its rows of ``proj``, and
     its ``d_ff`` slice of the MLP: each normalized input enters the
     sharded products through ``copy_to`` (its backward sums the
     partial input gradients over ``model``) and each row-parallel
-    output is summed with ``psum`` before its bias."""
+    output is summed with ``psum`` before its bias. An MoE block's input
+    goes to ``moe_ffn_ep`` as it is (replicated over ``model``): the
+    expert-parallel dispatch splits the tokens itself. ``stage``: the
+    block runs inside a pipeline stage."""
     enter = reduce = None
     if mesh is not None and mesh.axis_size(AxisNames.MODEL) > 1:
         enter = functools.partial(coll.copy_to, axis=AxisNames.MODEL, mesh=mesh)
         reduce = functools.partial(coll.psum, axis=AxisNames.MODEL, mesh=mesh)
     h = _layer_norm(x, blk.ln_1)
     q, k, v = _qkv(enter(h) if enter else h, blk.attn)
-    att = _self_attend(q, k, v, cfg.attention, mesh)
+    att = _self_attend(q, k, v, cfg.attention, mesh, stage)
     x = x + drop(_attn_out(att, blk.attn, reduce), 2 * layer + 1)
     h = _layer_norm(x, blk.ln_2)
-    y, aux, dropped = _mlp(enter(h) if enter else h, blk, cfg, layer, moe_rng, reduce)
+    if cfg.use_moe(layer):
+        y, aux, dropped = _mlp(h, blk, cfg, layer, moe_rng, mesh=mesh)
+    else:
+        y, aux, dropped = _mlp(enter(h) if enter else h, blk, cfg, layer, moe_rng, reduce)
     return x + drop(y, 2 * layer + 2), aux, dropped
 
 
@@ -460,9 +476,6 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *, train: bool
         raise ValueError(f"attention={cfg.attention!r} not in {ATTENTION_IMPLS}")
     if mesh is not None and mesh.trivial:
         mesh = None
-    if mesh is not None and cfg.moe_experts and mesh.axis_size(AxisNames.MODEL) > 1:
-        raise NotImplementedError("expert parallelism (MoE over the model axis) is not "
-                                  "ported yet; run MoE on data/fsdp meshes")
     noise = noise if train else None
     drop = Dropout(cfg.dropout, noise)
     start = 0
@@ -599,3 +612,67 @@ def generate(cfg: TransformerConfig, params, prompt: torch.Tensor, *, num_tokens
     for k in keys:
         out.append(sample(decode_step(cfg, params, out[-1][:, None], cache)[:, -1], k))
     return torch.cat([prompt, torch.stack(out, dim=1).to(prompt.dtype)], dim=1)
+
+
+# ------------------------------------------------------- pipeline pieces
+#
+# The reference's pipeline-parallel GPT-2 (workloads/gpt2.py,
+# parallel/pipeline.py) keeps the embeddings and the tied head, which
+# every pipe rank holds, apart from the blocks, stacked on a leading
+# [num_layers] dim split over ``pipe``: parameters ``embed.{wte,wpe,ln_f}``
+# and ``blocks.<block param>`` [L, ...] (the JAX tree ``{"embed": ...,
+# "blocks": ...}`` with ``.`` for ``/``). The stacked blocks are dense, as
+# the reference's ``Block(cfg, None, train, False)``.
+
+
+class EmbedHead:
+    """The embedding in (``encode``: wte + wpe, then the embedding
+    dropout, site 0) and the tied head out (``logits``: ``ln_f``, then
+    ``@ wte.T``) over a view of the ``embed`` parameters."""
+
+    def encode(self, params, tokens: torch.Tensor, drop: "Dropout | None" = None):
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = _embed(params, tokens, positions[None])
+        return drop(x, 0) if drop is not None else x
+
+    def logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        return _layer_norm(x, params.ln_f) @ params.wte.embedding.T
+
+
+class _MicrobatchSites:
+    """Dropout sites of microbatch ``mb``: a block's sites shifted past
+    every earlier microbatch's (``2 L`` a microbatch, site 0 being the
+    embedding's), so each (microbatch, layer, site) draws its own mask,
+    whichever schedule runs it."""
+
+    def __init__(self, drop: Dropout, offset: int):
+        self.drop, self.offset = drop, offset
+
+    def __call__(self, x, site: int):
+        return self.drop(x, site + self.offset)
+
+
+def stack_params_for_pipeline(params, num_layers: int) -> dict:
+    """A :class:`GPT2`'s ``{name: tensor}`` (``wte``/``wpe``/``h_i``/``ln_f``)
+    -> the pipeline layout ``{"embed.<name>": ..., "blocks.<block param>":
+    [L, ...] stacked}`` (the reference's ``stack_params_for_pipeline``)."""
+    out = {f"embed.{k}": v for k, v in params.items() if not k.startswith("h_")}
+    names = [k[len("h_0."):] for k in params if k.startswith("h_0.")]
+    for n in names:
+        out[f"blocks.{n}"] = torch.stack([params[f"h_{i}.{n}"] for i in range(num_layers)])
+    return out
+
+
+def apply_stacked_blocks(cfg: TransformerConfig, params, x: torch.Tensor, *, layer0: int = 0,
+                         drop: Dropout | None = None, mb: int = 0, mesh=None) -> torch.Tensor:
+    """The blocks of ``params`` (``{block param: [k, ...]}``, logical layers
+    ``layer0 .. layer0 + k - 1``) applied in order to ``x``, inside a
+    pipeline stage on ``mesh``. ``drop``: the step's dropout
+    (:class:`Dropout`), at microbatch ``mb``'s own sites."""
+    names = list(params)
+    sites = _MicrobatchSites(drop or Dropout(0.0, None), mb * 2 * cfg.num_layers)
+    for i, tensors in enumerate(zip(*(torch.unbind(params[n]) for n in names))):
+        blk = ParamView(dict(zip(names, tensors)))
+        x = _block(x, blk, cfg, sites, layer0 + i, None, mesh, stage=True)[0]
+        check_finite(x, f"h_{layer0 + i}")
+    return x

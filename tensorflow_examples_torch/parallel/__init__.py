@@ -1,1 +1,2 @@
-"""Mixture-of-Experts dispatch (single program; expert parallelism over a mesh is a later slice)."""
+"""Parallel building blocks: Mixture-of-Experts dispatch (single program and expert
+parallel), mesh attention, ring and Ulysses context parallelism, and pipeline schedules."""

@@ -93,12 +93,20 @@ def _recut(xs: torch.Tensor, mesh, seq: int, pad: int) -> torch.Tensor:
 
 def mesh_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mesh,
                    causal: bool = True, sm_scale: float | None = None, impl: str = "flash",
-                   key_bias: torch.Tensor | None = None) -> torch.Tensor:
+                   key_bias: torch.Tensor | None = None, stage: bool = False) -> torch.Tensor:
     """Attention of this rank's [B, H, S, D] shards laid out by
     :func:`attention_spec`. ``ring``/``ulysses`` choose the context
-    algorithm when ``context`` > 1 (``flash`` means ring there)."""
+    algorithm when ``context`` > 1 (``flash`` means ring there).
+
+    ``stage``: the call runs inside a pipeline stage (the reference's
+    ``_stage_tp_axis`` branch). The rank's heads are already its
+    ``model`` share, so the kernels run on them as they do outside a
+    stage; a key bias there raises, as the reference's does."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r} not in {IMPLS}")
+    if stage and key_bias is not None:
+        raise NotImplementedError("key_bias inside a pipeline stage is unexercised; add a "
+                                  "test with the bias grad psum before enabling")
     if key_bias is not None and impl == "xla":
         raise ValueError("key_bias requires the flash path (impl != 'xla')")
     c = 1 if mesh is None else mesh.axis_size(AxisNames.CONTEXT)

@@ -1,6 +1,6 @@
-"""Mixture-of-Experts FFN, single program: the port of
-``tensorflow_examples_tpu/parallel/moe.py`` (``moe_ffn`` and what it
-calls; the expert-parallel ``moe_ffn_ep`` waits for the mesh port).
+"""Mixture-of-Experts FFN: the port of
+``tensorflow_examples_tpu/parallel/moe.py``, the single-program
+``moe_ffn`` and the expert-parallel ``moe_ffn_ep``.
 
 Switch/GShard top-k routing with one router (:func:`_router`: f32 logits,
 uniform jitter at train time from a ``core/rng`` key, softmax, sequential
@@ -26,13 +26,29 @@ renormalizes) and two dispatch formulations:
 by backend: ``grouped`` on CUDA, ``scatter`` on the CPU. The two compute
 the same function when nothing drops. Order semantics are jax's: stable
 sorts, first-index ``argmax``, ``bincount`` with ``minlength``.
+
+:func:`moe_ffn_ep` is expert parallelism over the ``model`` axis, as
+per-rank code: each rank holds E/m experts (``GPT2_RULES``) and routes
+its 1/m block of the tokens (replicated over ``model`` under TP; kept
+whole on every rank when the count does not divide), with capacity per
+source rank. The capacity buffers are built by sorted gathers
+(:func:`_capacity_slots_sorted`, :class:`_MaskedRowGather`, whose
+backward is the inverse masked gather), one ``all_to_all`` takes each
+expert's slots to its rank and one brings the outputs back, and the
+blocks are gathered over ``model`` into the replicated output. The local
+experts' FFN is the einsum of the capacity path: no Pallas kernel lies
+on this path in the reference either.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from tensorflow_examples_torch.core import collectives as coll
+from tensorflow_examples_torch.core.mesh import AxisNames
 from tensorflow_examples_torch.ops import grouped_matmul as gm_ops
 from tensorflow_examples_torch.ops.grouped_matmul import grouped_matmul
 
@@ -240,3 +256,120 @@ def moe_ffn(gate_w, w_in, b_in, w_out, b_out, x, *, capacity_factor: float = 1.2
     yout = _expert_ffn(xin.reshape(e, capacity, d), w_in, b_in, w_out, b_out)
     out = _combine(yout, flat_slots, keeps, gates, n)
     return out.reshape(b, s, d).to(x.dtype), aux, drop_frac
+
+
+# ------------------------------------------------------ expert parallelism
+
+
+class _MaskedRowGather(torch.autograd.Function):
+    """``src[idx] * valid`` for an injective row map ``(idx, valid)``
+    whose inverse ``(inv_idx, inv_valid)`` is given: the backward is the
+    inverse masked gather, never a scatter."""
+
+    @staticmethod
+    def forward(ctx, src, idx, valid, inv_idx, inv_valid):
+        ctx.save_for_backward(inv_idx, inv_valid)
+        return src[idx] * valid[:, None].to(src.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_idx, inv_valid = ctx.saved_tensors
+        return g[inv_idx] * inv_valid[:, None].to(g.dtype), None, None, None, None
+
+
+def _masked_row_gather(src, idx, valid, inv_idx, inv_valid):
+    return _MaskedRowGather.apply(src, idx, valid, inv_idx, inv_valid)
+
+
+def _capacity_slots_sorted(tokens, experts, top_k: int, e: int, capacity: int):
+    """The [E*C, d] dispatch buffer built by sorted gathers: one stable
+    sort of the (token, rank) pairs by expert gives both directions of
+    the pair <-> slot map (a slot holds at most one kept pair; queue order
+    is the sorted, token-major pair order). Returns (xin [E*C, d],
+    pair_slot [n*k], pair_keep [n*k], slot_pair [E*C], slot_valid [E*C],
+    kept count)."""
+    n, d = tokens.shape
+    nk = n * top_k
+    eid, order, inv, sizes = _pair_sort(experts, e)
+    offsets = torch.cumsum(sizes, 0) - sizes
+    pos = inv - offsets[eid]                                          # queue position
+    pair_keep = pos < capacity
+    pair_slot = eid * capacity + torch.clamp(pos, 0, capacity - 1)
+    cols = torch.arange(capacity, device=tokens.device)
+    slot_valid = (cols[None, :] < sizes[:, None]).reshape(-1)
+    slot_j = torch.clamp(offsets[:, None] + cols[None, :], 0, nk - 1).reshape(-1)
+    slot_pair = order[slot_j]
+    replicated = tokens[:, None, :].expand(n, top_k, d).reshape(nk, d)
+    xin = _masked_row_gather(replicated, slot_pair, slot_valid, pair_slot, pair_keep)
+    return xin, pair_slot, pair_keep, slot_pair, slot_valid, pair_keep.long().sum()
+
+
+def moe_ffn_ep(gate_w, w_in, b_in, w_out, b_out, x, *, mesh, capacity_factor: float = 1.25,
+               top_k: int = 1, rng=None, jitter: float = 1e-2, impl: str | None = None):
+    """Expert-parallel MoE FFN of this rank's ``x`` [B, S, d] (its batch
+    rows and, with ``context`` > 1, its sequence shard; replicated over
+    ``model``) with router ``gate_w`` [d, E] and this rank's E/m experts
+    ``w_in`` [E/m, d, ff], ``b_in`` [E/m, ff], ``w_out`` [E/m, ff, d],
+    ``b_out`` [E/m, d]. Returns :func:`moe_ffn`'s triple; the aux loss
+    and drop fraction are means over the ranks that route distinct
+    tokens. ``impl`` applies to the single-program fallback only
+    (``model`` 1, or E not divisible by it); the expert-parallel path is
+    capacity-based. ``rng`` takes a ``fold`` keyword: the route axes'
+    indices, folded in order into the router key (the reference's
+    decorrelated jitter; ``core/rng.StepNoise.router_jitter``).
+
+    Gradients follow the per-rank reading of replicated values: the
+    token block and the router weights enter through ``copy_to`` (their
+    cotangents are summed over ``model``), the outputs leave through
+    ``gather_replicated``, and the router's mean probabilities are
+    averaged over the route axes with a backward scaled by 1/m, the
+    ``model`` split's share (the batch axes' mean is the trainer's
+    gradient reduction)."""
+    e = gate_w.shape[-1]
+    m = 1 if mesh is None else mesh.axis_size(AxisNames.MODEL)
+    if m <= 1 or e % m:
+        return moe_ffn(gate_w, w_in, b_in, w_out, b_out, x, capacity_factor=capacity_factor,
+                       top_k=top_k, rng=rng, jitter=jitter, impl=impl)
+    top_k = min(top_k, e)
+    b_loc, s_loc, d = x.shape
+    all_tokens = x.reshape(-1, d)
+    n_all = all_tokens.shape[0]
+    split = n_all % m == 0
+    token_axes = tuple(a for a in (*AxisNames.BATCH_AXES, AxisNames.CONTEXT)
+                       if mesh.shape[a] > 1)
+    if split:
+        n_loc = n_all // m
+        r = mesh.axis_index(AxisNames.MODEL)
+        tokens = coll.copy_to(all_tokens, AxisNames.MODEL, mesh=mesh)[r * n_loc:(r + 1) * n_loc]
+        gate_w = coll.copy_to(gate_w, AxisNames.MODEL, mesh=mesh)
+        route_axes = (*token_axes, AxisNames.MODEL)
+    else:
+        n_loc, tokens, route_axes = n_all, all_tokens, token_axes
+    capacity = max(1, int(capacity_factor * top_k * n_loc / e))
+    if rng is not None:
+        rng = functools.partial(rng, fold=tuple(mesh.axis_index(a) for a in route_axes))
+    gates, experts, moh0, mpr = _router(tokens, gate_w, top_k=top_k, rng=rng, jitter=jitter)
+    if route_axes:
+        moh0 = coll.pmean(moh0, route_axes, mesh=mesh)
+        mpr = coll.pmean_scaled(mpr, route_axes, mesh=mesh, scale=1.0 / m if split else 1.0)
+    aux = e * torch.sum(moh0 * mpr)
+    xin, pair_slot, pair_keep, slot_pair, slot_valid, kept = _capacity_slots_sorted(
+        tokens, experts, top_k, e, capacity)
+    drop = 1.0 - kept.float() / (n_loc * top_k)
+    if route_axes:
+        drop = coll.pmean(drop, route_axes, mesh=mesh)
+    # [E*C, d] -> [m, E/m, C, d]: group g's slots go to rank g, which
+    # receives [m (source), E/m, C, d] for its experts.
+    recv = coll.all_to_all(xin.reshape(m, e // m, capacity, d), AxisNames.MODEL, mesh=mesh,
+                           split_axis=0, concat_axis=0)
+    buf = recv.transpose(0, 1).reshape(e // m, m * capacity, d)
+    yloc = _expert_ffn(buf, w_in, b_in, w_out, b_out)
+    yloc = yloc.reshape(e // m, m, capacity, d).transpose(0, 1).contiguous()
+    yout = coll.all_to_all(yloc, AxisNames.MODEL, mesh=mesh, split_axis=0, concat_axis=0)
+    yflat = yout.reshape(e * capacity, d).float()
+    gat = torch.stack(gates, dim=1).reshape(-1)                          # [n_loc*k] f32
+    y_pair = _masked_row_gather(yflat, pair_slot, pair_keep, slot_pair, slot_valid)
+    out = (y_pair * gat[:, None]).reshape(n_loc, top_k, d).sum(dim=1).to(x.dtype)
+    if split:
+        out = coll.gather_replicated(out, AxisNames.MODEL, mesh=mesh, dim=0)
+    return out.reshape(b_loc, s_loc, d), aux, drop

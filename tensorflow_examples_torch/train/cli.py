@@ -30,7 +30,7 @@ On a mesh, one process a rank under ``torchrun``:
 
     torchrun --nproc_per_node 2 -m tensorflow_examples_torch.train.cli \
         --mesh_data 2 --workdir /tmp/run   # or --mesh_fsdp / --mesh_model /
-                                           # --mesh_context, --zero1 true
+                                           # --mesh_context / --mesh_pipe, --zero1 true
 
 The process group starts from ``torchrun``'s environment
 (``core/distributed.initialize``: NCCL with a card a rank, gloo when ranks

@@ -4,9 +4,9 @@ loop read, with the same names and defaults, except ``device``, which
 names a PyTorch device (``cuda`` unless the caller asks for ``cpu``).
 
 The mesh fields shape the ``torch.distributed`` mesh (``core/mesh.py``)
-over the ranks of the process group, one rank a device. Pipeline
-parallelism is not ported yet: ``mesh_pipe`` and the microbatch fields
-are absent rather than ignored.
+over the ranks of the process group, one rank a device; ``mesh_pipe``
+splits a workload's layers into pipeline stages (GPT-2's microbatch and
+schedule fields are in ``workloads/gpt2.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ class TrainConfig:
     mesh_fsdp: int = 1
     mesh_model: int = 1
     mesh_context: int = 1
+    mesh_pipe: int = 1
 
     # Optimization
     global_batch_size: int = 128
@@ -119,7 +120,7 @@ class TrainConfig:
 
     def mesh_config(self) -> MeshConfig:
         return MeshConfig(data=self.mesh_data, fsdp=self.mesh_fsdp, model=self.mesh_model,
-                          context=self.mesh_context)
+                          context=self.mesh_context, pipe=self.mesh_pipe)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

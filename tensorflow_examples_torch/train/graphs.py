@@ -126,7 +126,7 @@ class BundledStep:
     def _stage(self, step: int) -> None:
         """Step i of the launch draws from step ``step + i``'s key."""
         for i, noise in enumerate(self._noises):
-            noise.stage(self.trainer.step_key(step + i))
+            self.trainer.stage_noise(noise, step + i)
 
     def _record(self, state, bundle) -> _Entry:
         clone = lambda t: t.detach().clone()

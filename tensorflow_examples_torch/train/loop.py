@@ -291,6 +291,11 @@ class Trainer:
             key = rng.fold_in(key, self.mesh.axis_index(self.layout.grad_axes))
         return key
 
+    def stage_noise(self, noise: rng.StepNoise, step: int) -> rng.StepNoise:
+        """``noise`` staged for step ``step``: this rank's key, and the
+        unfolded step key the expert-parallel router jitter folds."""
+        return noise.stage(self.step_key(step), base=rng.step_rng(self._seed_key, step))
+
     def _compute_params(self, params: Mapping) -> Mapping:
         """What a step's forward reads: compute-dtype copies, FSDP pieces
         gathered on use."""
@@ -311,7 +316,7 @@ class Trainer:
         step key) supplies dropout and router jitter. ``state.step`` is an
         int, or a device tensor inside a captured graph."""
         if noise is None:
-            noise = self._noise.stage(self.step_key(state.step))
+            noise = self.stage_noise(self._noise, state.step)
         debug = self.config.debug_nans
         leaves = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
         with (_debug_nans(state.step) if debug else contextlib.nullcontext()):

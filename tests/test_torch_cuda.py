@@ -525,6 +525,107 @@ def test_k_step_graphs_refuse_gloo_on_the_card(dev, tmp_path):
         assert "gloo" in msg and "steps_per_launch=2" in msg, msg
 
 
+def _pipe_config():
+    from tensorflow_examples_torch.workloads import gpt2
+
+    cfg = gpt2.Gpt2Config(vocab_size=512, seq_len=128, num_layers=2, num_heads=4, d_model=256,
+                          dropout=0.0, precision="f32", global_batch_size=8, train_steps=2,
+                          warmup_steps=1, learning_rate=1e-3, log_every=1, eval_every=0,
+                          checkpoint_every=0, telemetry_sinks="", watchdog_secs=0)
+    rng = np.random.default_rng(3)
+    return cfg, [{"tokens": rng.integers(0, 512, (8, 129)).astype(np.int32)} for _ in range(2)]
+
+
+def _pipe_step_on_one_card(rank: int) -> dict:
+    from tensorflow_examples_torch.sharding import ShardingConfig
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    cfg, batches = _pipe_config()
+    kernels = FLASH_KERNELS + (cross_entropy.ce_fwd, cross_entropy.ce_bwd)
+    sc = ShardingConfig(mesh={"pipe": 2})
+    mesh = sc.build_mesh()
+    trainer = Trainer(gpt2.make_task(cfg, mesh=mesh), cfg, mesh=mesh, sharding=sc)
+    before = [f.launches for f in kernels]
+    losses = [float(trainer.train_step(b)["loss"]) for b in batches]
+    launched = [f.launches - b for f, b in zip(kernels, before)]
+    whole = trainer.layout.gather_state({"params": trainer.state.params})["params"]
+    return {"losses": losses, "launched": launched, "backend": torch.distributed.get_backend(),
+            "params": {k: v.cpu().numpy() for k, v in whole.items()} if rank == 0 else None}
+
+
+def test_two_rank_pipeline_step_on_one_card_matches_one_rank(dev, tmp_path):
+    """Two ranks share the card over gloo as two pipeline stages: two
+    f32 1F1B steps (4 microbatches, the flash and fused CE kernels inside
+    the schedule) against the same steps on one rank from the same seeded
+    init; losses rtol 1e-5, the updated parameters within 1e-5."""
+    from tensorflow_examples_torch.core import distributed
+    from tensorflow_examples_torch.models import transformer
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import gpt2
+
+    ranks = distributed.run_world(_pipe_step_on_one_card, 2, device="cuda", timeout_s=240,
+                                  store_dir=str(tmp_path))
+    cfg, batches = _pipe_config()
+    one = Trainer(gpt2.make_task(cfg), cfg)
+    one_losses = [float(one.train_step(b)["loss"]) for b in batches]
+    stacked = transformer.stack_params_for_pipeline(one.state.params, cfg.num_layers)
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    np.testing.assert_allclose(ranks[0]["losses"], one_losses, rtol=1e-5)
+    for k, v in stacked.items():
+        np.testing.assert_allclose(ranks[0]["params"][k], v.cpu().numpy(), atol=1e-5, rtol=0,
+                                   err_msg=k)
+    # Each stage's layer a step: 4 forward ticks, recomputed in 4 backward
+    # ticks; the CE on the last stage only.
+    assert ranks[0]["launched"] == [16, 8, 8, 0, 0], ranks[0]["launched"]
+    assert ranks[1]["launched"] == [16, 8, 8, 16, 8], ranks[1]["launched"]
+    assert all(r["backend"] == "gloo" for r in ranks)
+
+
+def _ep_on_one_card(rank: int) -> dict:
+    from tensorflow_examples_torch.core.mesh import MeshConfig, create_mesh
+    from tensorflow_examples_torch.parallel import moe
+
+    dev = torch.device("cuda")
+    mesh = create_mesh(MeshConfig(data=1, model=2), device=dev)
+    rng = np.random.default_rng(9)
+    e, d, ff = 8, 256, 512
+    args = [_randn(rng, shape, dev) * scale for shape, scale in (
+        ((d, e), 0.5), ((e, d, ff), 0.05), ((e, ff), 0.01), ((e, ff, d), 0.05), ((e, d), 0.01),
+        ((4, 256, d), 1.0))]
+    local = [args[0], *(a[rank * e // 2:(rank + 1) * e // 2] for a in args[1:5]), args[5]]
+    leaves = [a.clone().requires_grad_(True) for a in local]
+    out, aux, drop = moe.moe_ffn_ep(*leaves, mesh=mesh, capacity_factor=8.0, top_k=2)
+    grads = torch.autograd.grad(out.square().mean() + aux, leaves)
+    ref_leaves = [a.clone().requires_grad_(True) for a in args]
+    ref, ref_aux, ref_drop = moe.moe_ffn(*ref_leaves, capacity_factor=8.0, top_k=2,
+                                         impl="grouped")
+    ref_grads = torch.autograd.grad(ref.square().mean() + ref_aux, ref_leaves)
+    sl = slice(rank * e // 2, (rank + 1) * e // 2)
+    errs = {"out": float((out - ref).abs().max()), "aux": abs(float(aux) - float(ref_aux)),
+            "drop": float(drop), "ref_drop": float(ref_drop)}
+    for i, name in enumerate(("gate", "w_in", "b_in", "w_out", "b_out", "x")):
+        r = ref_grads[i][sl] if 0 < i < 5 else ref_grads[i]
+        errs[name] = float((grads[i] - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+    return errs
+
+
+def test_two_rank_expert_parallel_moe_on_one_card_matches_moe_ffn(dev, tmp_path):
+    """``moe_ffn_ep`` over ``{model: 2}`` on one card (gloo, each rank 4
+    of 8 experts, tokens split over the two ranks, all-to-all staged
+    through host memory) against ``moe_ffn``'s grouped kernels at a
+    capacity that drops nothing: outputs atol 2e-5, the aux loss rtol
+    1e-5, gradients 1e-4 of their largest value."""
+    from tensorflow_examples_torch.core import distributed
+
+    for errs in distributed.run_world(_ep_on_one_card, 2, device="cuda", timeout_s=240,
+                                      store_dir=str(tmp_path)):
+        assert errs["out"] <= 2e-5 and errs["aux"] <= 1e-5, errs
+        assert errs["drop"] == 0.0 and errs["ref_drop"] == 0.0, errs
+        assert all(errs[n] <= 1e-4 for n in ("gate", "w_in", "b_in", "w_out", "b_out", "x")), \
+            errs
+
+
 def test_flash_kernels_refuse_what_they_cannot_launch(dev):
     q = torch.zeros(2, 16, UNSUPPORTED_HEAD_DIM, device=dev)
     with pytest.raises(ValueError, match="head_dim"):

@@ -466,12 +466,9 @@ def test_trainer_runs_on_cuda_unless_asked_and_never_falls_back(monkeypatch):
     assert gpt2.Gpt2Config().fused_ce is True  # the JAX default
 
 
-# Reference config fields the port has not ported yet (ROADMAP A7b owes
-# them with pipeline parallelism), shrinking as they land: reported, not
-# failed.
-NOT_YET_PORTED = frozenset({
-    "mesh_pipe", "num_microbatches", "pipe_interleave", "pipeline_schedule",
-})
+# Reference config fields the port has not ported yet, shrinking as they
+# land (empty since pipeline parallelism): reported, not failed.
+NOT_YET_PORTED = frozenset()
 # Defaults that differ on purpose: the port runs on the card.
 DEFAULTS_DIFFER = {"device": ("tpu", "cuda")}
 
