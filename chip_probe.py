@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Three on-card probes of the PyTorch/CUDA port, beside ``chip_smoke.py``.
+"""Four on-card probes of the PyTorch/CUDA port, beside ``chip_smoke.py``.
 
     python3 chip_probe.py steps [--root DIR] [--steps N]
     python3 chip_probe.py profiler [--train-config] [--windows N] [--lead-ms MS]
     python3 chip_probe.py determinism [--runs N] [--steps N]
+    python3 chip_probe.py psum [--iters N]
 
 ``steps`` times the eager training step of the port checked out in
 ``DIR`` (default: the checkout around this script) at chip_smoke.py's
@@ -47,6 +48,17 @@ nondeterministic on CUDA; then, from the state after ``--steps`` - 5
 steps, the next step's gradients ``--reruns`` times, each held to the
 first tensor by tensor: the parameters whose gradients differ name the
 op that is not repeatable.
+
+``psum`` asks what one ``model`` psum of a sharded engine's decode step
+costs when two ranks share the card over gloo (``core/collectives``
+stages a CUDA operand through pinned host memory): on a world of 2
+ranks, the mean host ms of ``N`` calls of each of: the staging copies
+alone ([8, 768] f32 to the host and back, the decode step's psum
+operand) on rank 0 while rank 1 waits, and on both ranks at once; the
+psum of a host tensor (gloo alone); the psum of the CUDA tensor; a
+decode-sized product ([8, 768] x [768, 3072] and back) on both ranks;
+and that product followed by the psum of its output, each call ending
+in a synchronize.
 
 Needs one CUDA card; prints one JSON line per measurement.
 """
@@ -290,6 +302,53 @@ def profiler(windows: int, train_config: bool, lead_ms: float) -> dict:
     return {"train_config_first": train_config, **summary}
 
 
+def _psum_rank(rank: int, iters: int) -> dict:
+    import torch
+
+    from tensorflow_examples_torch.core import collectives as coll
+    from tensorflow_examples_torch.core.mesh import MeshConfig, create_mesh
+
+    dev = torch.device("cuda")
+    mesh = create_mesh(MeshConfig(data=1, model=2), device=dev)
+    gen = torch.Generator().manual_seed(rank)
+    x = torch.randn(8, 768, generator=gen).to(dev)
+    w = torch.randn(768, 3072, generator=gen).to(dev) * 0.02
+    host = x.cpu()
+
+    def timed(fn, *, alone: bool = False) -> float | None:
+        torch.distributed.barrier()
+        ms = None
+        if not alone or rank == 0:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / iters
+        torch.distributed.barrier()
+        return ms
+
+    psum = lambda t: coll.psum(t, "model", mesh=mesh)
+    return {
+        "staging_copies_ms_rank0_alone": timed(lambda: x.cpu().to(dev), alone=True),
+        "staging_copies_ms_both": timed(lambda: x.cpu().to(dev)),
+        "psum_host_tensor_ms": timed(lambda: psum(host)),
+        "psum_cuda_tensor_ms": timed(lambda: psum(x)),
+        "product_ms": timed(lambda: (x @ w) @ w.T),
+        "product_then_psum_ms": timed(lambda: psum((x @ w) @ w.T)),
+    }
+
+
+def psum_probe(iters: int) -> dict:
+    sys.path.insert(0, HERE)
+    from tensorflow_examples_torch.core import distributed
+
+    ranks = distributed.run_world(_psum_rank, 2, iters, device="cuda", timeout_s=300)
+    return {"probe": "psum", "iters": iters, "per_rank": ranks}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="probe", required=True)
@@ -304,6 +363,8 @@ def main() -> int:
     d.add_argument("--runs", type=int, default=4)
     d.add_argument("--steps", type=int, default=20)
     d.add_argument("--reruns", type=int, default=100)
+    q = sub.add_parser("psum")
+    q.add_argument("--iters", type=int, default=200)
     args = ap.parse_args()
     import torch
 
@@ -315,6 +376,8 @@ def main() -> int:
         result = steps(os.path.abspath(args.root), args.steps)
     elif args.probe == "determinism":
         result = determinism(args.runs, args.steps, args.reruns)
+    elif args.probe == "psum":
+        result = psum_probe(args.iters)
     else:
         result = profiler(args.windows, args.train_config, args.lead_ms)
     result["wall_s"] = time.perf_counter() - t0

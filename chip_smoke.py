@@ -248,6 +248,26 @@ non-zero:
    ``python -m tensorflow_examples_torch.serve`` processes (2 layers):
    one is ``kill -9``'d, restarted and readmitted, the tokens unchanged,
    and SIGTERM drains the CLI to exit 0;
+5i. sharded serving: GPT-2 124M at full width and depth (seed 0, f32,
+   TF32 off) served on ``{model: 2}`` by two ranks sharing the card
+   (``run_world(device="cuda")``: gloo, the psums staged through pinned
+   host memory, so every rung eager), each rank holding 6 of the 12 heads
+   of qkv, proj and the KV pool and half of the MLP, rank 0 leading
+   through ``serving/mesh_driver.py`` and rank 1 replaying its calls, in
+   ``dense_flash``, ``paged_flash`` and ``paged_flash_int8`` (8 slots,
+   block 16): 8 greedy requests through the batcher, every stream equal to
+   the one-rank eager engine's on the same weights (a near-tie allowed),
+   one 100-token prefill's logits within 1e-4 of one rank's, the ranks'
+   pool host state equal, 6 heads a rank, no recompile after warmup, each
+   rank's launches of rows 6 and 7 counted (12 flash-decode a prefill, 12
+   paged a decode step), the decode step's host wall, device time and psum
+   share a rank against the one-rank engine's; rows 6 and 7 at a rank's
+   shape (H 6: flash-decode at q_len 512, paged decode S 8 ragged and
+   full, fp32 and int8) against their plain versions; and the serve CLI
+   under ``torchrun --nproc_per_node 2`` on a ``{model: 2}`` workdir (2
+   layers): ``/health`` carries the mesh and the digest, a ``/generate``
+   equals a one-rank engine's tokens, SIGTERM drains rank 0 and both
+   ranks exit 0;
 5h. mesh, the last phase: GPT-2 at 124M widths cut to 2 layers (batch 16 x 1024) on
    worlds of ranks sharing the one card (``torch.distributed`` over gloo,
    every collective staged through pinned host memory): a world of 2
@@ -3430,6 +3450,496 @@ def phase_fleet(torch, model, model_cfg, counters, smi: str, here: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------- phase 5i
+
+
+# Sharded serving: GPT-2 124M on {model: 2}, two ranks sharing the card.
+SHARDED_CONFIGS = (("dense_flash", dict(attention="flash")),
+                   ("paged_flash", dict(kv_block_size=16, attention="paged_flash")),
+                   ("paged_flash_int8", dict(kv_block_size=16, attention="paged_flash",
+                                             kv_dtype="int8")))
+SHARDED_LENS = (5, 17, 40, 64, 100, 150, 230, 300)  # phase_serving's prompt lengths
+SHARDED_NEW = 16             # tokens a served request generates
+SHARDED_STEPS = 8            # decode steps in each timed window
+SHARDED_HEADS = 6            # a rank's heads: GPT-2's 12 over model 2
+SHARDED_PROBE_LEN = 100      # the prefill whose logits are held to one rank's
+SHARDED_CLI_LAYERS = 2       # the torchrun serve CLI's depth cut
+# A rank's measurement windows, filled by the sharded_* functions that
+# rank 0 runs on every rank through MeshDriver.run.
+_WINDOW: dict = {}
+
+
+def sharded_counters() -> dict:
+    from tensorflow_examples_torch.ops import decode, paged_decode
+
+    return {"flash_decode": decode.flash_decode_attention,
+            "paged_decode": paged_decode.paged_decode_attention}
+
+
+def time_all_reduces(coll) -> None:
+    """Add the host seconds of every ``model`` psum (``_all_reduce``: over
+    gloo, the copy to pinned host memory, which waits for the operand,
+    the reduce and the copy back) to ``_WINDOW["collective_s"]``."""
+    inner = coll._all_reduce
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            _WINDOW["collective_s"] = _WINDOW.get("collective_s", 0.0) + time.perf_counter() - t0
+
+    coll._all_reduce = timed
+
+
+def _decode_steps(engine) -> int:
+    return int(engine.registry.counter_values().get("serving/decode_steps", 0))
+
+
+def sharded_window_start(engine) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts(sharded_counters())
+    _WINDOW.update(collective_s=0.0, steps0=_decode_steps(engine), t0=time.perf_counter())
+
+
+def sharded_window_end(engine, name: str) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    _WINDOW.setdefault("windows", {})[name] = {
+        "launches": {k: c.launches for k, c in sharded_counters().items()},
+        "decode_steps": _decode_steps(engine) - _WINDOW["steps0"],
+        "wall_s": time.perf_counter() - _WINDOW["t0"], "collective_s": _WINDOW["collective_s"]}
+
+
+def sharded_profile_start(engine) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    time.sleep(PROFILER_LEAD_S)
+    _WINDOW.update(prof=prof, t0=time.perf_counter())
+
+
+def sharded_profile_end(engine, steps: int) -> None:
+    """Device ms a decode step of this rank's kernels, the port's share,
+    and the host wall a step under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - _WINDOW["t0"]) * 1e3 / steps
+    prof = _WINDOW.pop("prof")
+    prof.__exit__(None, None, None)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    device = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    ours = sum(e.self_device_time_total for e in events if any(
+        k in e.key for k in ("flash_decode_", "paged_decode_kernel", "merge_splits_kernel")))
+    _WINDOW["profile"] = {"device_ms": device, "port_kernel_ms": ours / 1e3 / steps,
+                          "profiled_wall_ms": wall_ms}
+
+
+def sharded_requests(vocab: int) -> list[dict]:
+    rng = np.random.default_rng(41)
+    return [{"prompt": [int(t) for t in rng.integers(0, vocab, n)],
+             "max_new_tokens": SHARDED_NEW, "seed": i} for i, n in enumerate(SHARDED_LENS)]
+
+
+def batcher_streams(engine, bodies) -> list[list[int]]:
+    """The requests at once through a ContinuousBatcher (no HTTP): each
+    stream's tokens."""
+    from tensorflow_examples_torch.serving.batcher import ContinuousBatcher, Request
+
+    batcher = ContinuousBatcher(engine).start()
+    try:
+        futures = [batcher.submit(Request(prompt=b["prompt"], max_new_tokens=b["max_new_tokens"],
+                                          seed=b["seed"])) for b in bodies]
+        return [f.result(timeout=300).tokens for f in futures]
+    finally:
+        batcher.close()
+
+
+def sharded_drive(engine, run, bodies, probe) -> dict:
+    """What phase 5i measures of one engine, the same calls on one rank
+    and on the mesh (where ``engine`` is rank 0's leader and ``run``
+    publishes a measurement function to every rank): the warmup, the
+    requests through the batcher in a counted window, one prefill of
+    ``probe`` in another (its logits returned), and SHARDED_STEPS decode
+    steps over every request's slot timed (host wall) and, in a second
+    run, profiled."""
+    import torch
+
+    out = {}
+    t0 = time.perf_counter()
+    engine.warmup()
+    out["warmup_s"] = time.perf_counter() - t0
+    run(sharded_window_start)
+    out["streams"] = batcher_streams(engine, bodies)
+    run(sharded_window_end, "serve")
+    slot = engine.pool.alloc()
+    run(sharded_window_start)
+    out["probe_logits"] = engine.prefill(slot, probe)[1]
+    run(sharded_window_end, "prefill")
+    engine.pool.free(slot)
+    slots = [engine.pool.alloc() for _ in bodies]
+    entries = [[s, engine.prefill(s, b["prompt"])[0], 0, 0.0, 0] for s, b in zip(slots, bodies)]
+
+    def steps(n):
+        for _ in range(n):
+            toks = engine.decode([tuple(e) for e in entries])
+            for e in entries:
+                e[1] = toks[e[0]]
+
+    steps(2)
+    run(sharded_window_start)
+    t0 = time.perf_counter()
+    steps(SHARDED_STEPS)
+    torch.cuda.synchronize()
+    out["decode_wall_ms"] = (time.perf_counter() - t0) * 1e3 / SHARDED_STEPS
+    run(sharded_window_end, "decode")
+    run(sharded_profile_start)
+    steps(SHARDED_STEPS)
+    run(sharded_profile_end, SHARDED_STEPS)
+    for s in slots:
+        engine.pool.free(s)
+    out["post_warmup_recompiles"] = engine.post_warmup_recompiles()
+    return out
+
+
+def sharded_worker(rank: int, model_kw: dict, bodies, probe) -> dict:
+    """One rank of the {model: 2} world: GPT-2 124M from seed 0, each
+    config's sharded engine (eager: its collectives are staged through
+    host memory), rank 0 leading :func:`sharded_drive`, rank 1 replaying
+    it; each rank's windows, profile and pool host state."""
+    import torch
+
+    from tensorflow_examples_torch.core import collectives as coll
+    from tensorflow_examples_torch.models import transformer
+    from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
+    from tensorflow_examples_torch.serving.mesh_driver import MeshDriver
+    from tensorflow_examples_torch.sharding import ShardingConfig
+    from tensorflow_examples_torch.telemetry.registry import MetricsRegistry
+
+    time_all_reduces(coll)
+    model_cfg = transformer.TransformerConfig(**model_kw)
+    model = transformer.GPT2(model_cfg, seed=0)
+    sc = ShardingConfig(mesh={"model": 2})
+    out = {"backend": torch.distributed.get_backend(), "configs": {}}
+    for name, kw in SHARDED_CONFIGS:
+        engine = InferenceEngine(model_cfg, model, cfg=ServeConfig(max_slots=8, **kw),
+                                 registry=MetricsRegistry(), sharding=sc, cuda_graphs=False)
+        driver = MeshDriver()
+        _WINDOW.clear()
+        res = {"heads": int(engine.pool.k.shape[2]), "digest": engine.param_sharding_digest}
+        if rank == 0:
+            lead = driver.leader(engine)
+            res.update(sharded_drive(lead, lambda fn, *a: driver.run(engine, fn, *a), bodies,
+                                     probe))
+            driver.stop()
+            res.update(published=driver.calls, publish_s=driver.publish_s)
+        else:
+            res["replayed"] = driver.follow(engine)
+            res["post_warmup_recompiles"] = engine.post_warmup_recompiles()
+        res.update(windows=_WINDOW["windows"], profile=_WINDOW["profile"],
+                   host_state=engine.pool.host_state())
+        out["configs"][name] = res
+        del engine, driver
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_kernel_rows(torch, decode, paged, precision) -> dict:
+    """Rows 6 and 7 at a rank's shape (H 6): flash-decode f32 B1 D64 at
+    q_len = length = 512, paged decode S8 BS16 nb64 D64 ragged and full,
+    fp32 and int8, each against its plain version, with kernel, plain,
+    library and bound times."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    randn = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+    h, d, n = SHARDED_HEADS, 64, 512
+    q, k, v = randn(1, h, n, d), randn(1, h, n, d), randn(1, h, n, d)
+    out = decode.flash_decode_attention(q, k, v, n)
+    err = float((out - decode.decode_attention_reference(q, k, v, n)).abs().max())
+    if not torch.isfinite(out).all() or err > 2e-5:
+        fail(f"sharded flash_decode H{h}: max_abs_err {err:.3e} > 2e-5")
+    bound_ms, by = bound(*flash_times(n, n, n, h, d, "float32", 4))
+    rows = {"flash_decode": {
+        "shape": f"float32 B=1 H={h} q_len={n} length={n} max_len={n} D={d}", "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: decode.flash_decode_attention(q, k, v, n)),
+        "plain_ms": cuda_ms(torch, lambda: decode.decode_attention_reference(q, k, v, n)),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                            is_causal=True)),
+        "bound_ms": bound_ms, "bound_by": by}}
+    s, bs, nb = 8, 16, 64
+    shapes = []
+    for shape_label, lengths_l in PAGED_SHAPES:
+        tables = paged_tables(torch, gen, lengths_l, bs, nb)
+        lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+        qd = randn(s, h, d)
+        kb, vb = randn(s * nb + 1, h, bs, d), randn(s * nb + 1, h, bs, d)
+        qk, ks = precision.quantize_int8_rows(kb)
+        qv, vs = precision.quantize_int8_rows(vb)
+        kb_nan, vb_nan, ks_nan, vs_nan = poison_tails(torch, (kb, vb, ks, vs), tables,
+                                                      lengths_l, bs)
+        tables = tables.to(dev)
+        live = lengths > 0
+        for label, clean, poisoned, itemsize in (
+                ("fp32", ((kb, vb), {}), ((kb_nan, vb_nan), {}), 4),
+                ("int8", ((qk, qv), {"k_scale": ks, "v_scale": vs}),
+                 ((qk, qv), {"k_scale": ks_nan, "v_scale": vs_nan}), 1)):
+            args, kw = poisoned
+            got = paged.paged_decode_attention(qd, *args, lengths, tables, **kw)
+            ref = paged.paged_decode_reference(qd, *clean[0], lengths, tables, **clean[1])
+            perr = float((got[live] - ref[live]).abs().max())
+            if not torch.isfinite(got).all() or perr > 2e-6:
+                fail(f"sharded paged_decode H{h} {label} {shape_label}: max_abs_err {perr:.3e}")
+            pb, by = bound(*paged_times(lengths_l, bs, h, d, itemsize, bool(kw)))
+            shapes.append(dict(
+                shape=f"S={s} H={h} BS={bs} nb={nb} D={d} {label} {shape_label}",
+                max_abs_err=perr, bound_ms=pb, bound_by=by,
+                ms=cuda_ms(torch, lambda: paged.paged_decode_attention(
+                    qd, *args, lengths, tables, **kw)),
+                plain_ms=cuda_ms(torch, lambda: paged.paged_decode_reference(
+                    qd, *clean[0], lengths, tables, **clean[1])), library_ms=None))
+    rows["paged_decode"] = {**shapes[0], "max_abs_err": max(x["max_abs_err"] for x in shapes),
+                            "all_shapes": shapes}
+    for name, row in rows.items():
+        log(f"sharded {name} at a rank's shape: {json.dumps(row)}")
+    return rows
+
+
+def torchrun_rank_pid(parent: int, rank: int) -> int | None:
+    """The pid of ``torchrun``'s worker of ``rank``, read from /proc."""
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        if ppid == parent and f"RANK={rank}".encode() in env:
+            return int(entry)
+    return None
+
+
+def sharded_cli(torch, here: str, model_cfg, smi: str) -> dict:
+    """``torchrun --nproc_per_node 2 -m tensorflow_examples_torch.serve`` on a
+    ``{model: 2}`` workdir (GPT-2 124M widths cut to SHARDED_CLI_LAYERS
+    layers, seed 0, the checkpoint and ``sharding.json`` a training run on
+    that mesh keeps): healthy with the mesh and the digest, one
+    ``/generate`` equal to a one-rank engine's tokens, rank 0 drained by
+    SIGTERM and every process exiting 0."""
+    import dataclasses
+    import signal
+    import types
+
+    from tensorflow_examples_torch.models import transformer
+    from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
+    from tensorflow_examples_torch.sharding import ShardingConfig, resolve_params
+    from tensorflow_examples_torch.sharding.config import rules_to_json
+    from tensorflow_examples_torch.telemetry.registry import MetricsRegistry
+    from tensorflow_examples_torch.train.checkpoint import CheckpointManager
+
+    cfg = dataclasses.replace(model_cfg, num_layers=SHARDED_CLI_LAYERS)
+    model = transformer.GPT2(cfg, seed=0)
+    params = dict(model.named_parameters())
+    mesh = {"data": 1, "fsdp": 1, "model": 2, "context": 1, "pipe": 1}
+    digest = resolve_params(params, types.SimpleNamespace(shape=mesh),
+                            transformer.GPT2_RULES).digest()
+    serve_kw = dict(max_slots=4, kv_block_size=16, attention="paged_flash")
+    body = {"prompt": [int(t) for t in np.random.default_rng(5).integers(0, cfg.vocab_size, 40)],
+            "max_new_tokens": SHARDED_NEW, "seed": 0}
+    one = InferenceEngine(cfg, model, cfg=ServeConfig(**serve_kw), registry=MetricsRegistry(),
+                          cuda_graphs=False)
+    want = batcher_streams(one, [body])[0]
+    del one
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_cli_") as workdir:
+        with CheckpointManager(workdir) as ckpt:
+            ckpt.save(1, types.SimpleNamespace(step=1, params=params, opt_state={},
+                                               model_state={}))
+        ShardingConfig(mesh={"data": 1, "model": 2},
+                       rules=rules_to_json(transformer.GPT2_RULES)).save(
+            os.path.join(workdir, "sharding.json"),
+            extra={"param_sharding_digest": digest, "mesh_shape": mesh})
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+               "--nproc_per_node", "2", "--master_addr", "127.0.0.1", "--master_port",
+               str(free_port()), "-m", "tensorflow_examples_torch.serve", "--workdir", workdir,
+               "--port", str(port), "--stats_every", "0",
+               *(x for k, v in serve_kw.items() for x in (f"--{k}", str(v))),
+               *(x for k in ("vocab_size", "max_len", "num_layers", "num_heads", "d_model")
+                 for x in (f"--{k}", str(getattr(cfg, k))))]
+        log_path = os.path.join(workdir, "serve.log")
+        t0 = time.monotonic()
+        with open(log_path, "w") as log_file:
+            proc = subprocess.Popen(cmd, cwd=here, stdout=log_file, stderr=subprocess.STDOUT)
+        url = f"http://127.0.0.1:{port}"
+        try:
+            while True:
+                if proc.poll() is not None:
+                    fail(f"sharded serve CLI exited {proc.returncode} before serving: "
+                         f"{open(log_path).read()[-3000:]}")
+                try:
+                    status, health, _ = http_json(url + "/health", timeout=5)
+                    if status == 200:
+                        break
+                except OSError:
+                    pass
+                if time.monotonic() - t0 > 300:
+                    fail("sharded serve CLI not healthy after 300 s")
+                time.sleep(0.2)
+            ready_s = time.monotonic() - t0
+            status, reply, _ = http_json(url + "/generate", body)
+            rank0 = torchrun_rank_pid(proc.pid, 0)
+            if rank0 is None:
+                fail("sharded serve CLI: no rank-0 worker under torchrun")
+            os.kill(rank0, signal.SIGTERM)
+            code = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        text = open(log_path).read()
+    if code != 0 or status != 200:
+        fail(f"sharded serve CLI: /generate {status}, exit {code}: {text[-3000:]}")
+    if reply["tokens"] != want:
+        fail(f"sharded serve CLI: tokens {reply['tokens']} != one rank's {want}")
+    if health.get("param_sharding_digest") != digest or health.get("mesh_shape", {}).get(
+            "model") != 2 or health["post_warmup_recompiles"] != 0:
+        fail(f"sharded serve CLI: /health {health}")
+    for needed in ("sharding config:", "cuda graphs off (collectives staged through host memory)",
+                   "replayed"):
+        if needed not in text:
+            fail(f"sharded serve CLI: no {needed!r} in its log: {text[-3000:]}")
+    out = {"ready_s": ready_s, "exit_code": code, "digest": digest,
+           "mesh_shape": health["mesh_shape"], "tokens_equal_one_rank": True, "card": smi}
+    log(f"sharded serve CLI (torchrun, 2 ranks, {SHARDED_CLI_LAYERS} layers): {json.dumps(out)}")
+    return out
+
+
+def phase_sharded_serving(torch, model, model_cfg, decode, paged, precision, smi: str,
+                          here: str) -> dict:
+    """GPT-2 124M served on {model: 2} by two ranks sharing the card (gloo,
+    host-staged psums, eager rungs), against the one-rank eager engine on
+    the same weights: streams (a near-tie allowed), one prefill's logits
+    (1e-4), each rank's launches of rows 6 and 7 (12 flash-decode a
+    prefill, 12 paged a decode step), the decode step's host wall, device
+    time and psum share a rank; rows 6-7 at a rank's shape; the serve CLI
+    under torchrun."""
+    from tensorflow_examples_torch.core import distributed
+    from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
+    from tensorflow_examples_torch.telemetry.registry import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    layers = model_cfg.num_layers
+    kernel_rows = sharded_kernel_rows(torch, decode, paged, precision)
+    bodies = sharded_requests(model_cfg.vocab_size)
+    probe = [int(t) for t in np.random.default_rng(43).integers(0, model_cfg.vocab_size,
+                                                                SHARDED_PROBE_LEN)]
+    one_rank = {}
+    for name, kw in SHARDED_CONFIGS:
+        engine = InferenceEngine(model_cfg, model, cfg=ServeConfig(max_slots=8, **kw),
+                                 registry=MetricsRegistry(), cuda_graphs=False)
+        _WINDOW.clear()
+        res = sharded_drive(engine, lambda fn, *a: fn(engine, *a), bodies, probe)
+        res.update(windows=_WINDOW["windows"], profile=_WINDOW["profile"], engine=engine)
+        one_rank[name] = res
+    model_kw = {f: getattr(model_cfg, f) for f in ("vocab_size", "max_len", "num_layers",
+                                                   "num_heads", "d_model")}
+    t0 = time.perf_counter()
+    ranks = distributed.run_world(sharded_worker, 2, model_kw, bodies, probe, device="cuda",
+                                  timeout_s=600)
+    world_s = time.perf_counter() - t0
+    out = {"configs": {}, "kernel_rows": kernel_rows, "world_s": world_s, "card": smi}
+    launches = {"flash_decode": [0, 0], "paged_decode": [0, 0]}
+    for name, kw in SHARDED_CONFIGS:
+        ref = one_rank[name]
+        engine = ref.pop("engine")
+        per_rank = [r["configs"][name] for r in ranks]
+        lead = per_rank[0]
+        exact = ties = 0
+        for body, served, want in zip(bodies, lead["streams"], ref["streams"]):
+            verdict = stream_verdict(torch, engine, body["prompt"], served, want)
+            if verdict == "exact":
+                exact += 1
+            elif verdict[0] == "tie":
+                ties += 1
+            else:
+                fail(f"sharded[{name}] prompt_len={len(body['prompt'])}: stream differs from "
+                     f"the one-rank engine's at token {verdict[1]} (top-2 gap {verdict[2]})")
+        del engine
+        logit_err = float(np.abs(lead["probe_logits"] - ref["probe_logits"]).max())
+        if not logit_err <= 1e-4:
+            fail(f"sharded[{name}]: prefill logits {logit_err:.3e} from one rank's (> 1e-4)")
+        if per_rank[0]["host_state"] != per_rank[1]["host_state"]:
+            fail(f"sharded[{name}]: the ranks' pool host state differs")
+        if per_rank[1]["replayed"] != lead["published"]:
+            fail(f"sharded[{name}]: rank 1 replayed {per_rank[1]['replayed']} of "
+                 f"{lead['published']} calls")
+        if any(r["heads"] != SHARDED_HEADS for r in per_rank) or \
+                any(r["post_warmup_recompiles"] != 0 for r in per_rank) or \
+                lead["digest"] != per_rank[1]["digest"]:
+            fail(f"sharded[{name}]: heads, recompiles or digest: "
+                 f"{[(r['heads'], r['post_warmup_recompiles'], r['digest']) for r in per_rank]}")
+        paged_route = kw["attention"] == "paged_flash"
+        for i, r in enumerate(per_rank):
+            w = r["windows"]
+            want = {
+                "prefill": {"flash_decode": layers, "paged_decode": 0},
+                "decode": {"flash_decode": 0,
+                           "paged_decode": layers * SHARDED_STEPS if paged_route else 0},
+                "serve": {"flash_decode": layers * len(bodies),
+                          "paged_decode": layers * w["serve"]["decode_steps"] if paged_route
+                          else 0}}
+            got = {k: w[k]["launches"] for k in want}
+            if got != want or w["serve"]["decode_steps"] < SHARDED_NEW - 1:
+                fail(f"sharded[{name}] rank {i}: launches {got}, expected {want}")
+            for k in launches:
+                launches[k][i] += w["serve"]["launches"][k]
+        row = out["configs"][name] = {
+            "exact_streams": exact, "near_tie_streams": ties, "prefill_logits_max_abs_err":
+            logit_err, "launches_per_rank": [r["windows"] for r in per_rank],
+            "decode_step_wall_ms": {"one_rank": ref["decode_wall_ms"],
+                                    "rank0": lead["decode_wall_ms"]},
+            "decode_step_device_ms": {"one_rank": ref["profile"]["device_ms"],
+                                      "per_rank": [r["profile"]["device_ms"] for r in per_rank]},
+            "decode_step_port_kernel_ms": {
+                "one_rank": ref["profile"]["port_kernel_ms"],
+                "per_rank": [r["profile"]["port_kernel_ms"] for r in per_rank]},
+            "decode_psum_share_per_rank": [
+                r["windows"]["decode"]["collective_s"] / r["windows"]["decode"]["wall_s"]
+                for r in per_rank],
+            "published_calls": lead["published"], "publish_ms_per_call":
+            lead["publish_s"] * 1e3 / max(lead["published"], 1),
+            "warmup_s": {"one_rank": ref["warmup_s"], "rank0": lead["warmup_s"]}}
+        log(f"sharded[{name}] (GPT-2 124M f32 on {{model: 2}}, 2 ranks on one card, gloo, eager): "
+            f"{json.dumps(row)}; {smi}")
+        log(f"sharded[{name}] decode step: host wall ms one rank "
+            f"{ref['decode_wall_ms']:.3f} vs rank 0 {lead['decode_wall_ms']:.3f}; device ms one "
+            f"rank {ref['profile']['device_ms']:.3f} vs per rank "
+            f"{[round(r['profile']['device_ms'], 4) for r in per_rank]}; psum share per rank "
+            f"{[round(x, 4) for x in row['decode_psum_share_per_rank']]}; {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches_per_rank"] = launches
+    out["cli"] = sharded_cli(torch, here, model_cfg, smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"sharded serving: launches of rows 6-7 per rank over the served requests "
+        f"{json.dumps(launches)}; world {world_s:.1f} s; phase {out['phase_s']:.1f} s; {smi}")
+    return out
+
+
 # ------------------------------------------------ the other workloads
 
 
@@ -4527,6 +5037,8 @@ def main() -> int:
     summaries = phase_serving(torch, model, model_cfg, counters, smi)
     replica = phase_replica(torch, model, model_cfg, counters, smi, here)
     fleet = phase_fleet(torch, model, model_cfg, counters, smi, here)
+    sharded = phase_sharded_serving(torch, model, model_cfg, decode, paged_decode, precision, smi,
+                                    here)
     del model
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         mesh = phase_mesh(torch, here, smi, tmp)
@@ -4544,6 +5056,11 @@ def main() -> int:
         for v in ("tensor_core", "simt", "split"):
             if f"{name}_{v}" in summaries[0]["launches"]:
                 rows[name][f"{v}_launches"] = sum(s["launches"][f"{name}_{v}"] for s in summaries)
+    for name in ("flash_decode", "paged_decode"):
+        # The sharded path: each rank's launches over the served requests,
+        # and the kernel at a rank's shape (6 heads).
+        rows[name]["sharded_launches_per_rank"] = sharded["launches_per_rank"][name]
+        rows[name]["sharded_rank_shape"] = sharded["kernel_rows"][name]
     rows["flash_decode"].update(
         design="split-KV over CTAs with an in-order merge of (acc, m, l)",
         variant="f32 (and bf16 at D=8): register-tiled SIMT flash_decode_simt_kernel; bf16 "
@@ -4565,10 +5082,12 @@ def main() -> int:
     for name, source, replaces, launches in (
         ("flash_decode", FLASH_SOURCE, "tensorflow_examples_tpu/ops/decode.py:78",
          sum(s["launches"]["flash_decode"] for s in summaries)
-         + replica["launches"]["flash_decode"] + fleet["launches"]["flash_decode"]),
+         + replica["launches"]["flash_decode"] + fleet["launches"]["flash_decode"]
+         + sum(sharded["launches_per_rank"]["flash_decode"])),
         ("paged_decode", PAGED_SOURCE, "tensorflow_examples_tpu/ops/paged_decode.py:61",
          sum(s["launches"]["paged_decode"] for s in summaries)
-         + replica["launches"]["paged_decode"] + fleet["launches"]["paged_decode"]),
+         + replica["launches"]["paged_decode"] + fleet["launches"]["paged_decode"]
+         + sum(sharded["launches_per_rank"]["paged_decode"])),
         ("flash_fwd", ATTN_SOURCE, "tensorflow_examples_tpu/ops/attention.py:82",
          training["launches"]["flash_fwd"]),
         ("flash_bwd_dkv", ATTN_SOURCE, "tensorflow_examples_tpu/ops/attention.py:199",
@@ -4592,7 +5111,8 @@ def main() -> int:
                                    "all_shapes", "worst_abs_err_all_cases", "design",
                                    "head_dim_sweep_max_abs_err", "tensor_core_launches",
                                    "simt_launches", "split_launches", "bert_glue",
-                                   "mesh_launches_per_rank", "pipe_launches_per_rank")
+                                   "mesh_launches_per_rank", "pipe_launches_per_rank",
+                                   "sharded_launches_per_rank", "sharded_rank_shape")
                if k in row},
         })
     log(json.dumps({"kernels": kernels}))

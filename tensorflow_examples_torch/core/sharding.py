@@ -10,7 +10,8 @@ length are replicated. Each model ships a table of ``(param-path regex
 name with ``/`` for ``.``); unmatched parameters are replicated.
 
 A parameter lives on each rank as a plain local shard, a contiguous
-tensor: :func:`shard` cuts this rank's piece of a full tensor,
+tensor: :func:`shard` cuts this rank's piece of a full tensor
+(:func:`shard_params` of a whole dict, quantized weights included),
 :func:`unshard` gathers the pieces back (the checkpoint's save path),
 and :func:`shard_shape` gives a shard's shape. Axes of size 1 are
 dropped first (:func:`filter_spec`), so one table serves every mesh.
@@ -25,6 +26,7 @@ import torch
 
 from tensorflow_examples_torch.core import collectives as coll
 from tensorflow_examples_torch.core.mesh import AxisNames
+from tensorflow_examples_torch.core.precision import QuantizedWeight
 
 Spec = tuple
 
@@ -109,6 +111,23 @@ def shard(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
             size = local_shape[dim]
             out = out.narrow(dim, mesh.axis_index(axes) * size, size)
     return out.contiguous() if out is not full else full
+
+
+def shard_params(params, mesh, rules: ShardingRules | None = None) -> dict:
+    """``{name: this rank's piece}`` of a ``{name: full leaf}`` dict under
+    the rules (the reference's ``shard_params``, per rank). A
+    ``core/precision.QuantizedWeight``'s payload takes the weight's spec
+    and its row scale (one dim fewer, over the payload's last axis) the
+    spec clipped to its rank, the reference's rule."""
+    out = {}
+    for name, spec in shardings_for_params(params, mesh, rules).items():
+        leaf = params[name]
+        if isinstance(leaf, QuantizedWeight):
+            out[name] = QuantizedWeight(shard(leaf.q, spec, mesh),
+                                        shard(leaf.scale, spec[:leaf.scale.dim()], mesh))
+        else:
+            out[name] = shard(leaf, spec, mesh)
+    return out
 
 
 def unshard(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:

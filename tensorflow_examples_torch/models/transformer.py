@@ -85,7 +85,10 @@ cache is updated in place, where the reference threads a new one through
 each call. :func:`generate` prefills the
 prompt in one call, then takes one token per call; its keys come from
 ``core/rng.split`` as jax's, so greedy and sampled streams follow the
-reference's.
+reference's. Both take ``mesh=``: each rank decodes its batch rows with
+its heads (``parallel/attention.mesh_decode_attention`` under
+``"flash"``), the row-parallel products summed over ``model``, as the
+training forward's tensor parallelism.
 """
 
 from __future__ import annotations
@@ -104,12 +107,13 @@ from tensorflow_examples_torch.core import collectives as coll
 from tensorflow_examples_torch.core import rng as rng_mod
 from tensorflow_examples_torch.core.mesh import AxisNames
 from tensorflow_examples_torch.core.nans import check_finite
-from tensorflow_examples_torch.core.sharding import ShardingRules
+from tensorflow_examples_torch.core.sharding import ShardingRules, batch_rows
 from tensorflow_examples_torch.core.precision import materialize as _w
 from tensorflow_examples_torch.core.precision import take_rows as _rows
 from tensorflow_examples_torch.ops.attention import NEG_INF, attention_reference, flash_attention
-from tensorflow_examples_torch.ops.decode import decode_attention_reference, flash_decode_attention
-from tensorflow_examples_torch.parallel.attention import mesh_attention
+from tensorflow_examples_torch.ops.decode import decode_attention_reference
+from tensorflow_examples_torch.parallel.attention import (decode_spec, mesh_attention,
+                                                         mesh_decode_attention)
 from tensorflow_examples_torch.parallel.moe import moe_ffn, moe_ffn_ep
 
 ATTENTION_IMPLS = ("flash", "xla", "ring", "ulysses")
@@ -271,8 +275,32 @@ def _embed_vocab_parallel(wte, tokens, mesh):
     rows = wte.shape[0]
     local = tokens - mesh.axis_index(AxisNames.MODEL) * rows
     mine = (local >= 0) & (local < rows)
-    emb = torch.nn.functional.embedding(torch.where(mine, local, 0), wte)
+    emb = _rows(wte, torch.where(mine, local, 0))
     return coll.psum(emb * mine[..., None].to(emb.dtype), AxisNames.MODEL, mesh=mesh)
+
+
+def _vocab_split(params, cfg: TransformerConfig, mesh) -> bool:
+    """Whether this rank holds only its ``model`` share of the token table
+    (``tp_vocab``'s rows)."""
+    return mesh is not None and params.wte.embedding.shape[0] < cfg.vocab_size
+
+
+def _embed_on(params, cfg: TransformerConfig, tokens, positions, mesh=None):
+    """:func:`_embed` of this rank's params: a token table split by vocab
+    looks its ids up on the rank holding them."""
+    if _vocab_split(params, cfg, mesh):
+        return (_embed_vocab_parallel(params.wte.embedding, tokens, mesh)
+                + _rows(params.wpe.embedding, positions))
+    return _embed(params, tokens, positions)
+
+
+def _lm_head(x, params, cfg: TransformerConfig, mesh=None):
+    """The tied head's logits; a token table split by vocab gathers each
+    rank's columns over ``model``, so every rank holds all of them."""
+    logits = x @ _w(params.wte.embedding).T
+    if _vocab_split(params, cfg, mesh):
+        logits = coll.all_gather(logits, AxisNames.MODEL, mesh=mesh, dim=logits.dim() - 1)
+    return logits
 
 
 def _layer_norm(x, ln, eps=1e-5):
@@ -482,12 +510,7 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *, train: bool
     if mesh is not None:
         start = mesh.axis_index(AxisNames.CONTEXT) * tokens.shape[1]
     positions = torch.arange(start, start + tokens.shape[1], device=tokens.device)
-    if mesh is not None and params.wte.embedding.shape[0] < cfg.vocab_size:
-        x = (_embed_vocab_parallel(params.wte.embedding, tokens, mesh)
-             + _rows(params.wpe.embedding, positions[None]))
-    else:
-        x = _embed(params, tokens, positions[None])
-    x = drop(x, 0)
+    x = drop(_embed_on(params, cfg, tokens, positions[None], mesh), 0)
     check_finite(x, "the embeddings")
     remat = cfg.remat and torch.is_grad_enabled()
     context_fn = remat_context(cfg.remat_policy) if remat else None
@@ -553,15 +576,16 @@ class KVCache:
 
 
 def init_cache(cfg: TransformerConfig, batch_size: int, *, dtype=torch.float32,
-               device=None) -> KVCache:
-    """An empty cache of zeros in ``dtype``."""
-    shape = (batch_size, cfg.num_heads, cfg.max_len, cfg.head_dim)
+               device=None, num_heads: int | None = None) -> KVCache:
+    """An empty cache of zeros in ``dtype``; ``num_heads``: the heads this
+    rank holds (all of them by default)."""
+    shape = (batch_size, num_heads or cfg.num_heads, cfg.max_len, cfg.head_dim)
     zeros = lambda: [torch.zeros(shape, dtype=dtype, device=device)
                      for _ in range(cfg.num_layers)]
     return KVCache(zeros(), zeros())
 
 
-def _decode_attend(cfg: TransformerConfig, q, k, v, cache: KVCache, layer: int):
+def _decode_attend(cfg: TransformerConfig, q, k, v, cache: KVCache, layer: int, mesh=None):
     """Write the new k/v [B, q_len, H, D] into the cache at its index and
     attend q over the populated prefix; returns [B, q_len, H, D]."""
     i0, q_len = cache.index, q.shape[1]
@@ -569,49 +593,98 @@ def _decode_attend(cfg: TransformerConfig, q, k, v, cache: KVCache, layer: int):
     ck, cv = cache.k[layer], cache.v[layer]
     ck[:, :, i0:i0 + q_len] = swap(k).to(ck.dtype)
     cv[:, :, i0:i0 + q_len] = swap(v).to(cv.dtype)
-    attend = decode_attention_reference if cfg.attention == "xla" else flash_decode_attention
+    if cfg.attention == "xla":
+        attend = decode_attention_reference
+    else:
+        attend = functools.partial(mesh_decode_attention, mesh=mesh)
     out = attend(swap(q).contiguous(), ck, cv, i0 + q_len, sm_scale=cfg.head_dim ** -0.5)
     return swap(out)
 
 
 @torch.no_grad()
-def decode_step(cfg: TransformerConfig, params, tokens: torch.Tensor,
-                cache: KVCache) -> torch.Tensor:
+def decode_step(cfg: TransformerConfig, params, tokens: torch.Tensor, cache: KVCache, *,
+                mesh=None) -> torch.Tensor:
     """Logits [B, q_len, vocab] of ``tokens`` [B, q_len] at positions
-    ``cache.index ...``; appends their keys and values to ``cache``."""
+    ``cache.index ...``; appends their keys and values to ``cache``.
+
+    ``mesh``: ``params`` are this rank's shards under :data:`GPT2_RULES`
+    (its heads' qkv columns and proj rows, its ``mlp_fc`` columns and
+    ``mlp_proj`` rows), ``tokens`` and ``cache`` its batch rows and heads
+    (``parallel/attention.decode_spec``). Each row-parallel product is
+    summed over ``model`` before its bias, decode attention under
+    ``"flash"`` is ``mesh_decode_attention``, and a token table split by
+    vocab looks its ids up on the rank holding them and gathers the
+    logits: every rank of a ``model`` group returns the same logits."""
     if cfg.attention not in ATTENTION_IMPLS:
         raise ValueError(f"attention={cfg.attention!r} not in {ATTENTION_IMPLS}")
+    if mesh is not None and mesh.trivial:
+        mesh = None
+    if mesh is not None and cfg.moe_experts:
+        raise ValueError("decoding on a mesh covers dense models")
+    reduce = None
+    if mesh is not None and mesh.axis_size(AxisNames.MODEL) > 1:
+        reduce = functools.partial(coll.psum, axis=AxisNames.MODEL, mesh=mesh)
     positions = cache.index + torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed(params, tokens, positions[None])
+    x = _embed_on(params, cfg, tokens, positions[None], mesh)
     for layer in range(cfg.num_layers):
         blk = params.block(layer)
         q, k, v = _qkv(_layer_norm(x, blk.ln_1), blk.attn)
-        x = x + _attn_out(_decode_attend(cfg, q, k, v, cache, layer), blk.attn)
-        x = x + _mlp(_layer_norm(x, blk.ln_2), blk, cfg, layer, None)[0]
+        x = x + _attn_out(_decode_attend(cfg, q, k, v, cache, layer, mesh), blk.attn, reduce)
+        x = x + _mlp(_layer_norm(x, blk.ln_2), blk, cfg, layer, None, reduce)[0]
     cache.index += tokens.shape[1]
-    return _layer_norm(x, params.ln_f) @ params.wte.embedding.T
+    return _lm_head(_layer_norm(x, params.ln_f), params, cfg, mesh)
 
 
 @torch.no_grad()
 def generate(cfg: TransformerConfig, params, prompt: torch.Tensor, *, num_tokens: int,
-             key: np.ndarray, temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
+             key: np.ndarray, temperature: float = 1.0, top_k: int = 0,
+             mesh=None) -> torch.Tensor:
     """``num_tokens`` continuations of ``prompt`` [B, L] (greedy at
     temperature 0): one prefill call, then one call per token. Returns
-    [B, L + num_tokens] on the prompt's device."""
+    [B, L + num_tokens] on the prompt's device.
+
+    ``mesh``: ``params`` are this rank's shards (:func:`decode_step`) and
+    ``prompt`` the whole batch, of which the rank decodes its rows of
+    ``parallel/attention.decode_spec`` (all of them when the batch axes
+    do not divide B) with its heads; every rank returns the whole
+    result, gathered over the batch axes. A sampled step draws from the
+    whole batch's logits, gathered, so its noise is the one-device
+    run's."""
     b, prompt_len = prompt.shape
     if prompt_len + num_tokens > cfg.max_len:
         raise ValueError(f"prompt ({prompt_len}) + num_tokens ({num_tokens}) exceeds "
                          f"max_len ({cfg.max_len})")
+    if mesh is not None and mesh.trivial:
+        mesh = None
+    batch_axes = None
+    if mesh is not None:
+        entry = decode_spec(mesh, b, cfg.num_heads)[0]
+        if entry is not None:
+            batch_axes = (entry,) if isinstance(entry, str) else entry
+            prompt = prompt[batch_rows(b, mesh, batch_axes)]
     # The cache's dtype follows the token-embedding table, as the reference's.
-    cache = init_cache(cfg, b, dtype=params.wte.embedding.dtype, device=prompt.device)
-    sample = lambda logits, k: sample_tokens(logits, k, temperature=temperature, top_k=top_k)
-    logits = decode_step(cfg, params, prompt, cache)
+    cache = init_cache(cfg, prompt.shape[0], dtype=params.wte.embedding.dtype,
+                       device=prompt.device,
+                       num_heads=params.block(0).attn.qkv.kernel.shape[2])
+
+    def sample(logits, k):
+        if batch_axes is not None and temperature > 0.0:
+            whole = coll.all_gather(logits, batch_axes, mesh=mesh, dim=0)
+            return sample_tokens(whole, k, temperature=temperature,
+                                 top_k=top_k)[batch_rows(b, mesh, batch_axes)]
+        return sample_tokens(logits, k, temperature=temperature, top_k=top_k)
+
+    logits = decode_step(cfg, params, prompt, cache, mesh=mesh)
     key, sub = rng_mod.split(key)
     out = [sample(logits[:, -1], sub)]
     keys = rng_mod.split(key, num_tokens - 1) if num_tokens > 1 else []
     for k in keys:
-        out.append(sample(decode_step(cfg, params, out[-1][:, None], cache)[:, -1], k))
-    return torch.cat([prompt, torch.stack(out, dim=1).to(prompt.dtype)], dim=1)
+        out.append(sample(decode_step(cfg, params, out[-1][:, None], cache, mesh=mesh)[:, -1],
+                          k))
+    out = torch.cat([prompt, torch.stack(out, dim=1).to(prompt.dtype)], dim=1)
+    if batch_axes is not None:
+        out = coll.all_gather(out, batch_axes, mesh=mesh, dim=0)
+    return out
 
 
 # ------------------------------------------------------- pipeline pieces

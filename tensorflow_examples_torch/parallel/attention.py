@@ -23,7 +23,9 @@ the decode-style layout: batch and heads sharded, the sequence whole on
 every rank; the ring and Ulysses carry no bias. ``impl="xla"`` is the
 plain reference; over ``context`` it gathers K/V and attends the prefix
 up to this shard's end, the causal mask aligned by the kernel's
-bottom-right rule.
+bottom-right rule. Decode-time attention (:func:`mesh_decode_attention`)
+takes the :func:`decode_spec` layout: batch rows and heads sharded, the
+cache positionally whole.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from tensorflow_examples_torch.core import collectives as coll
 from tensorflow_examples_torch.core.mesh import AxisNames
 from tensorflow_examples_torch.ops.attention import (attention_reference, dot_product_attention,
                                                      flash_attention)
+from tensorflow_examples_torch.ops.decode import flash_decode_attention
 from tensorflow_examples_torch.parallel.ring import ring_attention, ulysses_attention
 
 IMPLS = ("flash", "xla", "ring", "ulysses")
@@ -66,6 +69,22 @@ def decode_spec(mesh, batch: int, heads: int) -> tuple:
     m = mesh.shape[AxisNames.MODEL]
     model = AxisNames.MODEL if m > 1 and heads % m == 0 else None
     return (_entry(batch_axes), model, None, None)
+
+
+def mesh_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          length: int, *, mesh, sm_scale: float | None = None) -> torch.Tensor:
+    """KV-cache flash-decode of this rank's [B, H, q_len, D] query and
+    [B, H, max_len, D] cache shards, laid out by :func:`decode_spec`:
+    its batch rows over the batch axes and its heads over ``model``, a
+    dimension that the axes do not divide whole on every rank. Each rank runs
+    ``ops/decode.flash_decode_attention`` on what it holds, the body of
+    the reference's ``shard_map``: the cache is never gathered, and the
+    output is this rank's shard of the reference's. A one-rank mesh (or
+    none) is the plain call."""
+    if q.shape[:2] != k_cache.shape[:2] or k_cache.shape != v_cache.shape:
+        raise ValueError(f"mesh_decode_attention: q {tuple(q.shape)} and caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)} are not one shard")
+    return flash_decode_attention(q, k_cache, v_cache, length, sm_scale=sm_scale)
 
 
 def context_pad(seq: int, c: int) -> int:

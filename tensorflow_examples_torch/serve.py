@@ -23,6 +23,26 @@ either package's router fronts them) serve ``/generate`` as a
 ``/prefill`` -> ``/resume`` hand-off. A request's ``trace`` context comes
 back as the reply's ``trace_spans``.
 
+**Sharded serving.** A run trained on a mesh keeps its placement as
+``workdir/sharding.json``; ``--serve_sharding_config`` takes the
+reference's meaning: empty loads that file when it is there, a path is
+explicit, ``off`` serves one replica. The config's ``data`` axis is
+collapsed to 1. Under ``torchrun`` every rank builds the engine over
+its own pieces of the checkpoint (read whole on the host, each rank
+cutting its pieces, as the trainer's restore does) and its heads of the
+KV pool; rank 0 alone binds the port and runs the batcher, and the
+other ranks replay its engine calls (``serving/mesh_driver.py``)::
+
+    torchrun --nproc_per_node 2 -m tensorflow_examples_torch.serve --workdir RUN \
+        --kv_block_size 16 --attention paged_flash
+
+An auto-loaded config that does not fit the world prints the
+reference's line to stderr and rank 0 serves one replica; an explicit
+one raises. ``/health`` and the serving line then carry ``mesh_shape``
+and ``param_sharding_digest``. Ranks that share one card talk over gloo
+through host memory, which a CUDA graph cannot hold: such an engine
+runs its rungs eagerly, and the startup line says so.
+
 Text in and out goes through the BPE of ``--vocab_dir`` (or
 ``--data_dir``) when it holds ``vocab.json`` + ``merges.txt``, else raw
 bytes for a byte vocabulary (``vocab_size <= 256``); otherwise clients
@@ -40,8 +60,10 @@ import dataclasses
 import json
 import logging
 import os
+import sys
 import threading
 
+from tensorflow_examples_torch.core import distributed
 from tensorflow_examples_torch.data.tokenizers import load_tokenizer
 from tensorflow_examples_torch.generate import restore_model
 from tensorflow_examples_torch.models import convert, transformer
@@ -52,7 +74,9 @@ from tensorflow_examples_torch.serving.engine import (
     ServeConfig,
 )
 from tensorflow_examples_torch.serving.frontend import ServingFrontend, run_until_preempted
+from tensorflow_examples_torch.serving.mesh_driver import MeshDriver
 from tensorflow_examples_torch.serving.scheduler import ROLES
+from tensorflow_examples_torch.sharding import ShardingConfig
 from tensorflow_examples_torch.train.resilience import PreemptionGuard
 
 # The model's widths; its training knobs (dropout, attention, remat) do not
@@ -96,7 +120,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between serving.jsonl lines (0 disables)")
     p.add_argument("--stats_dir", default="",
                    help="where serving.jsonl goes (default: --workdir)")
+    p.add_argument("--serve_sharding_config", default="",
+                   help="ShardingConfig JSON for sharded serving; default: <workdir>/sharding.json "
+                        "when present, else one replica; 'off' serves one replica")
     return p
+
+
+def resolve_sharding(src: str, workdir: str | None) -> ShardingConfig | None:
+    """The config a sharded engine is placed by, the reference's rule:
+    ``src`` "off" -> None; a path -> that file; "" -> ``workdir/sharding.json``
+    when it exists. ``data`` is collapsed to 1 (serving has no data
+    parallelism). A config the world's ranks do not fit raises when it
+    was asked for and, auto-loaded, is dropped with a line on stderr."""
+    if src == "off":
+        return None
+    path = src or os.path.join(workdir or "", "sharding.json")
+    if not src and not (workdir and os.path.exists(path)):
+        return None
+    sharding = ShardingConfig.load(path)
+    sharding = dataclasses.replace(sharding, mesh={**sharding.mesh, "data": 1})
+    try:
+        sharding.mesh_config().resolve(distributed.process_count())
+    except ValueError as e:
+        if src:
+            raise
+        print(f"sharding config {path} does not fit this host ({e}); serving with "
+              "replicated params", file=sys.stderr)
+        return None
+    print(f"sharding config: {path}", file=sys.stderr)
+    return sharding
 
 
 def _stats_loop(batcher, frontend, path: str, every: float) -> None:
@@ -116,13 +168,29 @@ def main(argv=None) -> int:
     except BaseException:
         guard.uninstall()
         raise
-    return run_until_preempted(frontend, guard=guard)
+    if frontend is None:  # a rank that replayed rank 0's calls to the stop
+        guard.uninstall()
+        return 0
+    try:
+        return run_until_preempted(frontend, guard=guard)
+    finally:
+        driver = getattr(frontend.batcher.engine, "driver", None)
+        if driver is not None:
+            driver.stop()
 
 
-def _start(args) -> ServingFrontend:
+def _start(args) -> ServingFrontend | None:
     """Load, warm and start the replica: engine, batcher, frontend and
-    the stats tick."""
+    the stats tick. Under ``torchrun`` every rank loads its pieces; the
+    ranks but 0 replay rank 0's calls until its stop and return None."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    backend = distributed.initialize(device=args.device)
+    rank = distributed.process_index()
+    sharding = resolve_sharding(args.serve_sharding_config, args.workdir)
+    if sharding is None and rank > 0:
+        logging.info("rank %d: no sharded engine for this world; rank 0 serves one replica",
+                     rank)
+        return None
     model_cfg = transformer.TransformerConfig(**{n: getattr(args, n) for n in MODEL_FIELDS})
     serve_cfg = ServeConfig(**{f.name: getattr(args, f.name)
                                for f in dataclasses.fields(ServeConfig)})
@@ -133,7 +201,16 @@ def _start(args) -> ServingFrontend:
         params = convert.load_npz(args.params_npz)
     else:
         params = transformer.GPT2(model_cfg, seed=args.init_seed)
-    engine = InferenceEngine(model_cfg, params, cfg=serve_cfg, device=args.device)
+    # A CUDA graph cannot hold collectives staged through host memory.
+    staged = sharding is not None and backend == "gloo" and args.device != "cpu"
+    engine = InferenceEngine(model_cfg, params, cfg=serve_cfg, device=args.device,
+                             sharding=sharding, cuda_graphs=not staged)
+    if engine.mesh is not None and engine.mesh.size > 1:
+        driver = MeshDriver()
+        if rank > 0:
+            logging.info("rank %d replayed %d calls of rank 0", rank, driver.follow(engine))
+            return None
+        engine = driver.leader(engine)
     counts = engine.warmup()
     logging.info("warm: %d of %d expected rungs (%s)", sum(counts.values()),
                  engine.expected_compiles(), ", ".join(sorted(counts)))
@@ -147,8 +224,14 @@ def _start(args) -> ServingFrontend:
         threading.Thread(target=_stats_loop, name="serving-stats", daemon=True, args=(
             batcher, frontend, os.path.join(stats_dir, "serving.jsonl"), args.stats_every,
         )).start()
-    logging.info("serving on %s (device %s, role %s, attention %s)", frontend.url(),
-                 engine.device, serve_cfg.role, serve_cfg.attention)
+    sharded = ""
+    if engine.mesh is not None:
+        sharded = (f", mesh {engine.mesh_shape}, param_sharding_digest "
+                   f"{engine.param_sharding_digest}, backend {backend or 'none'}")
+        if staged:
+            sharded += ", cuda graphs off (collectives staged through host memory)"
+    logging.info("serving on %s (device %s, role %s, attention %s%s)", frontend.url(),
+                 engine.device, serve_cfg.role, serve_cfg.attention, sharded)
     return frontend
 
 

@@ -849,7 +849,10 @@ class ContinuousBatcher:
         the speculation keys ``SERVING_KEYS_V8`` when speculation is on,
         the overload keys ``SERVING_KEYS_V10``, the paged pool's fields
         (``SERVING_KEYS_V9`` among them) and the precision keys
-        ``SERVING_KEYS_V11`` when the weights are quantized."""
+        ``SERVING_KEYS_V11`` when the weights are quantized. A sharded
+        engine's line also carries ``mesh_shape`` and
+        ``param_sharding_digest`` (the reference's ``SHARDING_KEYS``) at
+        the top level, since the ``serving`` object holds only numbers."""
         reg = self.registry
         counters = {k: v for k, v in reg.counter_values().items()
                     if k.startswith(("serving/", "compile/"))}
@@ -896,10 +899,14 @@ class ContinuousBatcher:
         pstats = self.engine.precision_stats()
         if pstats:
             serving.update({k: pstats[k] for k in SERVING_KEYS_V11})
-        return {
+        line = {
             "schema_version": SERVING_SCHEMA_VERSION,
             "kind": "serving", "step": int(counters.get("serving/decode_steps", 0)),
             "time_unix": time.time(), "session_start_unix": self._start_unix, "host": 0,
             "metrics": {}, "counters": counters, "gauges": gauges, "derived": derived,
             "serving": serving,
         }
+        if getattr(self.engine, "param_sharding_digest", None):
+            line.update(mesh_shape=self.engine.mesh_shape,
+                        param_sharding_digest=self.engine.param_sharding_digest)
+        return line

@@ -69,27 +69,33 @@ the Gumbel noise, which matter only at a near-tie).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from tensorflow_examples_torch.core import collectives as coll
+from tensorflow_examples_torch.core import distributed
 from tensorflow_examples_torch.core import graphs as graphs_mod
 from tensorflow_examples_torch.core import precision as precision_mod
 from tensorflow_examples_torch.core import rng
 from tensorflow_examples_torch.core.device import resolve_device
+from tensorflow_examples_torch.core.mesh import AxisNames
 from tensorflow_examples_torch.core.precision import dequantize_rows, quantize_rows
-from tensorflow_examples_torch.core.precision import materialize as _w
+from tensorflow_examples_torch.core.sharding import shard_params
 from tensorflow_examples_torch.models.convert import flatten_tree, model_from_params
 from tensorflow_examples_torch.models.transformer import (
     GPT2,
+    GPT2_RULES,
     ParamView,
     TransformerConfig,
     _attn_out,
     _block_mlp,
-    _embed,
+    _embed_on,
     _layer_norm,
+    _lm_head,
     _qkv,
 )
 from tensorflow_examples_torch.ops.attention import (
@@ -99,9 +105,11 @@ from tensorflow_examples_torch.ops.attention import (
 )
 from tensorflow_examples_torch.ops.decode import flash_decode_attention
 from tensorflow_examples_torch.ops.paged_decode import paged_decode_attention
+from tensorflow_examples_torch.parallel.attention import mesh_decode_attention
 from tensorflow_examples_torch.serving import kv_cache as kv_mod
 from tensorflow_examples_torch.serving import paged_kv, scheduler
 from tensorflow_examples_torch.serving.speculative import accept_drafts
+from tensorflow_examples_torch.sharding.resolve import resolve_params
 from tensorflow_examples_torch.telemetry import registry as registry_mod
 from tensorflow_examples_torch.telemetry.compilation import CompilationSentinel
 from tensorflow_examples_torch.telemetry.spans import span as host_span
@@ -171,19 +179,31 @@ class ServeConfig:
 # The layer math is the model's (``models/transformer.py``), which reads
 # every matmul weight through ``core/precision.materialize`` and every
 # embedding table through ``take_rows``; f32 like the reference. ``model``
-# is a GPT2 module or the engine's quantized parameter view, each with a
-# ``cfg``.
+# is a GPT2 module or the engine's parameter view (quantized, or this
+# rank's shards), each with a ``cfg``. A sharded view also carries its
+# ``mesh`` and the ``model`` psums of its row-parallel products
+# (``reduce_attn``, ``reduce_mlp``): each forward sums them before the
+# bias, so every rank of the group holds the same activations and logits.
+
+
+def _reduce(model, part: str):
+    return getattr(model, f"reduce_{part}", None)
+
+
+def _embed_in(model, tokens, positions):
+    return _embed_on(model, model.cfg, tokens, positions, getattr(model, "mesh", None))
 
 
 def _logits(model, x):
-    return x @ _w(model.wte.embedding).T
+    return _lm_head(x, model, model.cfg, getattr(model, "mesh", None))
 
 
-def _prefill_attend(q, k, v, *, impl: str):
-    """Causal self-attention for prefill, [B, L, H, hd] layout."""
+def _prefill_attend(q, k, v, *, impl: str, mesh=None):
+    """Causal self-attention for prefill, [B, L, H, hd] layout (this
+    rank's heads on a mesh)."""
     swap = lambda t: t.transpose(1, 2).contiguous()  # [B,L,H,D] -> [B,H,L,D]
     if impl == "flash":
-        out = flash_decode_attention(swap(q), swap(k), swap(v), q.shape[1])
+        out = mesh_decode_attention(swap(q), swap(k), swap(v), q.shape[1], mesh=mesh)
     else:
         out = attention_reference(swap(q), swap(k), swap(v), causal=True)
     return out.transpose(1, 2)
@@ -194,15 +214,17 @@ def forward_full(model, tokens: torch.Tensor, *, impl: str = "xla"):
     per-layer K/V ([num_layers, B, L, H, hd] each) a prefill writes into
     the cache. Also the cacheless reference path."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed(model, tokens, positions[None])
+    x = _embed_in(model, tokens, positions[None])
+    mesh = getattr(model, "mesh", None)
     ks, vs = [], []
     for layer in range(model.cfg.num_layers):
         blk = model.block(layer)
         q, k, v = _qkv(_layer_norm(x, blk.ln_1), blk.attn)
         ks.append(k)
         vs.append(v)
-        x = x + _attn_out(_prefill_attend(q, k, v, impl=impl), blk.attn)
-        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk)
+        x = x + _attn_out(_prefill_attend(q, k, v, impl=impl, mesh=mesh), blk.attn,
+                          _reduce(model, "attn"))
+        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk, _reduce(model, "mlp"))
     return _logits(model, _layer_norm(x, model.ln_f)), torch.stack(ks), torch.stack(vs)
 
 
@@ -212,7 +234,7 @@ def _decode_forward(model, k_cache, v_cache, tokens, positions, *, kv_bucket: in
     tokens/positions: [S]; each slot's input token and the cache row it
     occupies (= its populated length before the step). Writes K/V in
     place and returns next-token logits [S, V]."""
-    x = _embed(model, tokens, positions)
+    x = _embed_in(model, tokens, positions)
     idx = torch.arange(tokens.shape[0], device=tokens.device)
     lengths = positions + 1
     for layer in range(model.cfg.num_layers):
@@ -224,8 +246,8 @@ def _decode_forward(model, k_cache, v_cache, tokens, positions, *, kv_bucket: in
             q, k_cache[layer, :, :, :kv_bucket], v_cache[layer, :, :, :kv_bucket],
             lengths,
         )
-        x = x + _attn_out(att, blk.attn)
-        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk)
+        x = x + _attn_out(att, blk.attn, _reduce(model, "attn"))
+        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk, _reduce(model, "mlp"))
     return _logits(model, _layer_norm(x, model.ln_f))
 
 
@@ -247,7 +269,7 @@ def _verify_forward(model, k_cache, v_cache, tokens, positions, *, kv_bucket: in
     pos_grid = positions[:, None] + torch.arange(t_n, device=dev)
     rows = pos_grid.clamp(max=cfg.max_len - 1)
     src = (rows - positions[:, None])[..., None, None]  # the row each write carries
-    x = _embed(model, tokens, rows)
+    x = _embed_in(model, tokens, rows)
     idx = torch.arange(s_n, device=dev)[:, None]
     for layer in range(cfg.num_layers):
         blk = model.block(layer)
@@ -257,8 +279,8 @@ def _verify_forward(model, k_cache, v_cache, tokens, positions, *, kv_bucket: in
         att = kv_mod.varlen_verify_attention(
             q, k_cache[layer, :, :, :kv_bucket], v_cache[layer, :, :, :kv_bucket], positions,
         )
-        x = x + _attn_out(att, blk.attn)
-        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk)
+        x = x + _attn_out(att, blk.attn, _reduce(model, "attn"))
+        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk, _reduce(model, "mlp"))
     return _logits(model, _layer_norm(x, model.ln_f))
 
 
@@ -346,7 +368,7 @@ def _paged_decode_forward(model, kv, tokens, positions, tables, *,
     the block table; attention is the fused kernel under
     ``attention="paged_flash"``, else the plain gather path. ``tables``
     is [S, nb] int32 on the device. Returns logits [S, V]."""
-    x = _embed(model, tokens, positions)
+    x = _embed_in(model, tokens, positions)
     lengths = (positions + 1).to(torch.int32)
     slots = torch.arange(tokens.shape[0], device=tokens.device)
     write_blocks = tables[slots, positions // block_size].long()
@@ -373,8 +395,8 @@ def _paged_decode_forward(model, kv, tokens, positions, tables, *,
             att = kv_mod.varlen_decode_attention(
                 q, kv[0][layer], kv[1][layer], lengths, block_tables=tables
             )
-        x = x + _attn_out(att, blk.attn)
-        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk)
+        x = x + _attn_out(att, blk.attn, _reduce(model, "attn"))
+        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk, _reduce(model, "mlp"))
     return _logits(model, _layer_norm(x, model.ln_f))
 
 
@@ -388,7 +410,7 @@ def _paged_verify_forward(model, kv, tokens, positions, tables, *, block_size: i
     t_n = tokens.shape[1]
     nb = tables.shape[1]
     pos_grid = positions[:, None] + torch.arange(t_n, device=tokens.device)
-    x = _embed(model, tokens, pos_grid.clamp(max=cfg.max_len - 1))
+    x = _embed_in(model, tokens, pos_grid.clamp(max=cfg.max_len - 1))
     tab = tables.long()
     blk_idx = (pos_grid // block_size).clamp(max=nb - 1)
     write_blocks = torch.where(pos_grid < nb * block_size, torch.gather(tab, 1, blk_idx), 0)
@@ -404,8 +426,8 @@ def _paged_verify_forward(model, kv, tokens, positions, tables, *, block_size: i
             att = kv_mod.varlen_verify_attention(
                 q, kv[0][layer], kv[1][layer], positions, block_tables=tables
             )
-        x = x + _attn_out(att, blk.attn)
-        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk)
+        x = x + _attn_out(att, blk.attn, _reduce(model, "attn"))
+        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk, _reduce(model, "mlp"))
     return _logits(model, _layer_norm(x, model.ln_f))
 
 
@@ -426,7 +448,7 @@ def _extend_forward(model, kv, ctx_table, tail_ids, tokens, ctx_len: int,
     positions = ctx_len + torch.arange(tb, device=dev)
     # Pad rows past the true tail may index past max_len; clip — they are
     # causally downstream of every real row and discarded.
-    x = _embed(model, tokens, positions.clamp(max=cfg.max_len - 1)[None])
+    x = _embed_in(model, tokens, positions.clamp(max=cfg.max_len - 1)[None])
     quantized = len(kv) == 4
     ctx_cols = ctx_table.shape[0] * block_size
     ctx_ok = torch.arange(ctx_cols, device=dev) < ctx_len
@@ -456,8 +478,8 @@ def _extend_forward(model, kv, ctx_table, tail_ids, tokens, ctx_len: int,
         out = torch.einsum("bhtk,hkd->bhtd", p_ctx.to(vc.dtype).float(), vc.float())
         out = out + torch.matmul(p_tail.to(v.dtype).float(), v.transpose(1, 2).float())
         att = out.to(q.dtype).transpose(1, 2)
-        x = x + _attn_out(att, blk.attn)
-        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk)
+        x = x + _attn_out(att, blk.attn, _reduce(model, "attn"))
+        x = x + _block_mlp(_layer_norm(x, blk.ln_2), blk, _reduce(model, "mlp"))
     _paged_write_prompt(kv, torch.stack(ks), torch.stack(vs), tail_ids,
                         block_size=block_size)
     return _logits(model, _layer_norm(x, model.ln_f))
@@ -606,7 +628,13 @@ class ChunkedPrefill:
 class _ServingParams(ParamView):
     """The engine's weights as a flat ``{"h_0.attn.qkv.kernel": leaf}``
     dict (leaves are tensors or ``QuantizedWeight``s) with the model
-    config, readable by the layer math like a :class:`GPT2`."""
+    config, readable by the layer math like a :class:`GPT2`. A sharded
+    engine's view holds this rank's pieces, its ``mesh`` and the
+    ``model`` psums of the row-parallel products it splits."""
+
+    mesh = None
+    reduce_attn = None
+    reduce_mlp = None
 
     def __init__(self, cfg: TransformerConfig, params: dict):
         super().__init__(params)
@@ -633,14 +661,39 @@ class InferenceEngine:
     plain version and no graph is captured. ``cuda_graphs=False`` runs
     the decode and verify rungs eagerly on the card (for comparing the
     two). The device-facing methods are single-threaded by contract: the
-    batcher's loop thread is the only caller."""
+    batcher's loop thread is the only caller.
+
+    ``sharding`` (a ``ShardingConfig``, the one a training run keeps as
+    ``workdir/sharding.json``) serves the model split over the
+    ``model`` axis of a mesh of ranks, one process a rank, the
+    reference's sharded engine as SPMD code: every rank builds this
+    engine over its pieces of the params (placed by the config's rules,
+    ``GPT2_RULES`` when it has none, and quantized on the host first so
+    each payload and scale is cut like its weight) and a KV pool of its
+    heads (``H / m``, or all ``H`` when the rules leave qkv whole), and
+    every rank must make the same calls in the same order
+    (``serving/mesh_driver.py`` replays rank 0's). ``param_sharding_digest``
+    is the reference's digest of the placement. Every other mesh axis
+    holds replicas; ``fsdp`` > 1 and the KV-page hand-off (``role``
+    prefill or decode, ``export_kv_pages``/``import_kv_pages``) raise
+    ``NotImplementedError``. A CUDA graph cannot hold collectives staged
+    through host memory, so ``cuda_graphs=True`` on a gloo mesh of CUDA
+    ranks raises ``ValueError``."""
 
     def __init__(self, model_cfg: TransformerConfig, params, *,
                  cfg: ServeConfig | None = None, registry=None, device=None,
-                 precision=None, cuda_graphs: bool = True):
+                 precision=None, cuda_graphs: bool = True, sharding=None):
         if model_cfg.moe_experts:
             raise NotImplementedError("serving engine currently covers dense GPT-2 models only")
-        self.device = resolve_device(device)
+        self.sharding = sharding
+        self.mesh = None
+        self.param_sharding_digest = None
+        if sharding is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = distributed.local_device(device or "cuda")
+            self.mesh = sharding.build_mesh(device=self.device)
+            self._check_mesh(cfg or ServeConfig(), cuda_graphs)
         if self.device.type == "cuda":
             # The reference computes in f32. TF32 matmuls keep ~3 decimal
             # digits, enough to flip greedy tokens away from it.
@@ -698,6 +751,8 @@ class InferenceEngine:
             raise ValueError(f"attention={cfg.attention!r} kernels take head_dim in "
                              f"{SUPPORTED_HEAD_DIMS}, the model has {model_cfg.head_dim}")
         self.model = self._load(model_cfg, params)
+        # The heads this rank's qkv projection makes: its KV pool's.
+        self.local_heads = int(self.model.block(0).attn.qkv.kernel.shape[2])
         self.registry = registry if registry is not None else registry_mod.default_registry()
         self.sentinel = CompilationSentinel(warmup=cfg.compile_warmup, registry=self.registry)
         self._precision_stats = precision_mod.tree_precision_stats(self._param_tree())
@@ -709,7 +764,7 @@ class InferenceEngine:
                        else wte.dtype)
         pool_kw = dict(
             num_layers=model_cfg.num_layers, num_slots=cfg.max_slots,
-            num_heads=model_cfg.num_heads, max_len=model_cfg.max_len,
+            num_heads=self.local_heads, max_len=model_cfg.max_len,
             head_dim=model_cfg.head_dim, dtype=_cache_dtype(cfg.cache_dtype, param_dtype),
             device=self.device, registry=self.registry,
         )
@@ -735,22 +790,67 @@ class InferenceEngine:
         self._build_rungs()
         self.warmed = False
 
+    def _check_mesh(self, cfg: ServeConfig, cuda_graphs: bool) -> None:
+        mesh = self.mesh
+        if mesh.shape[AxisNames.FSDP] > 1:
+            raise NotImplementedError(
+                "serving with fsdp > 1 (the params gathered over fsdp before each use) is not "
+                "implemented (ROADMAP A7b.3b); serve the run with its fsdp axis at 1")
+        if cfg.role != "mixed":
+            raise NotImplementedError(
+                f"role={cfg.role!r}: the KV-page hand-off of a sharded engine needs each "
+                "rank's head shard of the pages gathered over 'model', which is not "
+                "implemented (ROADMAP A7b.3b); a sharded engine serves role 'mixed'")
+        if cuda_graphs and self.device.type == "cuda" and mesh.backend == "gloo":
+            raise ValueError(
+                "cuda_graphs=True on a gloo mesh: its collectives are staged through host "
+                "memory, which a CUDA graph cannot hold; pass cuda_graphs=False (the kernels "
+                "still run on the card) or give each rank a card of its own (nccl)")
+
     def _load(self, model_cfg: TransformerConfig, params):
         """The weights on the device: the GPT2 module as given, or, under
-        a precision registry, the tree quantized on the CPU first."""
-        if self.precision is None:
+        a precision registry, the tree quantized on the CPU first; under
+        ``sharding`` this rank's pieces of that tree."""
+        if self.precision is None and self.sharding is None:
             if isinstance(params, GPT2):
                 model = params.to(self.device)
             else:
                 model = model_from_params(model_cfg, params, device=self.device)
             return model.requires_grad_(False).eval()
         if isinstance(params, GPT2):
-            tree = {k.replace(".", "/"): t for k, t in params.state_dict().items()}
+            tree = {k.replace(".", "/"): t.detach() for k, t in params.state_dict().items()}
         else:
             tree = flatten_tree(params)
-        flat = precision_mod.quantize_tree(tree, self.precision)
-        return _ServingParams(model_cfg, {path.replace("/", "."): leaf.to(self.device)
-                                          for path, leaf in flat.items()})
+        if self.precision is not None:
+            flat = precision_mod.quantize_tree(tree, self.precision)
+        else:
+            flat = {path: torch.as_tensor(leaf) for path, leaf in tree.items()}
+        flat = {path.replace("/", "."): leaf for path, leaf in flat.items()}
+        if self.sharding is None:
+            return _ServingParams(model_cfg, {n: leaf.to(self.device) for n, leaf in flat.items()})
+        rules = self.sharding.sharding_rules(default=GPT2_RULES)
+        self.param_sharding_digest = resolve_params(flat, self.mesh, rules).digest()
+        pieces = shard_params(flat, self.mesh, rules)
+        view = _ServingParams(model_cfg, {n: leaf.to(self.device) for n, leaf in pieces.items()})
+        view.mesh = self.mesh
+        blk = view.block(0)
+        heads, proj_rows = blk.attn.qkv.kernel.shape[2], blk.attn.proj.kernel.shape[0]
+        fc_cols, proj_in = blk.mlp_fc.kernel.shape[1], blk.mlp_proj.kernel.shape[0]
+        if heads != proj_rows or fc_cols != proj_in:
+            raise ValueError(
+                f"the sharding rules split qkv into {heads} heads but proj into {proj_rows} "
+                f"rows, or mlp_fc into {fc_cols} columns but mlp_proj into {proj_in} rows: a "
+                "row-parallel product must take its column-parallel input's split")
+        psum = functools.partial(coll.psum, axis=AxisNames.MODEL, mesh=self.mesh)
+        view.reduce_attn = psum if heads < model_cfg.num_heads else None
+        view.reduce_mlp = psum if proj_in < model_cfg.ff_dim else None
+        return view
+
+    @property
+    def mesh_shape(self) -> dict | None:
+        """Axis -> size of a sharded engine's mesh (None unsharded): with
+        ``param_sharding_digest``, the reference's ``SHARDING_KEYS``."""
+        return dict(self.mesh.shape) if self.mesh is not None else None
 
     def _param_tree(self) -> dict:
         if isinstance(self.model, GPT2):
@@ -1059,6 +1159,12 @@ class InferenceEngine:
         names = ("k", "v", "k_scale", "v_scale")
         return dict(zip(names, self.pool.kv_state()))
 
+    def _refuse_sharded_handoff(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the KV-page hand-off of a sharded engine needs each rank's head shard of "
+                "the pages gathered over 'model', which is not implemented (ROADMAP A7b.3b)")
+
     @torch.no_grad()
     def export_kv_pages(self, slot: int, prompt: Sequence[int], *, skip_tokens: int = 0) -> dict:
         """The slot's finished prompt KV blocks as the prefill->decode
@@ -1071,6 +1177,7 @@ class InferenceEngine:
         that many leading prompt tokens, so the full blocks they cover
         stay off the wire (``start_block``). Floored to a block multiple
         and capped so the last (partial) block always ships."""
+        self._refuse_sharded_handoff()
         if not self.paged:
             raise ValueError("KV page export requires the paged pool (set kv_block_size)")
         if skip_tokens < 0:
@@ -1097,6 +1204,7 @@ class InferenceEngine:
         place, set the slot's length and publish the prompt into the
         local prefix cache. A delta payload whose skipped blocks this
         pool's prefix cache does not cover is refused loudly."""
+        self._refuse_sharded_handoff()
         if not self.paged:
             raise ValueError("KV page import requires the paged pool (set kv_block_size)")
         meta, arrays = scheduler.decode_pages(payload)

@@ -269,6 +269,10 @@ class ServingFrontend:
             "brownout_level": int(batcher.brownout_level),
             "brownout_transitions": int(batcher._overload.transitions()),
         }
+        if getattr(engine, "param_sharding_digest", None):
+            # A sharded engine: the reference's SHARDING_KEYS.
+            body["mesh_shape"] = engine.mesh_shape
+            body["param_sharding_digest"] = engine.param_sharding_digest
         paged = getattr(pool, "paged_stats", None)
         if callable(paged):
             stats = paged()

@@ -201,6 +201,12 @@ class KVCachePool:
         batcher fails and frees the whole in-flight set right after."""
         self._alloc_arrays()
 
+    def host_state(self) -> dict:
+        """The host bookkeeping as plain values (slot lengths, the free
+        list): equal on every rank of a sharded engine."""
+        with self._lock:
+            return {"lengths": self.lengths.tolist(), "free_slots": list(self._free)}
+
     def used_bytes(self) -> int:
         """K+V bytes committed to claimed slots (a slot is its max_len)."""
         per_slot = 2 * self.num_layers * self.num_heads * self.max_len * self.head_dim

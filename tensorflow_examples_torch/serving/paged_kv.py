@@ -164,6 +164,22 @@ class PagedKVPool:
             self._drop_cache_locked()
             self._publish_locked()
 
+    def host_state(self) -> dict:
+        """The host bookkeeping as plain values: slot lengths and block
+        tables, the free lists, refcounts and the prefix cache's keys,
+        chain hashes and LRU order. The ranks of a sharded engine replay
+        the same calls, so theirs are equal."""
+        with self._lock:
+            return {"lengths": self.lengths.tolist(),
+                    "block_tables": self.block_tables.tolist(),
+                    "slot_blocks": self._slot_blocks.tolist(),
+                    "free_slots": list(self._free_slots),
+                    "free_blocks": list(self._free_blocks),
+                    "refcount": self._refcount.tolist(),
+                    "prefix_cache": sorted(self._cache.items()),
+                    "chain_hash": sorted(self._chain_hash.items()),
+                    "evictable": list(self._evictable)}
+
     def _drop_cache_locked(self) -> None:
         for bid in list(self._evictable):
             self._free_blocks.append(bid)

@@ -15,7 +15,9 @@ the port of ``tensorflow_examples_tpu/sharding/resolve.py``.
   fit start; a rank that disagrees is named.
 
 A template is a ``{name: tensor}`` dict of full-shape tensors (the meta
-device does: only shapes and dtypes are read).
+device does: only shapes and dtypes are read); a quantized weight
+(``core/precision.QuantizedWeight``) resolves as the reference's two
+children, ``<path>/q`` and ``<path>/scale``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from tensorflow_examples_torch.core.mesh import AxisNames
+from tensorflow_examples_torch.core.precision import QuantizedWeight
 from tensorflow_examples_torch.core.sharding import (ShardingRules, filter_spec, is_replicated,
                                                       param_path, shardings_for_params)
 
@@ -127,12 +130,22 @@ def resolve_params(params_template: Mapping[str, torch.Tensor], mesh,
     for name, leaf in sorted(params_template.items(), key=lambda kv: param_path(kv[0])):
         path = param_path(name)
         spec = rules.spec_for(path)
-        placed = filter_spec(spec, mesh)
-        shape = tuple(leaf.shape)
-        gbytes = math.prod(shape) * leaf.element_size()
-        rows.append(ParamRow(path=path, spec=spec, placed=placed, shape=shape,
-                             dtype=_dtype_name(leaf.dtype), global_bytes=gbytes,
-                             per_device_bytes=gbytes // max(_spec_device_count(placed, mesh), 1)))
+        if isinstance(leaf, QuantizedWeight):
+            # Two rows under the weight's path, as the reference's pytree
+            # children: the payload by the weight's spec, its row scale by
+            # that spec clipped to the scale's rank.
+            parts = ((f"{path}/q", spec, leaf.q),
+                     (f"{path}/scale", spec[:leaf.scale.dim()], leaf.scale))
+        else:
+            parts = ((path, spec, leaf),)
+        for row_path, row_spec, t in parts:
+            placed = filter_spec(row_spec, mesh)
+            shape = tuple(t.shape)
+            gbytes = math.prod(shape) * t.element_size()
+            rows.append(ParamRow(
+                path=row_path, spec=row_spec, placed=placed, shape=shape,
+                dtype=_dtype_name(t.dtype), global_bytes=gbytes,
+                per_device_bytes=gbytes // max(_spec_device_count(placed, mesh), 1)))
     return ResolvedSharding(mesh=mesh, rows=tuple(rows))
 
 

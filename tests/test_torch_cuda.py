@@ -1428,3 +1428,102 @@ def test_resnet50_step_on_the_card_matches_the_cpu_step(dev):
     for k, t in cpu_stats.items():
         torch.testing.assert_close(gpu_stats[k], t, rtol=0,
                                    atol=2e-2 * max(float(t.abs().max()), 1e-6), msg=k)
+
+
+# ------------------------------------------------ sharded serving, one card
+
+SHARDED_MODEL = dict(vocab_size=211, max_len=64, num_layers=2, num_heads=4, d_model=64)
+SHARDED_CONFIGS = {"dense_flash": dict(attention="flash"),
+                   "paged_flash_int8": dict(attention="paged_flash", kv_block_size=8,
+                                            kv_dtype="int8")}
+SHARDED_PROMPTS = ((5, 0.0), (17, 0.0), (30, 0.9), (3, 0.0))  # (prompt length, temperature)
+
+
+def _sharded_requests():
+    from tensorflow_examples_torch.serving.batcher import Request
+
+    rng = np.random.default_rng(11)
+    return [Request(prompt=[int(t) for t in rng.integers(0, 211, n)], max_new_tokens=8,
+                    seed=i, temperature=temp) for i, (n, temp) in enumerate(SHARDED_PROMPTS)]
+
+
+def _sharded_engine_on(device, sharding, kw, **extra):
+    from tensorflow_examples_torch.models import transformer
+    from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
+    from tensorflow_examples_torch.telemetry.registry import MetricsRegistry
+
+    cfg = transformer.TransformerConfig(**SHARDED_MODEL)
+    return InferenceEngine(cfg, transformer.GPT2(cfg, seed=3), device=device, sharding=sharding,
+                           registry=MetricsRegistry(),
+                           cfg=ServeConfig(max_slots=4, prefill_bucket_floor=16,
+                                           kv_bucket_floor=32, **kw), **extra)
+
+
+def _serve_streams(engine) -> list:
+    from tensorflow_examples_torch.serving.batcher import ContinuousBatcher
+
+    batcher = ContinuousBatcher(engine).start()
+    try:
+        return [f.result(timeout=120).tokens for f in
+                [batcher.submit(r) for r in _sharded_requests()]]
+    finally:
+        batcher.close()
+
+
+def _sharded_serving_on_one_card(rank: int) -> dict:
+    from tensorflow_examples_torch.serving.mesh_driver import MeshDriver
+    from tensorflow_examples_torch.sharding import ShardingConfig
+
+    sc = ShardingConfig(mesh={"model": 2})
+    out = {"backend": torch.distributed.get_backend()}
+    try:
+        _sharded_engine_on("cuda", sc, {})
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    for name, kw in SHARDED_CONFIGS.items():
+        engine = _sharded_engine_on("cuda", sc, kw, cuda_graphs=False)
+        driver = MeshDriver()
+        before = (decode.flash_decode_attention.launches,
+                  paged_decode.paged_decode_attention.launches)
+        if rank == 0:
+            lead = driver.leader(engine)
+            lead.warmup()
+            out[name] = {"streams": _serve_streams(lead)}
+            driver.stop()
+        else:
+            out[name] = {"replayed": driver.follow(engine)}
+        out[name].update(
+            launched=[decode.flash_decode_attention.launches - before[0],
+                      paged_decode.paged_decode_attention.launches - before[1]],
+            host_state=engine.pool.host_state(), heads=int(engine.pool.k.shape[2]),
+            decode_steps=engine.registry.counter_values().get("serving/decode_steps", 0))
+    return out
+
+
+def test_two_rank_sharded_serving_on_one_card_matches_one_rank(dev, tmp_path):
+    """A ``{model: 2}`` engine (2 of 4 heads a rank) on two ranks sharing
+    the card over gloo: ``cuda_graphs=True`` is refused (host-staged
+    collectives); eagerly, rank 0's batcher streams (greedy and sampled,
+    dense ``flash`` and ``paged_flash`` int8) equal the one-rank engine's,
+    flash-decode and the paged kernel launch on both ranks (the paged one
+    once a layer a decode step), and the pools' host state is equal."""
+    from tensorflow_examples_torch.core import distributed
+
+    ranks = distributed.run_world(_sharded_serving_on_one_card, 2, device="cuda",
+                                  timeout_s=240, store_dir=str(tmp_path))
+    assert all(r["backend"] == "gloo" for r in ranks)
+    assert all("cuda_graphs=True on a gloo mesh" in r["refused"] for r in ranks)
+    for name, kw in SHARDED_CONFIGS.items():
+        one = _sharded_engine_on("cuda", None, kw, cuda_graphs=False)
+        one.warmup()
+        assert ranks[0][name]["streams"] == _serve_streams(one), name
+        assert ranks[0][name]["host_state"] == ranks[1][name]["host_state"], name
+        assert ranks[0][name]["launched"] == ranks[1][name]["launched"], name
+        assert all(r[name]["heads"] == 2 for r in ranks)
+        flash, paged = ranks[0][name]["launched"]
+        assert flash > 0, name
+        if kw["attention"] == "paged_flash":
+            layers = SHARDED_MODEL["num_layers"]
+            # The warmup's decode rungs and the served decode steps, a layer each.
+            assert paged >= layers * ranks[0][name]["decode_steps"] > 0, name

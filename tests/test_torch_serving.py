@@ -450,7 +450,7 @@ def test_port_imports_no_jax():
                 "core/distributed.py", "core/mesh.py", "core/collectives.py",
                 "core/sharding.py", "sharding/config.py", "sharding/resolve.py",
                 "sharding/layout.py", "parallel/ring.py", "parallel/attention.py",
-                "telemetry/fleet.py"):
+                "telemetry/fleet.py", "serving/mesh_driver.py"):
         assert f"tensorflow_examples_torch/{new}" in rel
     banned = ("jax", "flax", "optax", "absl", "tensorflow_examples_tpu", "tensorflow")
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)
