@@ -195,9 +195,9 @@ non-zero:
    power limit;
 5g. imagenet: ResNet-50 at the ``ImagenetConfig`` defaults (224 px, 1000
    classes, bf16, SGD with Nesterov momentum under warmup-cosine, label
-   smoothing 0.1) cut to batch 256 (``bench.py:762``'s batch a chip), 20
+   smoothing 0.1) cut to batch 256 (``bench.py:762``'s batch a chip), 10
    steps with warmup 5 and 2 synthetic eval batches, on the synthetic
-   stream: (a) 20 steps through ``train.cli``, finite losses, every
+   stream: (a) 10 steps through ``train.cli``, finite losses, every
    running statistic moved, no port kernel launched, p50 step ms,
    examples/s, peak memory, one profiled step, and the step p50 of a fit
    over one host batch repeated (the input off the critical path);
@@ -212,9 +212,25 @@ non-zero:
    with the OOM report (live tensors, breakdown, allocator) in its log
    before the traceback; (f) during (a), ``--metrics_port``'s
    ``/metrics`` parses as Prometheus text and carries
-   ``memory_peak_live_bytes``, ``/health`` answers 200. The TFRecord
-   path is not driven here: the card's machine has no libjpeg, which
-   ``native/fastjpeg.cpp`` links (ROADMAP A6b);
+   ``memory_peak_live_bytes``, ``/health`` answers 200; then the
+   TFRecord path, the port's JPEG decoder (``data/csrc/jpeg.cpp``, built
+   here with g++, no libjpeg) over shards of the 64 fixture JPEGs
+   repeated to a shard of 320 records by ``data/sources.write_tfrecord``,
+   copied to 4 train shards (5 batches of 256 an epoch) and a validation
+   shard: (b) the stage's images/s on one thread, two epochs through 8
+   decode workers equal to the inline decode bit for bit, the pipeline's
+   images/s at 1 and 8 workers after its first batch, and inline; 10
+   steps through ``train.cli`` fed by 8
+   workers (cuDNN deterministic), checkpointing at 7, two steps profiled:
+   step p50, ``data_fetch``, ``data_wait`` and ``data_work`` p50 from the
+   run's trace, the card's idle share over the profiled window; a fresh
+   run resumed from the step-7 checkpoint gives steps 8-10's losses and
+   the final params bitwise; (c') its final eval and ``train.eval`` over
+   the padded validation shard agree, the pad rows under mask 0, the
+   eval weight 320; (g) the recipe's batch 1024 as ``grad_accum_steps``
+   4 at 256 for 2 applied updates: finite losses, every running
+   statistic moved, peak memory and micro-step p50 beside (e)'s
+   one-step probe at 1024;
 5f. fleet: the fleet's control plane over GPT-2 124M at full width and
    depth (seed 0, f32, ``paged_flash``, block 16, 8 slots, warmed), only
    through the port's router: (a) two mixed stacks behind
@@ -296,7 +312,9 @@ non-zero:
    for 4 steps, resumed to 6 on ``{pipe: 2}`` with
    ``--pipe_interleave 1``;
 6. the ``{"group_row_sum": {...}}`` line (not the port of a TPU kernel),
-   the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   the ``{"phase_seconds": {...}}`` line (each phase also prints
+   ``phase <name>: S s`` as it ends), the ``{"kernels": [...]}`` line,
+   then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -398,6 +416,19 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """One phase, its seconds printed and kept for the summary line."""
+    t0 = time.perf_counter()
+    result = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"phase {name}: {PHASE_SECONDS[name]:.1f} s")
+    return result
 
 
 def reset_counts(counters) -> None:
@@ -4251,8 +4282,7 @@ def phase_cifar10(torch, counters, smi: str, tmp: str) -> dict:
     run["data_write_s"] = write_s
     saved, step = CheckpointManager(workdir).load_latest()
     stats = saved["model_state"]["batch_stats"]
-    moved = sum(not torch.equal(t, torch.zeros_like(t) if k.endswith("mean") else
-                                torch.ones_like(t)) for k, t in stats.items())
+    moved = stats_moved(torch, stats)
     if step != TRAIN_STEPS or moved != len(stats):
         fail(f"cifar10: {moved} of {len(stats)} running statistics moved off their init by "
              f"step {step}")
@@ -4332,8 +4362,20 @@ def phase_mnist(torch, counters, smi: str, tmp: str) -> dict:
 # --------------------------------------------------------------- imagenet
 
 IMAGENET_BATCH = 256          # bench.py:762's batch a chip: the phase's cut (default 1024)
+IMAGENET_SYNTHETIC_STEPS = 10  # (a)'s depth: the numpy stream costs ~1.7 s a step
 IMAGENET_EVAL_BATCHES = 2     # synthetic eval batches (default 8): each costs ~1.7 s of numpy
 IMAGENET_OOM_BATCHES = (1024, 4096)  # one-step probes: the recipe's batch, and one past the card
+# (b), (c') and (g): a TFRecord shard of the 64 fixture JPEGs repeated to
+# 320 records, copied to 4 train shards (5 batches of 256 an epoch) and one
+# validation shard (a batch of 256, then 64 rows padded to 256 under mask 0).
+IMAGENET_FIXTURE = os.path.join("tests", "data", "imagenet_fixture.tfrecord")
+IMAGENET_TRAIN_SHARDS, IMAGENET_SHARD_RECORDS = 4, 320
+IMAGENET_WORKERS = 8       # decode workers (the card's host has 8 cores)
+IMAGENET_FED_STEPS = 10    # steps of the fed run; its profiled window, run-relative
+IMAGENET_RESUME_STEP = 7
+IMAGENET_FED_PROFILE = (5, 2)
+IMAGENET_ACCUM = 4         # the recipe's batch 1024 as 4 micro-batches of 256
+IMAGENET_ACCUM_UPDATES = 2
 PROM_SAMPLE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? "
                          r"(-?\d+(\.\d+)?([eE][+-]?\d+)?|NaN|[+-]Inf)$")
 # A probe's process: one fitted step on a batch of zeros (the values do
@@ -4450,6 +4492,250 @@ def resnet_kinds(kernels) -> dict:
     return kinds
 
 
+def write_imagenet_shards(here: str, root: str) -> str:
+    """The fixture's records repeated into one shard by the port's own
+    writer, copied to the ``train-*`` and ``validation-*`` shards (the
+    writer's pure-Python CRCs cost ~5 ms a record)."""
+    import shutil
+
+    from tensorflow_examples_torch.data import sources
+
+    recs = list(sources.iter_tfrecord_records(os.path.join(here, IMAGENET_FIXTURE),
+                                              verify_crc=True))
+    os.makedirs(root, exist_ok=True)
+    first = os.path.join(root, f"train-00000-of-{IMAGENET_TRAIN_SHARDS:05d}")
+    sources.write_tfrecord(first, [recs[i % len(recs)] for i in range(IMAGENET_SHARD_RECORDS)])
+    for s in range(1, IMAGENET_TRAIN_SHARDS):
+        shutil.copyfile(first, os.path.join(root, f"train-{s:05d}-of-{IMAGENET_TRAIN_SHARDS:05d}"))
+    shutil.copyfile(first, os.path.join(root, "validation-00000-of-00001"))
+    return root
+
+
+def take_batches(it, n: int) -> tuple[list, float, float]:
+    """``n`` batches of a stream, the seconds they took (the pool's
+    start-up and first batch included) and the images/s after the first
+    batch (``n`` > 1), the stream closed after."""
+    t0 = time.perf_counter()
+    out, arrived = [], []
+    for _ in range(n):
+        out.append(next(it))
+        arrived.append(time.perf_counter())
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()
+    rate = sum(len(b["label"]) for b in out[1:]) / (arrived[-1] - arrived[0]) if n > 1 else None
+    return out, arrived[-1] - t0, rate
+
+
+def span_p50s(trace_path: str, first: int) -> dict:
+    """The input spans of a run's host trace, p50 ms and count:
+    ``data_fetch`` (the loop's wait for its next batch), ``data_wait``
+    (the prefetcher's pops from the decode workers), ``data_work`` split
+    into the workers' (a batch parsed and decoded on one thread) and the
+    loop thread's (a batch pinned and its copy issued), whose durations
+    are listed. The process's tracer holds every earlier run's spans
+    too: the run's own start at index ``first``."""
+    events = json.load(open(trace_path))
+    events = (events["traceEvents"] if isinstance(events, dict) else events)[first:]
+    named = lambda n: [e for e in events if e.get("name") == n]
+    loop = {e["tid"] for e in named("data_fetch")}
+    work = named("data_work")
+    spans = {"data_fetch": named("data_fetch"), "data_wait": named("data_wait"),
+             "data_work_decode": [e for e in work if e["tid"] not in loop],
+             "data_work_place": [e for e in work if e["tid"] in loop]}
+    out = {}
+    for name, es in spans.items():
+        out[f"{name}_ms_p50"] = float(np.median([e["dur"] for e in es])) / 1e3 if es else None
+        out[f"{name}_count"] = len(es)
+    out["data_fetch_ms"] = [round(e["dur"] / 1e3, 2) for e in spans["data_fetch"]]
+    return out
+
+
+def profile_idle(profile_dir: str, wall_s: float) -> dict:
+    """The card's idle share over a training run's profiler window: the
+    union of the kernels' intervals in its trace against the window's
+    host wall."""
+    path = max((os.path.join(profile_dir, f) for f in os.listdir(profile_dir)),
+               key=os.path.getmtime)
+    events = json.load(open(path))
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel" and e.get("ph") == "X")
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return {"kernels": len(spans), "busy_ms": busy_us / 1e3, "wall_ms": wall_s * 1e3,
+            "idle_share": 1.0 - busy_us / 1e6 / wall_s}
+
+
+def window_metric(workdir: str, key: str) -> dict:
+    """step -> a window line's metric, from a run's telemetry lines."""
+    lines = [json.loads(x) for x in open(os.path.join(workdir, "telemetry", "metrics.jsonl"))]
+    return {x["step"]: x["metrics"][key] for x in lines if x["kind"] == "window"}
+
+
+def stats_moved(torch, stats) -> int:
+    """How many BatchNorm running statistics left their init (means 0,
+    variances 1)."""
+    return sum(not torch.equal(t, torch.zeros_like(t) if k.endswith("mean") else
+                               torch.ones_like(t)) for k, t in stats.items())
+
+
+def imagenet_shards(torch, counters, smi: str, tmp: str, here: str, base, probes) -> dict:
+    """Checks (b), (c') and (g) of the module docstring: ResNet-50 fed by
+    the port's JPEG stage from TFRecord shards."""
+    import shutil
+
+    from tensorflow_examples_torch import native
+    from tensorflow_examples_torch.data import imagenet as imagenet_data
+    from tensorflow_examples_torch.data import sources
+    from tensorflow_examples_torch.telemetry import spans
+    from tensorflow_examples_torch.train import cli
+    from tensorflow_examples_torch.train.checkpoint import CheckpointManager
+    from tensorflow_examples_torch.workloads import imagenet
+
+    out = {}
+    t0 = time.perf_counter()
+    root = write_imagenet_shards(here, os.path.join(tmp, "imagenet-shards"))
+    if not native.available("jpeg"):
+        fail(f"imagenet (b): the port's JPEG decoder did not build: {native.build_errors}")
+    b = {"shards_written_s": time.perf_counter() - t0, "library": native.jpeg_library_path(),
+         "train_records": IMAGENET_TRAIN_SHARDS * IMAGENET_SHARD_RECORDS,
+         "validation_records": IMAGENET_SHARD_RECORDS}
+    ldd = subprocess.run(["ldd", native.jpeg_library_path()], capture_output=True, text=True)
+    if "libjpeg" in ldd.stdout:
+        fail(f"imagenet (b): the port's decoder links libjpeg: {ldd.stdout}")
+    fed = base.replace(data_dir=root, input_workers=IMAGENET_WORKERS)
+    epoch = IMAGENET_TRAIN_SHARDS * IMAGENET_SHARD_RECORDS // IMAGENET_BATCH
+
+    # The stage alone on one thread, then the pipeline.
+    jpegs = [imagenet_data.parse_imagenet_example(r)[0] for r in
+             sources.iter_tfrecord_records(os.path.join(here, IMAGENET_FIXTURE))]
+    jpegs = (jpegs * (IMAGENET_BATCH // len(jpegs) + 1))[:IMAGENET_BATCH]
+    t0 = time.perf_counter()
+    imagenet_data.decode_augment_batch(jpegs, list(range(len(jpegs))), train=True,
+                                       image_size=base.image_size, seed=0, step=0, threads=1)
+    b["stage_images_per_s_1_thread"] = len(jpegs) / (time.perf_counter() - t0)
+    # Two epochs inline and through 8 workers, compared; 3 batches through 1.
+    inline, b["inline_s"], _ = take_batches(
+        imagenet.make_train_iter(fed.replace(input_workers=0), 0), 2 * epoch)
+    pooled, b["workers_8_s"], b["images_per_s_8_workers"] = take_batches(
+        imagenet.make_train_iter(fed, 0), 2 * epoch)
+    _, b["workers_1_s"], b["images_per_s_1_worker"] = take_batches(
+        imagenet.make_train_iter(fed.replace(input_workers=1), 0), 3)
+    b["images_per_s_inline"] = 2 * epoch * IMAGENET_BATCH / b["inline_s"]
+    same = all(np.array_equal(x[k], y[k]) for x, y in zip(inline, pooled) for k in x)
+    size = base.image_size
+    if not same or len(pooled) != 2 * epoch or inline[0]["image"].shape != (
+            IMAGENET_BATCH, size, size, 3):
+        fail(f"imagenet (b): {IMAGENET_WORKERS} workers' batches differ from the inline decode's")
+    b["workers_equal_inline"] = f"{2 * epoch} batches (2 epochs) bitwise"
+    del inline, pooled
+    log(f"imagenet (b) pipeline: {json.dumps(b)}; host {os.cpu_count()} cpus; {smi}")
+
+    # 10 fed steps through train.cli (cuDNN deterministic, so that a
+    # resume can be held bitwise), a window of them profiled, then the
+    # run resumed from its step-7 checkpoint in a fresh workdir.
+    argv = ["--global_batch_size", str(IMAGENET_BATCH), "--warmup_steps", "5",
+            "--data_dir", root, "--input_workers", str(IMAGENET_WORKERS)]
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    first_span = len(spans.default_tracer().chrome_trace()["traceEvents"])
+    try:
+        workdir = os.path.join(tmp, "imagenet-fed")
+        p_start, p_num = IMAGENET_FED_PROFILE
+        run = cli_train(torch, counters, "imagenet",
+                        [*argv, "--train_steps", str(IMAGENET_FED_STEPS),
+                         "--checkpoint_every", str(IMAGENET_RESUME_STEP),
+                         "--profile_start_step", str(p_start),
+                         "--profile_num_steps", str(p_num)],
+                        workdir, IMAGENET_BATCH, smi, argv)
+        resumed_dir = os.path.join(tmp, "imagenet-fed-resumed")
+        src = os.path.join(workdir, "checkpoints", str(IMAGENET_RESUME_STEP))
+        shutil.copytree(src, os.path.join(resumed_dir, "checkpoints", str(IMAGENET_RESUME_STEP)))
+        run_cli(cli.main, ["--workload", "imagenet", *argv, "--train_steps",
+                           str(IMAGENET_FED_STEPS), "--workdir", resumed_dir,
+                           "--telemetry_sinks", "jsonl", "--log_every", "1",
+                           "--eval_every", "0"])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    if any(run["launches"].values()):
+        fail(f"imagenet (b): ResNet-50 launched a port kernel: {run['launches']}")
+    losses = window_metric(workdir, "train/loss")
+    again = window_metric(resumed_dir, "train/loss")
+    tail = range(IMAGENET_RESUME_STEP + 1, IMAGENET_FED_STEPS + 1)
+    final_a, _ = CheckpointManager(workdir).load_latest()
+    final_b, _ = CheckpointManager(resumed_dir).load_latest()
+    params_equal = all(torch.equal(v, final_b["params"][k]) for k, v in final_a["params"].items())
+    stats = final_a["model_state"]["batch_stats"]
+    b["resume"] = {"steps": list(tail), "uninterrupted": [losses[s] for s in tail],
+                   "resumed": [again.get(s) for s in tail], "final_params_bitwise": params_equal}
+    if [again.get(s) for s in tail] != [losses[s] for s in tail] or not params_equal:
+        fail(f"imagenet (b): the resume at step {IMAGENET_RESUME_STEP} is not the uninterrupted "
+             f"run: {b['resume']}")
+    if stats_moved(torch, stats) != len(stats):
+        fail("imagenet (b): a running statistic did not move")
+    del final_a, final_b, stats
+    step_s = window_metric(workdir, "train/step_time_s")
+    profiled = set(range(p_start + 1, p_start + p_num + 1))
+    timed_steps = [v for k, v in step_s.items() if k > 1 and k not in profiled]
+    lines = [json.loads(x) for x in open(os.path.join(workdir, "telemetry", "metrics.jsonl"))]
+    prof = [x for x in lines if x["kind"] == "final"][-1]["profile"]
+    b["fed"] = {"step_ms_p50": float(np.median(timed_steps)) * 1e3,
+                "steps_timed": len(timed_steps),
+                "examples_per_s": IMAGENET_BATCH / float(np.median(timed_steps)),
+                "losses": run["losses"], "peak_mem_gib": run["peak_mem_gib"],
+                **span_p50s(os.path.join(workdir, "telemetry", "trace.json"), first_span),
+                "profiled_steps": sorted(profiled),
+                "profile": profile_idle(prof["dir"], prof["wall_secs"]),
+                "cudnn": "deterministic, benchmark off"}
+    log(f"imagenet (b) fed: {json.dumps(b['fed'])}; resume {json.dumps(b['resume'])}; {smi}")
+    out["b"] = b
+
+    # (c') the eval over the padded validation shard: the run's final eval
+    # and train.eval's agree (cli_train), the pad rows under mask 0.
+    masks = [x["mask"] for x in imagenet.make_eval_iter(fed)]
+    pad = len(masks) * IMAGENET_BATCH - IMAGENET_SHARD_RECORDS
+    weight = sum(float(m.sum()) for m in masks)
+    out["c_shards"] = {"final": run["final"], "eval_cli": run["eval_cli"], "batches": len(masks),
+                       "weight": weight, "pad_rows": pad}
+    if weight != IMAGENET_SHARD_RECORDS or float(masks[-1][IMAGENET_BATCH - pad:].sum()) != 0 \
+            or not all(np.isfinite(v) for v in run["final"].values()):
+        fail(f"imagenet (c'): padded eval {out['c_shards']}")
+    log(f"imagenet (c') padded eval: {json.dumps(out['c_shards'])}")
+
+    # (g) the recipe's batch: 1024 as IMAGENET_ACCUM micro-batches of 256,
+    # IMAGENET_ACCUM_UPDATES applied updates, beside (e)'s one-step probe.
+    workdir_g = os.path.join(tmp, "imagenet-accum")
+    argv_g = [*argv, "--grad_accum_steps", str(IMAGENET_ACCUM)]
+    accum = cli_train(torch, counters, "imagenet",
+                      [*argv_g, "--train_steps", str(IMAGENET_ACCUM * IMAGENET_ACCUM_UPDATES)],
+                      workdir_g, IMAGENET_BATCH, smi, argv_g)
+    saved, step = CheckpointManager(workdir_g).load_latest()
+    stats = saved["model_state"]["batch_stats"]
+    moved = stats_moved(torch, stats)
+    recipe = probes[0]
+    out["g"] = {"global_batch": IMAGENET_ACCUM * IMAGENET_BATCH, "micro_batch": IMAGENET_BATCH,
+                "grad_accum_steps": IMAGENET_ACCUM, "micro_steps": step,
+                "updates": step // IMAGENET_ACCUM, "losses": accum["losses"],
+                "batch_stats_moved": f"{moved} of {len(stats)}",
+                "peak_mem_gib": accum["peak_mem_gib"], "micro_step_ms_p50": accum["step_ms_p50"],
+                "one_step_1024_probe": {k: recipe.get(k) for k in (
+                    "fits", "exit_reason", "peak_live_gib", "oom")}}
+    if step != IMAGENET_ACCUM * IMAGENET_ACCUM_UPDATES or moved != len(stats) \
+            or not all(np.isfinite(accum["losses"])):
+        fail(f"imagenet (g): {out['g']}")
+    log(f"imagenet (g) batch {IMAGENET_ACCUM * IMAGENET_BATCH} as {IMAGENET_ACCUM} x {IMAGENET_BATCH}: "
+        f"{json.dumps(out['g'])}; "
+        f"{smi}")
+    del saved, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_imagenet(torch, counters, smi: str, tmp: str, here: str) -> dict:
     """ResNet-50 on ImageNet at the ``ImagenetConfig`` defaults but the
     batch (``IMAGENET_BATCH``), 20 steps with warmup 5 and a shorter
@@ -4461,7 +4747,8 @@ def phase_imagenet(torch, counters, smi: str, tmp: str, here: str) -> dict:
     from tensorflow_examples_torch.workloads import imagenet
 
     t_phase = time.perf_counter()
-    cuts = {"global_batch_size": IMAGENET_BATCH, "train_steps": TRAIN_STEPS, "warmup_steps": 5,
+    cuts = {"global_batch_size": IMAGENET_BATCH, "train_steps": IMAGENET_SYNTHETIC_STEPS,
+            "warmup_steps": 5,
             "eval_batches": IMAGENET_EVAL_BATCHES}
     argv = [a for k, v in cuts.items() for a in (f"--{k}", str(v))]
     base = imagenet.ImagenetConfig(**cuts, telemetry_sinks="")
@@ -4481,9 +4768,8 @@ def phase_imagenet(torch, counters, smi: str, tmp: str, here: str) -> dict:
     lines = [json.loads(x) for x in open(os.path.join(workdir, "telemetry", "metrics.jsonl"))]
     saved, step = CheckpointManager(workdir).load_latest()
     stats = saved["model_state"]["batch_stats"]
-    moved = sum(not torch.equal(t, torch.zeros_like(t) if k.endswith("mean") else
-                                torch.ones_like(t)) for k, t in stats.items())
-    if step != TRAIN_STEPS or moved != len(stats):
+    moved = stats_moved(torch, stats)
+    if step != IMAGENET_SYNTHETIC_STEPS or moved != len(stats):
         fail(f"imagenet (a): {moved} of {len(stats)} running statistics moved by step {step}")
     run["batch_stats_moved"] = f"{moved} of {len(stats)}"
     if any(run["launches"].values()):
@@ -4568,11 +4854,16 @@ def phase_imagenet(torch, counters, smi: str, tmp: str, here: str) -> dict:
         fail(f"imagenet (e): global_batch_size {over['global_batch_size']} must end in "
              f"torch.OutOfMemoryError with the report before the traceback: {over}")
     log(f"imagenet (e) memory: {json.dumps(out['e'])}; {smi}")
+    out.update(imagenet_shards(torch, counters, smi, tmp, here, base, probes))
     out["phase_s"] = time.perf_counter() - t_phase
+    fed = out["b"]["fed"]
     log(f"imagenet: phase {out['phase_s']:.1f} s, step p50 {run['step_ms_p50']:.2f} ms "
         f"(synthetic stream), {run['repeated_batch_step_ms_p50']:.2f} ms (one batch repeated), "
-        f"peak {run['peak_mem_gib']:.2f} GiB, batch {recipe['global_batch_size']} "
-        f"{'fits' if recipe['fits'] else 'OOM'}; {smi}")
+        f"{fed['step_ms_p50']:.2f} ms (shards, {IMAGENET_WORKERS} workers, idle "
+        f"{fed['profile']['idle_share']:.1%}), peak {run['peak_mem_gib']:.2f} GiB, batch "
+        f"{recipe['global_batch_size']} {'fits' if recipe['fits'] else 'OOM'} in one step, "
+        f"{out['g']['micro_step_ms_p50']:.2f} ms a micro-step as {IMAGENET_ACCUM} x "
+        f"{IMAGENET_BATCH}; {smi}")
     return out
 
 
@@ -4996,14 +5287,14 @@ def main() -> int:
     from tensorflow_examples_torch.ops import (
         _build, attention, cross_entropy, decode, grouped_matmul, paged_decode)
 
-    phase_build(_build)
-    rows = phase_kernels(torch, decode, paged_decode, precision)
-    rows.update(phase_flash_kernels(torch, attention))
-    bert_rows = phase_bert_flash_kernels(torch, attention)
-    rows.update(phase_ce_kernels(torch, cross_entropy))
-    rows.update(phase_moe_kernels(torch, grouped_matmul))
-    for name, errs in phase_head_dim_sweep(torch, attention, decode, paged_decode,
-                                           precision).items():
+    timed("build", phase_build, _build)
+    rows = timed("kernels", phase_kernels, torch, decode, paged_decode, precision)
+    rows.update(timed("flash_kernels", phase_flash_kernels, torch, attention))
+    bert_rows = timed("bert_flash_kernels", phase_bert_flash_kernels, torch, attention)
+    rows.update(timed("ce_kernels", phase_ce_kernels, torch, cross_entropy))
+    rows.update(timed("moe_kernels", phase_moe_kernels, torch, grouped_matmul))
+    for name, errs in timed("head_dim_sweep", phase_head_dim_sweep, torch, attention, decode,
+                            paged_decode, precision).items():
         rows[name]["head_dim_sweep_max_abs_err"] = errs
 
     counters = {"flash_decode": decode.flash_decode_attention,
@@ -5018,30 +5309,32 @@ def main() -> int:
                 "group_row_sum": grouped_matmul.group_row_sum}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         workdir = os.path.join(tmp, "run")
-        training = phase_training(torch, counters, smi, workdir)
-        phase_resume(torch, smi, workdir, training)
-        phase_generate(torch, counters, workdir)
-        moe = phase_moe_training(torch, counters, grouped_matmul, smi, os.path.join(tmp, "moe"))
-        phase_moe_generate(torch, counters, grouped_matmul, os.path.join(tmp, "moe-init"))
-        phase_train_config(torch, counters, smi, tmp)
-        bert = phase_bert_glue(torch, counters, smi, tmp)
-        phase_cifar10(torch, counters, smi, tmp)
-        phase_mnist(torch, counters, smi, tmp)
-        phase_imagenet(torch, counters, smi, tmp, here)
+        training = timed("training", phase_training, torch, counters, smi, workdir)
+        timed("resume", phase_resume, torch, smi, workdir, training)
+        timed("generate", phase_generate, torch, counters, workdir)
+        moe = timed("moe_training", phase_moe_training, torch, counters, grouped_matmul, smi,
+                    os.path.join(tmp, "moe"))
+        timed("moe_generate", phase_moe_generate, torch, counters, grouped_matmul,
+              os.path.join(tmp, "moe-init"))
+        timed("train_config", phase_train_config, torch, counters, smi, tmp)
+        bert = timed("bert_glue", phase_bert_glue, torch, counters, smi, tmp)
+        timed("cifar10", phase_cifar10, torch, counters, smi, tmp)
+        timed("mnist", phase_mnist, torch, counters, smi, tmp)
+        timed("imagenet", phase_imagenet, torch, counters, smi, tmp, here)
 
     model_cfg = transformer.gpt2_124m()
     t0 = time.perf_counter()
     model = transformer.GPT2(model_cfg, seed=0).to("cuda")
     log(f"model: GPT-2 124M, {sum(p.numel() for p in model.parameters())} params, "
         f"random init seed 0, f32, built in {time.perf_counter() - t0:.3f} s")
-    summaries = phase_serving(torch, model, model_cfg, counters, smi)
-    replica = phase_replica(torch, model, model_cfg, counters, smi, here)
-    fleet = phase_fleet(torch, model, model_cfg, counters, smi, here)
-    sharded = phase_sharded_serving(torch, model, model_cfg, decode, paged_decode, precision, smi,
-                                    here)
+    summaries = timed("serving", phase_serving, torch, model, model_cfg, counters, smi)
+    replica = timed("replica", phase_replica, torch, model, model_cfg, counters, smi, here)
+    fleet = timed("fleet", phase_fleet, torch, model, model_cfg, counters, smi, here)
+    sharded = timed("sharded_serving", phase_sharded_serving, torch, model, model_cfg, decode,
+                    paged_decode, precision, smi, here)
     del model
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        mesh = phase_mesh(torch, here, smi, tmp)
+        mesh = timed("mesh", phase_mesh, torch, here, smi, tmp)
 
     for name in TRAIN_KERNELS:
         # The mesh path: every layout's launches, rank by rank.
@@ -5115,6 +5408,7 @@ def main() -> int:
                                    "sharded_launches_per_rank", "sharded_rank_shape")
                if k in row},
         })
+    log(json.dumps({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - T_START}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,16 +15,18 @@
   ``mask`` 0. Every batch is a pure function of (seed, step), so the
   stream is the same for any reader or worker count, and resuming at a
   step replays the uninterrupted stream from there.
-* ``decode_augment_batch`` is the JPEG stage: libjpeg decode, the ResNet
-  random-resized crop (train) or central 87.5% crop (eval), bilinear
-  resize, flip and normalize, in one threaded C++ call
-  (``native/fastjpeg.cpp`` through ``native.py``), each image's draws
-  from a splitmix64 stream keyed on (seed, step, row). Its plain version,
+* ``decode_augment_batch`` is the JPEG stage: the port's own JPEG
+  decoder (libjpeg-turbo's integer decode repeated, no libjpeg), the
+  ResNet random-resized crop (train) or central 87.5% crop (eval),
+  bilinear resize, flip and normalize, in one threaded C++ call
+  (``data/csrc/jpeg.cpp`` through ``native.py``, the stage of the
+  reference's ``native/fastjpeg.cpp``), each image's draws from a
+  splitmix64 stream keyed on (seed, step, row). Its plain version,
   ``_decode_crop_resize`` with the same draws (``_SplitMix64``,
   ``_mirror_crop``), decodes with PIL, imported inside the function: it
   is what the CPU tests hold the C++ stage to, and runs only on a
   machine without CUDA. On a CUDA machine the C++ stage is the only
-  decode, and its absence raises.
+  decode, and a failure to build or load it raises.
 
 The reference's ``tf.data`` streams (``tfrecord_iter``, its exact-resume
 and native variants) are not ported: the card has no TensorFlow. Shards
@@ -95,13 +97,13 @@ def synthetic_eval_iter(batch_size: int, *, image_size=224, num_classes=1000, se
 
 
 def _native_decode_enabled() -> bool:
-    """The C++ stage is used whenever it built, unless
+    """The port's C++ stage is used whenever it built, unless
     ``TFE_TPU_NATIVE_DECODE=0``."""
     if os.environ.get("TFE_TPU_NATIVE_DECODE", "1") == "0":
         return False
     from tensorflow_examples_torch import native
 
-    return native.available("fastjpeg")
+    return native.available("jpeg")
 
 
 def _image_seeds(seed: int, step: int, n: int) -> np.ndarray:
@@ -199,10 +201,10 @@ def decode_augment_reference(jpeg: bytes, *, train: bool, seed: int,
 def decode_augment_batch(jpegs: list, labels: list, *, train: bool, image_size: int, seed: int,
                          step: int, threads: int | None = None) -> dict:
     """One pipeline batch of JPEGs decoded, augmented and normalized;
-    deterministic given (seed, step, row). The C++ stage when it built
-    and is enabled; an undecodable row raises, naming the batch and rows.
-    Otherwise the plain PIL version with the same draws, on a machine
-    without CUDA only."""
+    deterministic given (seed, step, row). The port's C++ stage
+    (``data/csrc/jpeg.cpp``) when it built and is enabled; an undecodable
+    row raises, naming the batch and rows. Otherwise the plain PIL
+    version with the same draws, on a machine without CUDA only."""
     from tensorflow_examples_torch.data import augment as augment_mod
 
     n = len(jpegs)
@@ -222,9 +224,13 @@ def decode_augment_batch(jpegs: list, labels: list, *, train: bool, image_size: 
     import torch
 
     if torch.cuda.is_available():
+        from tensorflow_examples_torch import native
+
+        why = native.build_errors.get("jpeg", "TFE_TPU_NATIVE_DECODE=0")
         raise RuntimeError(
-            "the JPEG stage needs native/fastjpeg.cpp (libjpeg) on a CUDA machine: it did not "
-            "build or TFE_TPU_NATIVE_DECODE=0; the plain PIL decode runs only without CUDA")
+            "the JPEG stage needs the port's decoder (tensorflow_examples_torch/data/csrc/"
+            f"jpeg.cpp) on a CUDA machine, and it is not in use ({why}); the plain PIL decode "
+            "runs only without CUDA")
     raw = np.stack([_decode_crop_resize(j, train=train,
                                         seed=int(seeds[i]) if seeds is not None else 0,
                                         out_size=image_size)

@@ -14,7 +14,7 @@ three properties:
   pill a worker and joins them; it is idempotent, and ``shutdown_all``
   runs at interpreter exit, so no worker thread outlives the run.
 
-Threads, not processes: the decode (``libfastjpeg`` through ctypes)
+Threads, not processes: the JPEG stage (``data/csrc/jpeg.cpp`` through ctypes)
 releases the GIL. While a pool is open the interpreter's switch interval
 is 1 ms (restored when the last pool closes), since the pipeline lives
 on per-item hand-offs between threads. Workers time their work as

@@ -163,13 +163,18 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     # Installed first: a SIGTERM during the load and warm-up drains too.
     guard = PreemptionGuard().install()
+    # The process group is torn down before the interpreter exits: gloo's
+    # threads left to the exit abort the process ("terminate called
+    # without an active exception", exit -6) when a peer closes first.
     try:
         frontend = _start(args)
     except BaseException:
         guard.uninstall()
+        distributed.shutdown()
         raise
     if frontend is None:  # a rank that replayed rank 0's calls to the stop
         guard.uninstall()
+        distributed.shutdown()
         return 0
     try:
         return run_until_preempted(frontend, guard=guard)
@@ -177,6 +182,7 @@ def main(argv=None) -> int:
         driver = getattr(frontend.batcher.engine, "driver", None)
         if driver is not None:
             driver.stop()
+        distributed.shutdown()
 
 
 def _start(args) -> ServingFrontend | None:

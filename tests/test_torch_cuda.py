@@ -1430,6 +1430,48 @@ def test_resnet50_step_on_the_card_matches_the_cpu_step(dev):
                                    atol=2e-2 * max(float(t.abs().max()), 1e-6), msg=k)
 
 
+def test_resnet50_step_fed_by_the_ports_jpeg_decode(dev, tmp_path, monkeypatch):
+    """One ResNet-50 step on the card (224 px, batch 8, bf16) from a batch
+    the port's JPEG stage decodes from shards of
+    ``tests/data/imagenet_fixture.tfrecord`` with 2 decode workers: the
+    decoder builds on this machine and links no libjpeg, the batch equals
+    the inline decode's bit for bit, the loss is finite and every running
+    statistic moves."""
+    import os
+    import subprocess
+
+    from tensorflow_examples_torch import native
+    from tensorflow_examples_torch.data import sources
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import imagenet
+
+    monkeypatch.setenv("TFE_TPU_CACHE_DIR", str(tmp_path / "cache"))
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "imagenet_fixture.tfrecord")
+    recs = list(sources.iter_tfrecord_records(fixture, verify_crc=True))
+    root = tmp_path / "shards"
+    root.mkdir()
+    sources.write_tfrecord(str(root / "train-00000-of-00001"), recs[:16])
+    cfg = _imagenet_cfg(data_dir=str(root), input_workers=2)
+    it = imagenet.make_train_iter(cfg, 0)
+    batch = next(it)
+    it.close()
+    inline = next(imagenet.make_train_iter(cfg.replace(input_workers=0), 0))
+    assert native.available("jpeg"), native.build_errors
+    needed = subprocess.run(["ldd", native.jpeg_library_path()], capture_output=True,
+                            text=True).stdout
+    assert "libjpeg" not in needed, needed
+    assert batch["image"].shape == (8, 224, 224, 3)
+    for k in batch:
+        np.testing.assert_array_equal(batch[k], inline[k], err_msg=k)
+    trainer = Trainer(imagenet.make_task(cfg), cfg)
+    before = {k: t.clone() for k, t in trainer.state.model_state["batch_stats"].items()}
+    metrics = trainer.train_step(batch)
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["bad_step"]) == 0.0
+    after = trainer.state.model_state["batch_stats"]
+    assert all(not torch.equal(after[k], t) for k, t in before.items())
+
+
 # ------------------------------------------------ sharded serving, one card
 
 SHARDED_MODEL = dict(vocab_size=211, max_len=64, num_layers=2, num_heads=4, d_model=64)

@@ -6,11 +6,12 @@
   JPEGs from 256 x 320 to 500 x 375, written by
   ``tests/data/make_imagenet_fixture.py``): the crop draws
   (``_mirror_crop``) and the plain PIL decode equal the reference's; the
-  native stage (``native/fastjpeg.cpp``) through the port's binding
-  equals it through the reference's, exactly, and lies within
-  ``2.5 / 255 / 0.22`` (about 2.5 uint8 counts, normalized) of the plain
-  decode where the crop takes the full-size decode, and close to it
-  where it takes the DCT-scaled one; an undecodable row raises in both.
+  port's stage (``data/csrc/jpeg.cpp``) lies within ``2.5 / 255 / 0.22``
+  (about 2.5 uint8 counts, normalized) of the plain decode where the
+  crop takes the full-size decode, and close to it where it takes the
+  DCT-scaled one; ``native/fastjpeg.cpp`` through the port's binding
+  equals it through the reference's, exactly; an undecodable row raises
+  in both. (``tests/test_torch_jpeg.py`` holds the decoder itself.)
 * ``parallel_tfrecord_iter`` over shards written from the fixture: the
   reference's batches, bit for bit, for train with 0 and 2 workers and
   1 and 2 readers across an epoch boundary, resumed mid-epoch, and for
@@ -123,16 +124,17 @@ def test_plain_decode_equals_the_reference(train):
 
 @pytest.mark.parametrize("train", [True, False])
 def test_native_stage_equals_the_reference_and_the_plain_decode(train):
-    assert native.available("fastjpeg")
+    assert native.available("jpeg") and native.available("fastjpeg")
     pairs = fixture_jpegs()[:8]
     jpegs = [j for j, _ in pairs]
     seeds = imagenet._image_seeds(11, 3, len(jpegs))
     kw = dict(train=train, seeds=seeds, mean=imagenet.MEAN_RGB, std=imagenet.STDDEV_RGB)
     # 224 px: every crop of these images is under 448, the full-size decode.
     ours, ok = native.decode_augment_batch(jpegs, out_size=224, **kw)
+    bound, ok_bound = native.decode_augment_batch(jpegs, out_size=224, library="fastjpeg", **kw)
     theirs, ok_ref = jax_native.decode_augment_batch(jpegs, out_size=224, **kw)
-    assert ok.all() and ok_ref.all()
-    np.testing.assert_array_equal(ours, theirs)
+    assert ok.all() and ok_bound.all() and ok_ref.all()
+    np.testing.assert_array_equal(bound, theirs)
     for i, j in enumerate(jpegs):
         ref = imagenet.decode_augment_reference(j, train=train, seed=int(seeds[i]), out_size=224)
         np.testing.assert_allclose(ours[i], ref, atol=NORMALIZED_ATOL, err_msg=f"image {i}")
@@ -226,7 +228,7 @@ def test_plain_decode_stream_equals_the_reference(tmp_path, monkeypatch):
 def test_plain_decode_is_refused_where_cuda_is(monkeypatch):
     monkeypatch.setenv("TFE_TPU_NATIVE_DECODE", "0")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(RuntimeError, match="fastjpeg"):
+    with pytest.raises(RuntimeError, match="the port's decoder"):
         imagenet.decode_augment_batch([fixture_jpegs()[0][0]], [0], train=True, image_size=16,
                                       seed=0, step=0)
 
@@ -308,6 +310,45 @@ def test_five_step_trajectory_batch_stats_and_eval_match_jax_trainer():
     for k in ours_eval:
         np.testing.assert_allclose(ours_eval[k], theirs_eval[k], rtol=3e-3, atol=1e-6,
                                    err_msg=k)
+
+
+@pytest.mark.timeout(240)
+def test_grad_accum_with_batch_stats_matches_jax_trainer():
+    """The recipe's batch on one card is ``grad_accum_steps`` micro-batches:
+    BatchNorm normalizes by each micro-batch and its running statistics
+    move on every micro-step, while the optimizer applies the mean
+    gradient every ``grad_accum_steps``-th one, in both packages."""
+    jax_cfg, cfg = tiny_configs(grad_accum_steps=2)
+    sc = ShardingConfig(mesh={"data": 1})
+    mesh = sc.build_mesh()
+    jt = jax_loop.Trainer(jax_workload.make_task(jax_cfg, mesh=mesh), jax_cfg, mesh=mesh,
+                          sharding=sc)
+    init = jax.tree.map(np.asarray, jt.state.params)
+    trainer = Trainer(workload.make_task(cfg), cfg, init_params=init)
+    state = jt.state
+    prev = {k.replace("/", "."): v for k, v in convert.flatten_tree(init).items()}
+    for step in range(4):
+        b = next(workload.make_train_iter(cfg, step))
+        state, _ = jt._train_step(state, jt._put_batch(b))
+        trainer.train_step(b)
+        theirs = {"params": convert.flatten_tree(jax.tree.map(np.asarray, state.params)),
+                  **{c: convert.flatten_tree(jax.tree.map(np.asarray, tree), f"{c}/")
+                     for c, tree in state.model_state.items()}}
+        ours = {"params": {k: t.numpy() for k, t in trainer.state.params.items()},
+                **{c: {f"{c}/{k}": t.numpy() for k, t in tree.items()}
+                   for c, tree in trainer.state.model_state.items()}}
+        assert ours.keys() == theirs.keys()
+        for c in theirs:
+            key = (lambda k: k.replace("/", ".")) if c == "params" else _dotted
+            assert set(ours[c]) == {key(k) for k in theirs[c]}, c
+            for k, t in theirs[c].items():
+                np.testing.assert_allclose(ours[c][key(k)], t, rtol=3e-3, atol=1e-5,
+                                           err_msg=f"{k} after micro-step {step}")
+        # An even micro-step only accumulates; the first update (micro-step
+        # 1) runs at the warmup's learning rate 0, the second moves them.
+        moved = sum(not np.array_equal(v, prev[k]) for k, v in ours["params"].items())
+        assert (moved > 0) == (step == 3), f"{moved} params moved at micro-step {step}"
+        prev = ours["params"]
 
 
 def test_workload_streams_route_by_data_dir(tmp_path):
