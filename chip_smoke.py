@@ -259,7 +259,10 @@ non-zero:
    strict SLO config: ``slowrep@1:0.05`` on replica 1, replica 0 drained
    for a burst of 12 requests, makes the e2e burn-rate rule fire, the alert is read back by ``read_alerts`` and the router's line
    carries ``alerts_firing``, ``error_budget_remaining`` and
-   ``probe_success_rate``; (g) ``python -m
+   ``probe_success_rate``, and ``python -m
+   tensorflow_examples_torch.slo_watch URL --once`` exits 1 while the
+   alert fires and 0 after it clears (the alert engine's clock moved
+   past its windows and ``resolve_after_s``); (g) ``python -m
    tensorflow_examples_torch.serve_fleet`` spawning two supervised
    ``python -m tensorflow_examples_torch.serve`` processes (2 layers):
    one is ``kill -9``'d, restarted and readmitted, the tokens unchanged,
@@ -279,7 +282,20 @@ non-zero:
    paged a decode step), the decode step's host wall, device time and psum
    share a rank against the one-rank engine's; rows 6 and 7 at a rank's
    shape (H 6: flash-decode at q_len 512, paged decode S 8 ragged and
-   full, fp32 and int8) against their plain versions; and the serve CLI
+   full, fp32 and int8) against their plain versions; ``paged_flash``
+   again on ``{fsdp: 2}`` (12 heads a rank, every fsdp-cut weight
+   gathered through the host at each use), held to one rank the same way,
+   unwarmed (each step gathers every weight), with the decode step's
+   gather share; the KV-page hand-off each way
+   between ``{model: 2}`` and one rank in ``paged_flash`` f32 and int8
+   (a sharded prefill engine exports the 8 requests, its heads gathered
+   over ``model``, and a one-rank decode engine imports and decodes them;
+   a one-rank prefill engine's pages go to a sharded decode engine, each
+   rank sent its heads): the sharded pages within 1e-4 of one rank's
+   (int8 within one level), every stream held to the one-rank mixed
+   engine's, 12 flash-decode launches a prefill and 12 paged a decode
+   step on each rank, and the export and import host ms (rank 0 against
+   one rank) and payload MB printed; and the serve CLI
    under ``torchrun --nproc_per_node 2`` on a ``{model: 2}`` workdir (2
    layers): ``/health`` carries the mesh and the digest, a ``/generate``
    equals a one-rank engine's tokens, SIGTERM drains rank 0 and both
@@ -292,8 +308,8 @@ non-zero:
    ring and over Ulysses, and a world of 4 runs ``{data: 2, model: 2}``:
    each layout's 4-step f32 trajectory (dropout 0) within rtol 3e-3 of
    the one-rank run of the same config, ZeRO-1 within 1e-6 of ``{data:
-   2}`` with fewer optimizer bytes a rank, the ranks' losses equal, bf16
-   step p50 per rank, and the launches of flash forward, dK/dV, dQ and
+   2}`` with fewer optimizer bytes a rank, the ranks' losses equal, the
+   second of 2 bf16 steps timed per rank, and the launches of flash forward, dK/dV, dQ and
    the CE forward and backward counted on every rank (each launched on
    every rank); ``train.cli`` under torchrun on ``{data: 2}``, its
    checkpoint restored on ``{model: 2}`` and gathered back bit for bit,
@@ -3375,7 +3391,8 @@ def fleet_chaos(model, model_cfg, rng, smi, tmp) -> dict:
             alerts = slo.read_alerts(alerts_path)
             if serving["alerts_firing"] < 1 or not any(a["state"] == "firing" for a in alerts):
                 fail(f"fleet (f): no burn-rate alert fired under slowrep: {serving}, {alerts}")
-            out["slo"] = {"probes_ok": sum(probes), "probes": len(probes),
+            watch = slo_watch_exits(front.url(""), router.alerts, strict)
+            out["slo"] = {"probes_ok": sum(probes), "probes": len(probes), "slo_watch": watch,
                           "alerts": [(a["name"], a["state"], a.get("value")) for a in alerts],
                           "serving": {k: serving[k] for k in ("alerts_firing",
                                                               "error_budget_remaining",
@@ -3389,6 +3406,32 @@ def fleet_chaos(model, model_cfg, rng, smi, tmp) -> dict:
         fleet.close()
     log(f"fleet (d)-(f): {json.dumps(out)}; {smi}")
     return out
+
+
+def slo_watch_exits(url: str, alerts, cfg) -> dict:
+    """``python -m tensorflow_examples_torch.slo_watch URL --once`` while
+    the router's alert fires (exit 1), and after it clears (exit 0): the
+    alert engine's clock moved past the slow window, then past
+    ``resolve_after_s`` more, evaluated at each."""
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def watch() -> tuple[int, str]:
+        p = subprocess.run([sys.executable, "-m", "tensorflow_examples_torch.slo_watch", url,
+                            "--once"], cwd=here, capture_output=True, text=True, timeout=120)
+        return p.returncode, p.stdout
+
+    firing = watch()
+    clock, ahead = alerts._now, max(cfg.windows_s) + 1.0
+    for shift in (ahead, ahead + cfg.resolve_after_s):
+        alerts._now = lambda shift=shift: clock() + shift
+        alerts.evaluate()
+    cleared = watch()
+    if firing[0] != 1 or "FIRING" not in firing[1] or cleared[0] != 0 \
+            or "FIRING" in cleared[1]:
+        fail(f"fleet (f): slo_watch --once exited {firing[0]} while firing and {cleared[0]} "
+             f"after the alert cleared (want 1 and 0): {firing[1]!r} / {cleared[1]!r}")
+    return {"exit_firing": firing[0], "exit_cleared": cleared[0],
+            "firing_lines": firing[1].splitlines()[1:]}
 
 
 def fleet_cli(here: str, model_cfg, rng, smi) -> dict:
@@ -3495,6 +3538,19 @@ SHARDED_STEPS = 8            # decode steps in each timed window
 SHARDED_HEADS = 6            # a rank's heads: GPT-2's 12 over model 2
 SHARDED_PROBE_LEN = 100      # the prefill whose logits are held to one rank's
 SHARDED_CLI_LAYERS = 2       # the torchrun serve CLI's depth cut
+SHARDED_FSDP_STEPS = 2       # {fsdp: 2}'s timed decode steps: each gathers every cut weight
+# The sharded world's configs (name, mesh, ServeConfig fields, the one-rank
+# config held to, decode steps timed, whether to warm the ladder first):
+# SHARDED_CONFIGS on {model: 2}, then paged_flash on {fsdp: 2}, 12 heads a
+# rank and every fsdp-cut weight gathered through the host at each use
+# (its 19-rung warmup would cost ~11 s of gathers on the card).
+SHARDED_WORLD = tuple((name, {"model": 2}, kw, name, SHARDED_STEPS, True)
+                      for name, kw in SHARDED_CONFIGS) + (
+    ("fsdp_paged_flash", {"fsdp": 2}, dict(SHARDED_CONFIGS)["paged_flash"], "paged_flash",
+     SHARDED_FSDP_STEPS, False),)
+# The KV-page hand-off between {model: 2} and one rank, each way: (label,
+# the one-rank config it runs and is held to).
+SHARDED_HANDOFF = (("f32", "paged_flash"), ("int8", "paged_flash_int8"))
 # A rank's measurement windows, filled by the sharded_* functions that
 # rank 0 runs on every rank through MeshDriver.run.
 _WINDOW: dict = {}
@@ -3507,20 +3563,23 @@ def sharded_counters() -> dict:
             "paged_decode": paged_decode.paged_decode_attention}
 
 
-def time_all_reduces(coll) -> None:
-    """Add the host seconds of every ``model`` psum (``_all_reduce``: over
-    gloo, the copy to pinned host memory, which waits for the operand,
-    the reduce and the copy back) to ``_WINDOW["collective_s"]``."""
-    inner = coll._all_reduce
+def time_collectives(coll) -> None:
+    """Add the host seconds of every psum (``_all_reduce``: over gloo, the
+    copy to pinned host memory, which waits for the operand, the reduce
+    and the copy back) to ``_WINDOW["collective_s"]``, and of every
+    all-gather (``_all_gather``: an fsdp weight before use, the pages'
+    heads) to ``_WINDOW["gather_s"]``."""
+    for name, key in (("_all_reduce", "collective_s"), ("_all_gather", "gather_s")):
+        inner = getattr(coll, name)
 
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return inner(*args, **kwargs)
-        finally:
-            _WINDOW["collective_s"] = _WINDOW.get("collective_s", 0.0) + time.perf_counter() - t0
+        def timed(*args, _inner=inner, _key=key, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _inner(*args, **kwargs)
+            finally:
+                _WINDOW[_key] = _WINDOW.get(_key, 0.0) + time.perf_counter() - t0
 
-    coll._all_reduce = timed
+        setattr(coll, name, timed)
 
 
 def _decode_steps(engine) -> int:
@@ -3532,7 +3591,8 @@ def sharded_window_start(engine) -> None:
 
     torch.cuda.synchronize()
     reset_counts(sharded_counters())
-    _WINDOW.update(collective_s=0.0, steps0=_decode_steps(engine), t0=time.perf_counter())
+    _WINDOW.update(collective_s=0.0, gather_s=0.0, steps0=_decode_steps(engine),
+                   t0=time.perf_counter())
 
 
 def sharded_window_end(engine, name: str) -> None:
@@ -3542,7 +3602,8 @@ def sharded_window_end(engine, name: str) -> None:
     _WINDOW.setdefault("windows", {})[name] = {
         "launches": {k: c.launches for k, c in sharded_counters().items()},
         "decode_steps": _decode_steps(engine) - _WINDOW["steps0"],
-        "wall_s": time.perf_counter() - _WINDOW["t0"], "collective_s": _WINDOW["collective_s"]}
+        "wall_s": time.perf_counter() - _WINDOW["t0"], "collective_s": _WINDOW["collective_s"],
+        "gather_s": _WINDOW["gather_s"]}
 
 
 def sharded_profile_start(engine) -> None:
@@ -3595,20 +3656,22 @@ def batcher_streams(engine, bodies) -> list[list[int]]:
         batcher.close()
 
 
-def sharded_drive(engine, run, bodies, probe) -> dict:
+def sharded_drive(engine, run, bodies, probe, steps: int = SHARDED_STEPS,
+                  warm: bool = True) -> dict:
     """What phase 5i measures of one engine, the same calls on one rank
     and on the mesh (where ``engine`` is rank 0's leader and ``run``
-    publishes a measurement function to every rank): the warmup, the
-    requests through the batcher in a counted window, one prefill of
-    ``probe`` in another (its logits returned), and SHARDED_STEPS decode
-    steps over every request's slot timed (host wall) and, in a second
-    run, profiled."""
+    publishes a measurement function to every rank): the warmup (unless
+    ``warm`` is False), the requests through the batcher in a counted
+    window, one prefill of ``probe`` in another (its logits returned),
+    and ``steps`` decode steps over every request's slot timed (host
+    wall) and, in a second run, profiled."""
     import torch
 
-    out = {}
-    t0 = time.perf_counter()
-    engine.warmup()
-    out["warmup_s"] = time.perf_counter() - t0
+    out = {"warmup_s": None}
+    if warm:
+        t0 = time.perf_counter()
+        engine.warmup()
+        out["warmup_s"] = time.perf_counter() - t0
     run(sharded_window_start)
     out["streams"] = batcher_streams(engine, bodies)
     run(sharded_window_end, "serve")
@@ -3620,33 +3683,89 @@ def sharded_drive(engine, run, bodies, probe) -> dict:
     slots = [engine.pool.alloc() for _ in bodies]
     entries = [[s, engine.prefill(s, b["prompt"])[0], 0, 0.0, 0] for s, b in zip(slots, bodies)]
 
-    def steps(n):
+    def decode_steps(n):
         for _ in range(n):
             toks = engine.decode([tuple(e) for e in entries])
             for e in entries:
                 e[1] = toks[e[0]]
 
-    steps(2)
+    decode_steps(2)
     run(sharded_window_start)
     t0 = time.perf_counter()
-    steps(SHARDED_STEPS)
+    decode_steps(steps)
     torch.cuda.synchronize()
-    out["decode_wall_ms"] = (time.perf_counter() - t0) * 1e3 / SHARDED_STEPS
+    out["decode_wall_ms"] = (time.perf_counter() - t0) * 1e3 / steps
     run(sharded_window_end, "decode")
     run(sharded_profile_start)
-    steps(SHARDED_STEPS)
-    run(sharded_profile_end, SHARDED_STEPS)
+    decode_steps(steps)
+    run(sharded_profile_end, steps)
     for s in slots:
         engine.pool.free(s)
     out["post_warmup_recompiles"] = engine.post_warmup_recompiles()
     return out
 
 
-def sharded_worker(rank: int, model_kw: dict, bodies, probe) -> dict:
-    """One rank of the {model: 2} world: GPT-2 124M from seed 0, each
-    config's sharded engine (eager: its collectives are staged through
-    host memory), rank 0 leading :func:`sharded_drive`, rank 1 replaying
-    it; each rank's windows, profile and pool host state."""
+def handoff_export(engine, run, bodies) -> dict:
+    """Prefill every request and export its pages, the prefills in a
+    counted window: each request's (first token, payload) and each
+    export's host ms (the gather over ``model``, the host copy, base64)."""
+    import torch
+
+    out = {"handoffs": [], "export_ms": []}
+    run(sharded_window_start)
+    for b in bodies:
+        slot = engine.pool.alloc()
+        first, _ = engine.prefill(slot, b["prompt"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pages = engine.export_kv_pages(slot, b["prompt"])
+        out["export_ms"].append((time.perf_counter() - t0) * 1e3)
+        engine.pool.free(slot)
+        out["handoffs"].append((first, pages))
+    run(sharded_window_end, "handoff_prefill")
+    return out
+
+
+def handoff_import(engine, run, bodies, handoffs) -> dict:
+    """Import every request's pages into a slot of its own (each import's
+    host ms: decode, checks, the heads sent to each rank and written on
+    the card), then decode all of them SHARDED_NEW - 1 steps in a counted
+    window: each request's stream, its first token the prefill's."""
+    import torch
+
+    out = {"import_ms": []}
+    entries = []
+    for b, (first, pages) in zip(bodies, handoffs):
+        slot = engine.pool.alloc()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.import_kv_pages(slot, pages, b["prompt"])
+        torch.cuda.synchronize()
+        out["import_ms"].append((time.perf_counter() - t0) * 1e3)
+        entries.append([slot, int(first), 0, 0.0, 0])
+    streams = {e[0]: [e[1]] for e in entries}
+    run(sharded_window_start)
+    for _ in range(SHARDED_NEW - 1):
+        toks = engine.decode([tuple(e) for e in entries])
+        for e in entries:
+            e[1] = toks[e[0]]
+            streams[e[0]].append(e[1])
+    run(sharded_window_end, "handoff_decode")
+    for e in entries:
+        engine.pool.free(e[0])
+    out["streams"] = [streams[e[0]] for e in entries]
+    return out
+
+
+def sharded_worker(rank: int, model_kw: dict, bodies, probe, one_rank_handoffs) -> dict:
+    """One rank of the world of 2: GPT-2 124M from seed 0, each
+    SHARDED_WORLD config's sharded engine (eager: its collectives are
+    staged through host memory), rank 0 leading :func:`sharded_drive`,
+    rank 1 replaying it; then, on {model: 2}, for each KV dtype a prefill
+    engine exporting every request (:func:`handoff_export`) and a decode
+    engine importing one rank's pages and decoding them
+    (:func:`handoff_import`). Each rank's windows, profile, replayed calls
+    and pool host state."""
     import torch
 
     from tensorflow_examples_torch.core import collectives as coll
@@ -3656,30 +3775,45 @@ def sharded_worker(rank: int, model_kw: dict, bodies, probe) -> dict:
     from tensorflow_examples_torch.sharding import ShardingConfig
     from tensorflow_examples_torch.telemetry.registry import MetricsRegistry
 
-    time_all_reduces(coll)
+    time_collectives(coll)
     model_cfg = transformer.TransformerConfig(**model_kw)
     model = transformer.GPT2(model_cfg, seed=0)
-    sc = ShardingConfig(mesh={"model": 2})
-    out = {"backend": torch.distributed.get_backend(), "configs": {}}
-    for name, kw in SHARDED_CONFIGS:
-        engine = InferenceEngine(model_cfg, model, cfg=ServeConfig(max_slots=8, **kw),
-                                 registry=MetricsRegistry(), sharding=sc, cuda_graphs=False)
+    out = {"backend": torch.distributed.get_backend(), "configs": {}, "handoff": {}}
+
+    def lead_or_follow(engine, drive) -> dict:
         driver = MeshDriver()
         _WINDOW.clear()
-        res = {"heads": int(engine.pool.k.shape[2]), "digest": engine.param_sharding_digest}
+        res = {"heads": engine.local_heads, "digest": engine.param_sharding_digest}
         if rank == 0:
-            lead = driver.leader(engine)
-            res.update(sharded_drive(lead, lambda fn, *a: driver.run(engine, fn, *a), bodies,
-                                     probe))
+            res.update(drive(driver.leader(engine), lambda fn, *a: driver.run(engine, fn, *a)))
             driver.stop()
             res.update(published=driver.calls, publish_s=driver.publish_s)
         else:
             res["replayed"] = driver.follow(engine)
             res["post_warmup_recompiles"] = engine.post_warmup_recompiles()
-        res.update(windows=_WINDOW["windows"], profile=_WINDOW["profile"],
+        res.update(windows=_WINDOW["windows"], profile=_WINDOW.get("profile"),
                    host_state=engine.pool.host_state())
-        out["configs"][name] = res
-        del engine, driver
+        return res
+
+    def engine_on(mesh, **kw):
+        return InferenceEngine(model_cfg, model, cfg=ServeConfig(max_slots=8, **kw),
+                               registry=MetricsRegistry(), sharding=ShardingConfig(mesh=mesh),
+                               cuda_graphs=False)
+
+    for name, mesh, kw, _, steps, warm in SHARDED_WORLD:
+        out["configs"][name] = lead_or_follow(
+            engine_on(mesh, **kw),
+            lambda lead, run: sharded_drive(lead, run, bodies, probe, steps, warm))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, ref_name in SHARDED_HANDOFF:
+        kw = dict(SHARDED_CONFIGS)[ref_name]
+        out["handoff"][f"{label}/prefill"] = lead_or_follow(
+            engine_on({"model": 2}, role="prefill", **kw),
+            lambda lead, run: handoff_export(lead, run, bodies))
+        out["handoff"][f"{label}/decode"] = lead_or_follow(
+            engine_on({"model": 2}, role="decode", **kw),
+            lambda lead, run: handoff_import(lead, run, bodies, one_rank_handoffs[label]))
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -3859,15 +3993,61 @@ def sharded_cli(torch, here: str, model_cfg, smi: str) -> dict:
     return out
 
 
+def handoff_pages_err(ours: dict, theirs: dict) -> dict:
+    """Two payloads of one prompt: whether their meta agrees, the f32
+    pages' max abs difference, the int8 pages' max level difference and
+    the scales' max relative difference."""
+    import torch
+
+    from tensorflow_examples_torch.serving import scheduler
+
+    meta = lambda p: {k: v for k, v in p.items() if k != "arrays"}
+    _, a = scheduler.decode_pages(ours)
+    _, b = scheduler.decode_pages(theirs)
+    out = {"meta_equal": meta(ours) == meta(theirs) and sorted(a) == sorted(b)}
+    for name in sorted(a):
+        x, y = a[name].double(), b[name].double()
+        if x.shape != y.shape:
+            out["meta_equal"] = False
+            continue
+        key = ("scale_rel" if name.endswith("scale") else
+               "int8_levels" if a[name].dtype == torch.int8 else "f32_abs")
+        diff = float(((x - y).abs() / y.abs().clamp_min(1e-30)).max() if key == "scale_rel"
+                     else (x - y).abs().max())
+        out[key] = max(out.get(key, 0.0), diff)
+    return out
+
+
+def held_streams(torch, what: str, engine, bodies, streams, refs) -> dict:
+    """Each stream against the one-rank engine's with :func:`stream_verdict`
+    (``engine`` gives the reference logits): exact and near-tie counts."""
+    exact = ties = 0
+    for body, served, want in zip(bodies, streams, refs):
+        verdict = stream_verdict(torch, engine, body["prompt"], served, want)
+        if verdict == "exact":
+            exact += 1
+        elif verdict[0] == "tie":
+            ties += 1
+        else:
+            fail(f"sharded{what} prompt_len={len(body['prompt'])}: stream {served} differs "
+                 f"from the one-rank engine's {want} at token {verdict[1]} (top-2 gap "
+                 f"{verdict[2]})")
+    return {"exact_streams": exact, "near_tie_streams": ties}
+
+
 def phase_sharded_serving(torch, model, model_cfg, decode, paged, precision, smi: str,
                           here: str) -> dict:
-    """GPT-2 124M served on {model: 2} by two ranks sharing the card (gloo,
-    host-staged psums, eager rungs), against the one-rank eager engine on
-    the same weights: streams (a near-tie allowed), one prefill's logits
-    (1e-4), each rank's launches of rows 6 and 7 (12 flash-decode a
-    prefill, 12 paged a decode step), the decode step's host wall, device
-    time and psum share a rank; rows 6-7 at a rank's shape; the serve CLI
-    under torchrun."""
+    """GPT-2 124M served on {model: 2} and on {fsdp: 2} by two ranks
+    sharing the card (gloo, host-staged collectives, eager rungs),
+    against the one-rank eager engine on the same weights: streams (a
+    near-tie allowed), one prefill's logits (1e-4), each rank's launches
+    of rows 6 and 7 (12 flash-decode a prefill, 12 paged a decode step),
+    the decode step's host wall, device time and psum and gather shares a
+    rank; the KV-page hand-off each way between {model: 2} and one rank,
+    f32 and int8 KV (the sharded export's pages held to one rank's, every
+    stream to the one-rank mixed engine's, each leg's launches per rank,
+    the export and import host ms and the payload MB); rows 6-7 at a
+    rank's shape; the serve CLI under torchrun."""
     from tensorflow_examples_torch.core import distributed
     from tensorflow_examples_torch.serving.engine import InferenceEngine, ServeConfig
     from tensorflow_examples_torch.telemetry.registry import MetricsRegistry
@@ -3878,38 +4058,46 @@ def phase_sharded_serving(torch, model, model_cfg, decode, paged, precision, smi
     bodies = sharded_requests(model_cfg.vocab_size)
     probe = [int(t) for t in np.random.default_rng(43).integers(0, model_cfg.vocab_size,
                                                                 SHARDED_PROBE_LEN)]
+
+    def one_rank_engine(**kw):
+        return InferenceEngine(model_cfg, model, cfg=ServeConfig(max_slots=8, **kw),
+                               registry=MetricsRegistry(), cuda_graphs=False)
+
     one_rank = {}
     for name, kw in SHARDED_CONFIGS:
-        engine = InferenceEngine(model_cfg, model, cfg=ServeConfig(max_slots=8, **kw),
-                                 registry=MetricsRegistry(), cuda_graphs=False)
+        engine = one_rank_engine(**kw)
         _WINDOW.clear()
         res = sharded_drive(engine, lambda fn, *a: fn(engine, *a), bodies, probe)
-        res.update(windows=_WINDOW["windows"], profile=_WINDOW["profile"], engine=engine)
+        res.update(windows=_WINDOW["windows"], profile=_WINDOW["profile"])
         one_rank[name] = res
+        del engine
+    one_handoffs = {}
+    for label, ref_name in SHARDED_HANDOFF:
+        engine = one_rank_engine(role="prefill", **dict(SHARDED_CONFIGS)[ref_name])
+        _WINDOW.clear()
+        one_handoffs[label] = handoff_export(engine, lambda fn, *a: fn(engine, *a), bodies)
+        one_handoffs[label]["windows"] = _WINDOW["windows"]
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     model_kw = {f: getattr(model_cfg, f) for f in ("vocab_size", "max_len", "num_layers",
                                                    "num_heads", "d_model")}
     t0 = time.perf_counter()
-    ranks = distributed.run_world(sharded_worker, 2, model_kw, bodies, probe, device="cuda",
-                                  timeout_s=600)
+    ranks = distributed.run_world(
+        sharded_worker, 2, model_kw, bodies, probe,
+        {label: h["handoffs"] for label, h in one_handoffs.items()}, device="cuda",
+        timeout_s=900)
     world_s = time.perf_counter() - t0
-    out = {"configs": {}, "kernel_rows": kernel_rows, "world_s": world_s, "card": smi}
+    out = {"configs": {}, "handoff": {}, "kernel_rows": kernel_rows, "world_s": world_s,
+           "card": smi}
     launches = {"flash_decode": [0, 0], "paged_decode": [0, 0]}
-    for name, kw in SHARDED_CONFIGS:
-        ref = one_rank[name]
-        engine = ref.pop("engine")
+    verdict_engine = one_rank_engine()  # reference_logits only
+    for name, mesh, kw, ref_name, steps, _ in SHARDED_WORLD:
+        ref = one_rank[ref_name]
         per_rank = [r["configs"][name] for r in ranks]
         lead = per_rank[0]
-        exact = ties = 0
-        for body, served, want in zip(bodies, lead["streams"], ref["streams"]):
-            verdict = stream_verdict(torch, engine, body["prompt"], served, want)
-            if verdict == "exact":
-                exact += 1
-            elif verdict[0] == "tie":
-                ties += 1
-            else:
-                fail(f"sharded[{name}] prompt_len={len(body['prompt'])}: stream differs from "
-                     f"the one-rank engine's at token {verdict[1]} (top-2 gap {verdict[2]})")
-        del engine
+        row = held_streams(torch, f"[{name}] served", verdict_engine, bodies,
+                                    lead["streams"], ref["streams"])
         logit_err = float(np.abs(lead["probe_logits"] - ref["probe_logits"]).max())
         if not logit_err <= 1e-4:
             fail(f"sharded[{name}]: prefill logits {logit_err:.3e} from one rank's (> 1e-4)")
@@ -3918,7 +4106,8 @@ def phase_sharded_serving(torch, model, model_cfg, decode, paged, precision, smi
         if per_rank[1]["replayed"] != lead["published"]:
             fail(f"sharded[{name}]: rank 1 replayed {per_rank[1]['replayed']} of "
                  f"{lead['published']} calls")
-        if any(r["heads"] != SHARDED_HEADS for r in per_rank) or \
+        heads = model_cfg.num_heads // mesh.get("model", 1)
+        if any(r["heads"] != heads for r in per_rank) or \
                 any(r["post_warmup_recompiles"] != 0 for r in per_rank) or \
                 lead["digest"] != per_rank[1]["digest"]:
             fail(f"sharded[{name}]: heads, recompiles or digest: "
@@ -3929,7 +4118,7 @@ def phase_sharded_serving(torch, model, model_cfg, decode, paged, precision, smi
             want = {
                 "prefill": {"flash_decode": layers, "paged_decode": 0},
                 "decode": {"flash_decode": 0,
-                           "paged_decode": layers * SHARDED_STEPS if paged_route else 0},
+                           "paged_decode": layers * steps if paged_route else 0},
                 "serve": {"flash_decode": layers * len(bodies),
                           "paged_decode": layers * w["serve"]["decode_steps"] if paged_route
                           else 0}}
@@ -3939,8 +4128,8 @@ def phase_sharded_serving(torch, model, model_cfg, decode, paged, precision, smi
             for k in launches:
                 launches[k][i] += w["serve"]["launches"][k]
         row = out["configs"][name] = {
-            "exact_streams": exact, "near_tie_streams": ties, "prefill_logits_max_abs_err":
-            logit_err, "launches_per_rank": [r["windows"] for r in per_rank],
+            "mesh": mesh, **row, "prefill_logits_max_abs_err": logit_err,
+            "launches_per_rank": [r["windows"] for r in per_rank],
             "decode_step_wall_ms": {"one_rank": ref["decode_wall_ms"],
                                     "rank0": lead["decode_wall_ms"]},
             "decode_step_device_ms": {"one_rank": ref["profile"]["device_ms"],
@@ -3951,23 +4140,114 @@ def phase_sharded_serving(torch, model, model_cfg, decode, paged, precision, smi
             "decode_psum_share_per_rank": [
                 r["windows"]["decode"]["collective_s"] / r["windows"]["decode"]["wall_s"]
                 for r in per_rank],
+            "decode_gather_share_per_rank": [
+                r["windows"]["decode"]["gather_s"] / r["windows"]["decode"]["wall_s"]
+                for r in per_rank],
             "published_calls": lead["published"], "publish_ms_per_call":
             lead["publish_s"] * 1e3 / max(lead["published"], 1),
             "warmup_s": {"one_rank": ref["warmup_s"], "rank0": lead["warmup_s"]}}
-        log(f"sharded[{name}] (GPT-2 124M f32 on {{model: 2}}, 2 ranks on one card, gloo, eager): "
+        log(f"sharded[{name}] (GPT-2 124M f32 on {mesh}, 2 ranks on one card, gloo, eager): "
             f"{json.dumps(row)}; {smi}")
         log(f"sharded[{name}] decode step: host wall ms one rank "
             f"{ref['decode_wall_ms']:.3f} vs rank 0 {lead['decode_wall_ms']:.3f}; device ms one "
             f"rank {ref['profile']['device_ms']:.3f} vs per rank "
             f"{[round(r['profile']['device_ms'], 4) for r in per_rank]}; psum share per rank "
-            f"{[round(x, 4) for x in row['decode_psum_share_per_rank']]}; {smi}")
+            f"{[round(x, 4) for x in row['decode_psum_share_per_rank']]}; gather share per rank "
+            f"{[round(x, 4) for x in row['decode_gather_share_per_rank']]}; {smi}")
+    for label, ref_name in SHARDED_HANDOFF:
+        out["handoff"][label] = sharded_handoff_check(
+            torch, label, ref_name, ranks, one_handoffs[label], one_rank[ref_name], bodies,
+            layers, launches, one_rank_engine, verdict_engine, smi)
+    del verdict_engine
     gc.collect()
     torch.cuda.empty_cache()
     out["launches_per_rank"] = launches
     out["cli"] = sharded_cli(torch, here, model_cfg, smi)
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"sharded serving: launches of rows 6-7 per rank over the served requests "
-        f"{json.dumps(launches)}; world {world_s:.1f} s; phase {out['phase_s']:.1f} s; {smi}")
+    log(f"sharded serving: launches of rows 6-7 per rank over the served requests and the "
+        f"hand-offs {json.dumps(launches)}; world {world_s:.1f} s; phase {out['phase_s']:.1f} s; "
+        f"{smi}")
+    return out
+
+
+def sharded_handoff_check(torch, label, ref_name, ranks, one_pre, one_mixed, bodies, layers,
+                          launches, one_rank_engine, verdict_engine, smi) -> dict:
+    """One KV dtype's hand-off each way between {model: 2} and one rank:
+    the sharded export's pages against one rank's (f32 within 1e-4, int8
+    within one level, scales within rtol 1e-4, the meta equal); the
+    sharded pages decoded by a one-rank decode engine here, and one
+    rank's decoded by the sharded decode engine, each stream held to the
+    one-rank mixed engine's; each leg's launches (per rank on the mesh);
+    the export and import host ms on rank 0 against one rank's, and the
+    payload MB."""
+    pre_ranks = [r["handoff"][f"{label}/prefill"] for r in ranks]
+    dec_ranks = [r["handoff"][f"{label}/decode"] for r in ranks]
+    sharded_pre, sharded_dec = pre_ranks[0], dec_ranks[0]
+    errs = [handoff_pages_err(ours, theirs) for (_, ours), (_, theirs) in
+            zip(sharded_pre["handoffs"], one_pre["handoffs"])]
+    worst = {k: max(e.get(k, 0.0) for e in errs) for k in ("f32_abs", "int8_levels",
+                                                            "scale_rel")}
+    if not all(e["meta_equal"] for e in errs) or worst["f32_abs"] > 1e-4 or \
+            worst["int8_levels"] > 1 or worst["scale_rel"] > 1e-4:
+        fail(f"sharded hand-off [{label}]: the sharded export against one rank's: {errs}")
+    engine = one_rank_engine(role="decode", **dict(SHARDED_CONFIGS)[ref_name])
+    _WINDOW.clear()
+    back = handoff_import(engine, lambda fn, *a: fn(engine, *a), bodies,
+                          sharded_pre["handoffs"])
+    back_windows = _WINDOW["windows"]
+    del engine
+    out = {"pages_vs_one_rank": worst,
+           "sharded_prefill_to_one_rank_decode": held_streams(
+               torch, f" hand-off [{label}] sharded prefill -> one-rank decode", verdict_engine, bodies,
+               back["streams"], one_mixed["streams"]),
+           "one_rank_prefill_to_sharded_decode": held_streams(
+               torch, f" hand-off [{label}] one-rank prefill -> sharded decode", verdict_engine, bodies,
+               sharded_dec["streams"], one_mixed["streams"])}
+    decode_want = {"flash_decode": 0, "paged_decode": layers * (SHARDED_NEW - 1)}
+    prefill_want = {"flash_decode": layers * len(bodies), "paged_decode": 0}
+    for what, windows in (("one-rank prefill", [one_pre["windows"]["handoff_prefill"]]),
+                          ("sharded prefill", [r["windows"]["handoff_prefill"]
+                                               for r in pre_ranks]),
+                          ("one-rank decode", [back_windows["handoff_decode"]]),
+                          ("sharded decode", [r["windows"]["handoff_decode"]
+                                              for r in dec_ranks])):
+        want = prefill_want if "prefill" in what else decode_want
+        for i, w in enumerate(windows):
+            if w["launches"] != want:
+                fail(f"sharded hand-off [{label}] {what} rank {i}: launches {w['launches']}, "
+                     f"expected {want}")
+    for group in (pre_ranks, dec_ranks):
+        if group[0]["host_state"] != group[1]["host_state"] or \
+                group[1]["replayed"] != group[0]["published"]:
+            fail(f"sharded hand-off [{label}]: the ranks' host state or replayed calls differ")
+    for i in range(2):
+        for k in launches:
+            launches[k][i] += (pre_ranks[i]["windows"]["handoff_prefill"]["launches"][k]
+                               + dec_ranks[i]["windows"]["handoff_decode"]["launches"][k])
+    longest = int(np.argmax([len(b["prompt"]) for b in bodies]))
+    mb = [page_bytes(p) / 1e6 for _, p in one_pre["handoffs"]]
+    out.update(
+        launches_per_rank={"prefill": [r["windows"]["handoff_prefill"]["launches"]
+                                       for r in pre_ranks],
+                           "decode": [r["windows"]["handoff_decode"]["launches"]
+                                      for r in dec_ranks]},
+        payload_mb={"longest": mb[longest], "all": sum(mb)},
+        prompt_tokens={"longest": len(bodies[longest]["prompt"]),
+                       "all": sum(len(b["prompt"]) for b in bodies)},
+        export_ms={"one_rank": one_pre["export_ms"], "rank0": sharded_pre["export_ms"]},
+        import_ms={"one_rank": back["import_ms"], "rank0": sharded_dec["import_ms"]},
+        export_gather_s_rank0=sharded_pre["windows"]["handoff_prefill"]["gather_s"],
+        card=smi)
+    log(f"sharded hand-off [{label}] (GPT-2 124M on {{model: 2}} <-> one rank, paged_flash): "
+        f"{json.dumps(out)}")
+    log(f"sharded hand-off [{label}], the {out['prompt_tokens']['longest']}-token prompt "
+        f"({mb[longest]:.3f} MB of pages): export host ms one rank "
+        f"{one_pre['export_ms'][longest]:.3f} vs rank 0 {sharded_pre['export_ms'][longest]:.3f}; "
+        f"import host ms one rank {back['import_ms'][longest]:.3f} vs rank 0 "
+        f"{sharded_dec['import_ms'][longest]:.3f}; all {len(bodies)} requests "
+        f"({sum(mb):.3f} MB): export {sum(one_pre['export_ms']):.3f} vs "
+        f"{sum(sharded_pre['export_ms']):.3f} ms, import {sum(back['import_ms']):.3f} vs "
+        f"{sum(sharded_dec['import_ms']):.3f} ms; {smi}")
     return out
 
 
@@ -4870,7 +5150,8 @@ def phase_imagenet(torch, counters, smi: str, tmp: str, here: str) -> dict:
 # ------------------------------------------------------------------ mesh
 
 MESH_LAYERS = 2   # the mesh phase's depth cut (GPT-2 124M widths, 12 layers by default)
-MESH_STEPS = 4    # steps a layout: an f32 trajectory, then bf16 steps timed
+MESH_STEPS = 4    # steps of a layout's f32 trajectory
+MESH_BF16_STEPS = 2  # bf16 steps a layout; the second is timed
 MESH_LAYOUTS_2 = (  # (name, mesh, config overrides) in one world of 2 ranks on the card
     ("data", {"data": 2}, {}),
     ("data+zero1", {"data": 2}, {"zero1": True}),
@@ -5031,7 +5312,8 @@ def mesh_worker(rank: int, layouts, restore_dir: str | None, restore_argv,
                 reset_counts(counters)
             drops = []
             with routing:
-                losses, ms = mesh_steps(torch, trainer, batches, drops)
+                losses, ms = mesh_steps(torch, trainer, batches if precision == "f32"
+                                        else batches[:MESH_BF16_STEPS], drops)
             if precision == "f32":
                 res["launches"] = {k: c.launches for k, c in counters.items()}
                 res["losses"] = losses
@@ -5134,7 +5416,7 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
     trainer = Trainer(gpt2.make_task(cfg), cfg)
     ref = out["one_rank_losses"] = mesh_steps(torch, trainer, mesh_batches(cfg, MESH_STEPS))[0]
     trainer = Trainer(gpt2.make_task(cfg.replace(precision="bf16")), cfg.replace(precision="bf16"))
-    ms = mesh_steps(torch, trainer, mesh_batches(cfg, MESH_STEPS))[1]
+    ms = mesh_steps(torch, trainer, mesh_batches(cfg, MESH_BF16_STEPS))[1]
     out["one_rank_bf16_step_ms_p50"] = float(np.median(ms[1:]))
     refs = {"one rank": ref}
     cfg4 = mesh_config(num_layers=MESH_PIPE_LAYERS)

@@ -147,11 +147,14 @@ class Mesh:
     def axis_size(self, axis) -> int:
         return math.prod(self.shape[a] for a in self.axes(axis))
 
-    def axis_index(self, axis) -> int:
-        """This rank's index along ``axis`` (a tuple: first axis major)."""
+    def axis_index(self, axis, rank: int | None = None) -> int:
+        """This rank's (or ``rank``'s) index along ``axis`` (a tuple:
+        first axis major)."""
+        coords = self.coords if rank is None else dict(zip(
+            AxisNames.ALL, (int(i) for i in np.unravel_index(rank, self.ranks.shape))))
         index = 0
         for a in self.axes(axis):
-            index = index * self.shape[a] + self.coords[a]
+            index = index * self.shape[a] + coords[a]
         return index
 
     def group(self, axis):

@@ -36,9 +36,14 @@ other ranks replay its engine calls (``serving/mesh_driver.py``)::
     torchrun --nproc_per_node 2 -m tensorflow_examples_torch.serve --workdir RUN \
         --kv_block_size 16 --attention paged_flash
 
-An auto-loaded config that does not fit the world prints the
-reference's line to stderr and rank 0 serves one replica; an explicit
-one raises. ``/health`` and the serving line then carry ``mesh_shape``
+Any ``--role`` serves sharded: a prefill replica's pages are gathered
+over ``model`` into the reference's whole-H payload, and a decode
+replica sends each rank only its heads of what it imports, so either
+half of a disaggregated fleet may be a mesh behind either package's
+router. A run trained with ``fsdp`` serves on its mesh, each weight cut
+over ``fsdp`` gathered where it is read. An auto-loaded config that does
+not fit the world prints the reference's line to stderr and rank 0
+serves one replica; an explicit one raises. ``/health`` and the serving line then carry ``mesh_shape``
 and ``param_sharding_digest``. Ranks that share one card talk over gloo
 through host memory, which a CUDA graph cannot hold: such an engine
 runs its rungs eagerly, and the startup line says so.

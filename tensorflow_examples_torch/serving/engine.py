@@ -71,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
+from collections.abc import Mapping
 from typing import Sequence
 
 import numpy as np
@@ -84,7 +85,7 @@ from tensorflow_examples_torch.core import rng
 from tensorflow_examples_torch.core.device import resolve_device
 from tensorflow_examples_torch.core.mesh import AxisNames
 from tensorflow_examples_torch.core.precision import dequantize_rows, quantize_rows
-from tensorflow_examples_torch.core.sharding import shard_params
+from tensorflow_examples_torch.core.sharding import shard_params, shardings_for_params
 from tensorflow_examples_torch.models.convert import flatten_tree, model_from_params
 from tensorflow_examples_torch.models.transformer import (
     GPT2,
@@ -625,19 +626,64 @@ class ChunkedPrefill:
         self.top_k = top_k
 
 
+def _gather_bytes(t: torch.Tensor, axes, mesh, dim: int) -> torch.Tensor:
+    """``collectives.all_gather`` of ``t``'s bytes along ``dim``: any
+    dtype (fp8, which gloo does not carry, included) crosses as uint8."""
+    if t.dtype == torch.uint8:
+        return coll.all_gather(t.contiguous(), axes, mesh=mesh, dim=dim)
+    return coll.all_gather(t.contiguous().view(torch.uint8), axes, mesh=mesh,
+                           dim=dim).view(t.dtype)
+
+
+def _gather_fsdp(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    for dim, entry in enumerate(spec):
+        if entry == AxisNames.FSDP:
+            t = _gather_bytes(t, AxisNames.FSDP, mesh, dim)
+    return t
+
+
+class _FsdpGathered(Mapping):
+    """``{name: leaf}`` whose leaves cut over ``fsdp`` are gathered over
+    ``fsdp`` when looked up (a ``QuantizedWeight``'s payload and scale
+    each along the dims they were cut on): the serving twin of
+    ``sharding/layout._Gathered``, not differentiated."""
+
+    def __init__(self, pieces: dict, specs: dict, mesh):
+        self._pieces, self._specs, self._mesh = pieces, specs, mesh
+
+    def __getitem__(self, name: str):
+        leaf, spec = self._pieces[name], self._specs[name]
+        if AxisNames.FSDP not in spec:
+            return leaf
+        if isinstance(leaf, precision_mod.QuantizedWeight):
+            return precision_mod.QuantizedWeight(
+                _gather_fsdp(leaf.q, spec, self._mesh),
+                _gather_fsdp(leaf.scale, spec[:leaf.scale.dim()], self._mesh))
+        return _gather_fsdp(leaf, spec, self._mesh)
+
+    def __iter__(self):
+        return iter(self._pieces)
+
+    def __len__(self) -> int:
+        return len(self._pieces)
+
+
 class _ServingParams(ParamView):
     """The engine's weights as a flat ``{"h_0.attn.qkv.kernel": leaf}``
     dict (leaves are tensors or ``QuantizedWeight``s) with the model
     config, readable by the layer math like a :class:`GPT2`. A sharded
-    engine's view holds this rank's pieces, its ``mesh`` and the
-    ``model`` psums of the row-parallel products it splits."""
+    engine's view holds this rank's pieces (``pieces``; looked up through
+    :class:`_FsdpGathered` where the rules cut over ``fsdp``), its
+    ``mesh`` and the ``model`` psums of the row-parallel products it
+    splits."""
 
     mesh = None
     reduce_attn = None
     reduce_mlp = None
 
-    def __init__(self, cfg: TransformerConfig, params: dict):
-        super().__init__(params)
+    def __init__(self, cfg: TransformerConfig, params: dict, lookup=None):
+        super().__init__(params if lookup is None else lookup)
+        self.pieces = params
         self.cfg = cfg
 
 
@@ -673,12 +719,15 @@ class InferenceEngine:
     heads (``H / m``, or all ``H`` when the rules leave qkv whole), and
     every rank must make the same calls in the same order
     (``serving/mesh_driver.py`` replays rank 0's). ``param_sharding_digest``
-    is the reference's digest of the placement. Every other mesh axis
-    holds replicas; ``fsdp`` > 1 and the KV-page hand-off (``role``
-    prefill or decode, ``export_kv_pages``/``import_kv_pages``) raise
-    ``NotImplementedError``. A CUDA graph cannot hold collectives staged
-    through host memory, so ``cuda_graphs=True`` on a gloo mesh of CUDA
-    ranks raises ``ValueError``."""
+    is the reference's digest of the placement. A leaf the rules cut over
+    ``fsdp`` is gathered over ``fsdp`` each time the layer math reads it;
+    the KV pool is replicated over ``fsdp``, as over every other axis but
+    ``model``. The KV-page hand-off works in every role: the export
+    gathers each rank's heads of the pages over the axes that cut qkv's
+    heads, so the payload is the reference's ``[L, nb, H, BS, D]``, and the
+    import writes this rank's heads of a full payload. A CUDA graph cannot
+    hold collectives staged through host memory, so ``cuda_graphs=True``
+    on a gloo mesh of CUDA ranks raises ``ValueError``."""
 
     def __init__(self, model_cfg: TransformerConfig, params, *,
                  cfg: ServeConfig | None = None, registry=None, device=None,
@@ -693,7 +742,11 @@ class InferenceEngine:
         else:
             self.device = distributed.local_device(device or "cuda")
             self.mesh = sharding.build_mesh(device=self.device)
-            self._check_mesh(cfg or ServeConfig(), cuda_graphs)
+            if cuda_graphs and self.device.type == "cuda" and self.mesh.backend == "gloo":
+                raise ValueError(
+                    "cuda_graphs=True on a gloo mesh: its collectives are staged through host "
+                    "memory, which a CUDA graph cannot hold; pass cuda_graphs=False (the "
+                    "kernels still run on the card) or give each rank a card of its own (nccl)")
         if self.device.type == "cuda":
             # The reference computes in f32. TF32 matmuls keep ~3 decimal
             # digits, enough to flip greedy tokens away from it.
@@ -750,9 +803,10 @@ class InferenceEngine:
                 and model_cfg.head_dim not in SUPPORTED_HEAD_DIMS):
             raise ValueError(f"attention={cfg.attention!r} kernels take head_dim in "
                              f"{SUPPORTED_HEAD_DIMS}, the model has {model_cfg.head_dim}")
+        self._head_axes = ()
         self.model = self._load(model_cfg, params)
         # The heads this rank's qkv projection makes: its KV pool's.
-        self.local_heads = int(self.model.block(0).attn.qkv.kernel.shape[2])
+        self.local_heads = int(ParamView(self._param_tree()).block(0).attn.qkv.kernel.shape[2])
         self.registry = registry if registry is not None else registry_mod.default_registry()
         self.sentinel = CompilationSentinel(warmup=cfg.compile_warmup, registry=self.registry)
         self._precision_stats = precision_mod.tree_precision_stats(self._param_tree())
@@ -790,23 +844,6 @@ class InferenceEngine:
         self._build_rungs()
         self.warmed = False
 
-    def _check_mesh(self, cfg: ServeConfig, cuda_graphs: bool) -> None:
-        mesh = self.mesh
-        if mesh.shape[AxisNames.FSDP] > 1:
-            raise NotImplementedError(
-                "serving with fsdp > 1 (the params gathered over fsdp before each use) is not "
-                "implemented (ROADMAP A7b.3b); serve the run with its fsdp axis at 1")
-        if cfg.role != "mixed":
-            raise NotImplementedError(
-                f"role={cfg.role!r}: the KV-page hand-off of a sharded engine needs each "
-                "rank's head shard of the pages gathered over 'model', which is not "
-                "implemented (ROADMAP A7b.3b); a sharded engine serves role 'mixed'")
-        if cuda_graphs and self.device.type == "cuda" and mesh.backend == "gloo":
-            raise ValueError(
-                "cuda_graphs=True on a gloo mesh: its collectives are staged through host "
-                "memory, which a CUDA graph cannot hold; pass cuda_graphs=False (the kernels "
-                "still run on the card) or give each rank a card of its own (nccl)")
-
     def _load(self, model_cfg: TransformerConfig, params):
         """The weights on the device: the GPT2 module as given, or, under
         a precision registry, the tree quantized on the CPU first; under
@@ -830,10 +867,21 @@ class InferenceEngine:
             return _ServingParams(model_cfg, {n: leaf.to(self.device) for n, leaf in flat.items()})
         rules = self.sharding.sharding_rules(default=GPT2_RULES)
         self.param_sharding_digest = resolve_params(flat, self.mesh, rules).digest()
-        pieces = shard_params(flat, self.mesh, rules)
-        view = _ServingParams(model_cfg, {n: leaf.to(self.device) for n, leaf in pieces.items()})
+        specs = shardings_for_params(flat, self.mesh, rules)
+        for name, spec in specs.items():
+            if any(isinstance(e, tuple) and AxisNames.FSDP in e for e in spec):
+                raise ValueError(f"{name}: fsdp must shard a dim alone, got {spec}")
+        # The axes that cut qkv's heads: the KV pool's, and the hand-off's gather.
+        head_entry = (specs["h_0.attn.qkv.kernel"] + (None,) * 3)[2]
+        self._head_axes = (() if head_entry is None else
+                           (head_entry,) if isinstance(head_entry, str) else tuple(head_entry))
+        pieces = {n: leaf.to(self.device) for n, leaf in shard_params(flat, self.mesh,
+                                                                      rules).items()}
+        fsdp = any(AxisNames.FSDP in spec for spec in specs.values())
+        view = _ServingParams(model_cfg, pieces,
+                              _FsdpGathered(pieces, specs, self.mesh) if fsdp else None)
         view.mesh = self.mesh
-        blk = view.block(0)
+        blk = ParamView(pieces).block(0)  # shapes on the model axis: fsdp cuts other dims
         heads, proj_rows = blk.attn.qkv.kernel.shape[2], blk.attn.proj.kernel.shape[0]
         fc_cols, proj_in = blk.mlp_fc.kernel.shape[1], blk.mlp_proj.kernel.shape[0]
         if heads != proj_rows or fc_cols != proj_in:
@@ -855,7 +903,7 @@ class InferenceEngine:
     def _param_tree(self) -> dict:
         if isinstance(self.model, GPT2):
             return self.model.state_dict()
-        return self.model._params
+        return self.model.pieces
 
     # ------------------------------------------------------------ rungs
 
@@ -1159,11 +1207,10 @@ class InferenceEngine:
         names = ("k", "v", "k_scale", "v_scale")
         return dict(zip(names, self.pool.kv_state()))
 
-    def _refuse_sharded_handoff(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the KV-page hand-off of a sharded engine needs each rank's head shard of "
-                "the pages gathered over 'model', which is not implemented (ROADMAP A7b.3b)")
+    def _sharded_heads(self) -> bool:
+        """Whether this rank's pool holds a slice of the heads (the rules
+        cut qkv's heads); else every rank holds them all."""
+        return self.local_heads < self.model_cfg.num_heads
 
     @torch.no_grad()
     def export_kv_pages(self, slot: int, prompt: Sequence[int], *, skip_tokens: int = 0) -> dict:
@@ -1176,8 +1223,13 @@ class InferenceEngine:
         ``skip_tokens`` is the delta hand-off: the importer already caches
         that many leading prompt tokens, so the full blocks they cover
         stay off the wire (``start_block``). Floored to a block multiple
-        and capped so the last (partial) block always ships."""
-        self._refuse_sharded_handoff()
+        and capped so the last (partial) block always ships.
+
+        On a mesh every rank takes part: each rank's heads of the pages
+        (and the int8 scales) are gathered over the axes that cut qkv's
+        heads, in the order ``shard_params`` cut them (ranks that differ
+        only on other axes hold the same pages and gather in their own
+        group), so every rank returns the same whole-H payload."""
         if not self.paged:
             raise ValueError("KV page export requires the paged pool (set kv_block_size)")
         if skip_tokens < 0:
@@ -1188,23 +1240,20 @@ class InferenceEngine:
         skip = min(int(skip_tokens) // bs, (n - 1) // bs)
         idx = self._t(self.pool.block_tables[slot, skip:nb].astype(np.int64))
         arrays = {name: _take(t, (slice(None), idx)) for name, t in self._page_tensors().items()}
+        if self._sharded_heads():
+            arrays = {name: _gather_bytes(a, self._head_axes, self.mesh, 2)
+                      for name, a in arrays.items()}
         meta = dict(self._page_geometry(), length=n, start_block=skip)
         self.registry.counter("serving/kv_pages_exported").inc(nb - skip)
         if skip:
             self.registry.counter("serving/kv_pages_delta_skipped").inc(skip)
         return scheduler.encode_pages(meta, arrays)
 
-    @torch.no_grad()
-    def import_kv_pages(self, slot: int, payload, prompt: Sequence[int]) -> None:
-        """Map a hand-off payload into ``slot``: check its geometry and
-        dtypes against this pool (a mismatch is a ``ValueError``, 400
-        upstream, never a silently wrong cache), claim the prompt's blocks
-        (leading blocks this pool already caches are mapped, not written;
-        ``BlockExhausted`` comes before any write), write the rest in
-        place, set the slot's length and publish the prompt into the
-        local prefix cache. A delta payload whose skipped blocks this
-        pool's prefix cache does not cover is refused loudly."""
-        self._refuse_sharded_handoff()
+    def check_pages(self, payload, prompt: Sequence[int]) -> tuple[dict, dict]:
+        """Decode a hand-off payload and check it against this engine:
+        geometry (the model's whole ``H`` on a mesh too), length, shapes
+        and dtypes. Returns ``(meta, arrays)``; a mismatch is a
+        ``ValueError`` (400 upstream), never a silently wrong cache."""
         if not self.paged:
             raise ValueError("KV page import requires the paged pool (set kv_block_size)")
         meta, arrays = scheduler.decode_pages(payload)
@@ -1239,6 +1288,39 @@ class InferenceEngine:
                 raise ValueError(f"pages dtype mismatch: {name!r} is "
                                  f"{scheduler.wire_dtype(arrays[name].dtype)} but this "
                                  f"replica's cache stores {scheduler.wire_dtype(t.dtype)}")
+        return meta, {name: arrays[name] for name in tensors}
+
+    def head_slice(self, rank: int | None = None) -> slice:
+        """The heads of a whole-H page array that ``rank``'s pool holds
+        (this rank's by default): ``[i * H/m, (i + 1) * H/m)`` with ``i``
+        the rank's index over the axes that cut qkv's heads."""
+        if not self._sharded_heads():
+            return slice(None)
+        i = self.mesh.axis_index(self._head_axes, rank=rank)
+        return slice(i * self.local_heads, (i + 1) * self.local_heads)
+
+    @torch.no_grad()
+    def import_kv_pages(self, slot: int, payload, prompt: Sequence[int]) -> None:
+        """Map a hand-off payload into ``slot``: :meth:`check_pages`, then
+        :meth:`map_pages` of this rank's heads. On a mesh every rank must
+        make the call with the whole payload; ``serving/mesh_driver.py``
+        instead checks it on rank 0 and sends each rank its heads."""
+        meta, arrays = self.check_pages(payload, prompt)
+        heads = self.head_slice()
+        self.map_pages(slot, meta, {name: a[:, :, heads] for name, a in arrays.items()}, prompt)
+
+    @torch.no_grad()
+    def map_pages(self, slot: int, meta: dict, arrays: dict, prompt: Sequence[int]) -> None:
+        """Map checked pages (``arrays``: this rank's heads) into
+        ``slot``: claim the prompt's blocks (leading blocks this pool
+        already caches are mapped, not written; ``BlockExhausted`` comes
+        before any write), write the rest in place, set the slot's length
+        and publish the prompt into the local prefix cache. A delta
+        payload whose skipped blocks this pool's prefix cache does not
+        cover is refused loudly. Every rank's host state moves alike."""
+        n, bs = meta["length"], self.cfg.kv_block_size
+        nb = -(-n // bs)
+        start = meta.get("start_block", 0)
         ctx, fresh = self.pool.claim_prompt_blocks(slot, prompt)
         if ctx < start * bs:
             raise ValueError(f"delta pages start at block {start} but this replica's prefix "
@@ -1246,7 +1328,7 @@ class InferenceEngine:
                              "re-send full pages")
         if fresh:
             col = nb - len(fresh) - start  # payload column of fresh[0]
-            self.pool.write_blocks(fresh, {name: arrays[name][:, col:] for name in tensors})
+            self.pool.write_blocks(fresh, {name: a[:, col:] for name, a in arrays.items()})
         self.pool.lengths[slot] = n
         self.pool.insert_prefix(slot, prompt)
         self.registry.counter("serving/kv_pages_imported").inc(len(fresh))

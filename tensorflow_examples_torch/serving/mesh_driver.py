@@ -14,17 +14,26 @@ Rank 0 alone runs the batcher and the HTTP frontend, over
 :meth:`MeshDriver.leader`'s proxy of its engine. Before the proxy runs
 a call that does device work or changes the pool's host state (the
 engine's ``warmup``, ``prefill``, ``prefill_open``, ``prefill_step``,
-``decode``, ``verify`` and reference forwards; the pool's ``alloc``,
-``free``, ``reset`` and ``reallocate``), it publishes the call and its
-arguments to every other rank with a ``torch.distributed`` object
-broadcast over a gloo group of its own (host objects, on the CPU). The
-other ranks run :meth:`MeshDriver.follow`, which replays each call on
-their engine until rank 0 sends the stop (:meth:`MeshDriver.stop`).
-Every other attribute is read from rank 0's engine as it is. After the
-``model`` psums every rank holds the same logits, so every rank samples
-the same token from the same key, takes the same blocks and keeps the
-same block tables, free lists and prefix-cache hashes; rank 0's result
-is the one returned.
+``decode``, ``verify``, ``export_kv_pages`` and reference forwards; the
+pool's ``alloc``, ``free``, ``reset`` and ``reallocate``), it publishes
+the call and its arguments to every other rank with a
+``torch.distributed`` object broadcast over a gloo group of its own
+(host objects, on the CPU). The other ranks run
+:meth:`MeshDriver.follow`, which replays each call on their engine until
+rank 0 sends the stop (:meth:`MeshDriver.stop`). Every other attribute
+is read from rank 0's engine as it is. After the ``model`` psums every
+rank holds the same logits, so every rank samples the same token from
+the same key, takes the same blocks and keeps the same block tables,
+free lists and prefix-cache hashes; rank 0's result is the one returned.
+
+``import_kv_pages`` is published otherwise (:meth:`MeshDriver.import_pages`),
+so that no follower is sent the heads it does not hold: rank 0 decodes
+and checks the payload (``engine.check_pages``), publishes the meta (or
+the refusal, which then raises the same ``ValueError`` on every rank),
+and scatters each rank its heads of k, v and the int8 scales over the
+driver's group, as bytes; every rank then maps them
+(``engine.map_pages``), whose claim raises a ``BlockExhausted`` or
+refuses a cold delta alike everywhere.
 
 Each message also carries how rank 0's previous call ended (None, or
 the name of the exception it raised). A call that raises on every rank
@@ -40,19 +49,22 @@ without such a limit, since a server may idle for as long as it likes.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import functools
 import logging
 import threading
 import time
 
+import torch
 import torch.distributed as dist
 
 log = logging.getLogger(__name__)
 
 # The calls rank 0 publishes before it runs them.
 ENGINE_CALLS = ("warmup", "prefill", "prefill_open", "prefill_step", "decode", "verify",
-                "reference_logits", "reference_generate", "reference_classify")
+                "export_kv_pages", "reference_logits", "reference_generate",
+                "reference_classify")
 POOL_CALLS = ("alloc", "free", "reset", "reallocate")
 # How long a follower waits for rank 0's next call (the MeshDriver group's timeout).
 IDLE_TIMEOUT = datetime.timedelta(days=365)
@@ -68,7 +80,8 @@ class MeshDriver:
     Every rank of the process group constructs one, in the same order
     relative to its other ``new_group`` calls (after its engine). On rank
     0, ``calls`` counts the calls published and ``publish_s`` their
-    broadcasts' host seconds."""
+    broadcasts' host seconds. On the other ranks, ``raised`` counts the
+    replayed calls that raised (as rank 0's did), by exception name."""
 
     def __init__(self):
         self.rank = dist.get_rank()
@@ -78,6 +91,7 @@ class MeshDriver:
         self._outcome = None
         self.calls = 0
         self.publish_s = 0.0
+        self.raised: collections.Counter = collections.Counter()
 
     # -------------------------------------------------------------- rank 0
 
@@ -114,6 +128,35 @@ class MeshDriver:
         returned."""
         return self.call(functools.partial(fn, engine), "run", fn, *args)
 
+    def import_pages(self, engine, slot: int, payload, prompt):
+        """Rank 0's ``engine.import_kv_pages``: the payload decoded and
+        checked here, each rank sent only its heads (see the module)."""
+        try:
+            meta, arrays = engine.check_pages(payload, prompt)
+        except ValueError as e:
+            refusal, meta, arrays, layout = e, None, None, None
+        else:
+            refusal = None
+            heads = engine.head_slice()
+            layout = {name: (a.dtype, tuple(a[:, :, heads].shape)) for name, a in arrays.items()}
+        lead = functools.partial(self._import, engine, arrays, refusal)
+        return self.call(lead, "import", "import_kv_pages", slot, meta, prompt, layout,
+                         None if refusal is None else str(refusal))
+
+    def _import(self, engine, arrays, refusal, slot, meta, prompt, layout, message) -> None:
+        if message is not None:
+            raise refusal if refusal is not None else ValueError(message)
+        pieces = {}
+        for name, (dtype, shape) in layout.items():
+            out = torch.empty(shape, dtype=dtype).view(torch.uint8)
+            chunks = None
+            if self.rank == 0:
+                chunks = [arrays[name][:, :, engine.head_slice(r)].contiguous().view(torch.uint8)
+                          for r in range(self.world_size)]
+            dist.scatter(out, chunks, src=0, group=self._group)
+            pieces[name] = out.view(dtype)
+        engine.map_pages(slot, meta, pieces, prompt)
+
     def stop(self) -> None:
         """End every follower's replay (rank 0, once, after the last call)."""
         with self._lock:
@@ -144,6 +187,8 @@ class MeshDriver:
                 target = getattr(engine.pool, name)
             elif kind == "run":
                 target = functools.partial(name, engine)
+            elif kind == "import":
+                target = functools.partial(self._import, engine, None, None)
             else:
                 raise ReplayDiverged(f"rank {self.rank}: rank 0 published an unknown call "
                                      f"{kind}.{name}")
@@ -153,6 +198,7 @@ class MeshDriver:
                 outcome, error = None, None
             except Exception as e:
                 outcome, error = type(e).__name__, e
+                self.raised[outcome] += 1
                 log.info("rank %d: replayed %s.%s raised %s (as rank 0's must have)",
                          self.rank, kind, name, outcome)
             replayed += 1
@@ -175,13 +221,17 @@ class _LeaderPool:
 
 class LeaderEngine:
     """Rank 0's engine behind the driver: the calls of :data:`ENGINE_CALLS`
-    published before they run, the pool's through :class:`_LeaderPool`,
-    every other attribute the engine's own."""
+    published before they run, ``import_kv_pages`` through
+    :meth:`MeshDriver.import_pages`, the pool's through
+    :class:`_LeaderPool`, every other attribute the engine's own."""
 
     def __init__(self, engine, driver: MeshDriver):
         self.engine = engine
         self.driver = driver
         self.pool = _LeaderPool(engine.pool, driver)
+
+    def import_kv_pages(self, slot: int, payload, prompt):
+        return self.driver.import_pages(self.engine, slot, payload, prompt)
 
     def __getattr__(self, name):
         attr = getattr(self.engine, name)

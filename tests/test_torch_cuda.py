@@ -1569,3 +1569,111 @@ def test_two_rank_sharded_serving_on_one_card_matches_one_rank(dev, tmp_path):
             layers = SHARDED_MODEL["num_layers"]
             # The warmup's decode rungs and the served decode steps, a layer each.
             assert paged >= layers * ranks[0][name]["decode_steps"] > 0, name
+
+
+def _prefill_export(engine, req):
+    slot = engine.pool.alloc()
+    first, _ = engine.prefill(slot, req.prompt, seed=req.seed, temperature=req.temperature,
+                              top_k=req.top_k)
+    pages = engine.export_kv_pages(slot, req.prompt)
+    engine.pool.free(slot)
+    return first, pages
+
+
+def _decode_on(engine, slot, first, req) -> list:
+    toks = [first]
+    while len(toks) < req.max_new_tokens:
+        toks.append(engine.decode([(slot, toks[-1], req.seed, req.temperature, req.top_k)])[slot])
+    engine.pool.free(slot)
+    return toks
+
+
+def _import_decode(engine, req, handoff) -> list:
+    import json
+
+    first, pages = handoff
+    slot = engine.pool.alloc()
+    engine.import_kv_pages(slot, json.loads(json.dumps(pages)), req.prompt)
+    return _decode_on(engine, slot, first, req)
+
+
+HANDOFF_KW = dict(attention="paged_flash", kv_block_size=16)
+
+
+def _handoff_and_fsdp_on_one_card(rank: int, one_rank_pages: dict) -> dict:
+    from tensorflow_examples_torch.serving.mesh_driver import MeshDriver
+    from tensorflow_examples_torch.sharding import ShardingConfig
+
+    out = {}
+    for kv in ("", "int8"):
+        for role in ("prefill", "decode"):
+            engine = _sharded_engine_on("cuda", ShardingConfig(mesh={"model": 2}),
+                                        dict(HANDOFF_KW, kv_dtype=kv, role=role),
+                                        cuda_graphs=False)
+            driver = MeshDriver()
+            before = paged_decode.paged_decode_attention.launches
+            if rank == 0:
+                lead = driver.leader(engine)
+                reqs = _sharded_requests()
+                out[(kv, role)] = ([_prefill_export(lead, r) for r in reqs] if role == "prefill"
+                                   else [_import_decode(lead, r, p)
+                                         for r, p in zip(reqs, one_rank_pages[kv])])
+                driver.stop()
+            else:
+                driver.follow(engine)
+            out[(kv, role, "paged")] = paged_decode.paged_decode_attention.launches - before
+            out[(kv, role, "host_state")] = engine.pool.host_state()
+    engine = _sharded_engine_on("cuda", ShardingConfig(mesh={"fsdp": 2}), HANDOFF_KW,
+                                cuda_graphs=False)
+    driver = MeshDriver()
+    if rank == 0:
+        lead = driver.leader(engine)
+        lead.warmup()
+        out["fsdp"] = _serve_streams(lead)
+        driver.stop()
+    else:
+        driver.follow(engine)
+    out["fsdp_host_state"] = engine.pool.host_state()
+    return out
+
+
+def test_sharded_handoff_and_fsdp_serving_on_one_card(dev, tmp_path):
+    """Two ranks sharing the card over gloo: a ``{model: 2}`` prefill
+    engine's pages (its heads gathered over ``model``) decode on a
+    one-rank engine, and a one-rank prefill engine's pages on a ``{model:
+    2}`` decode engine (each rank sent its heads), f32 and int8 KV, each
+    stream the one-rank mixed engine's and every decode step launching
+    the paged kernel once a layer on each rank; ``paged_flash`` on
+    ``{fsdp: 2}`` serves the one-rank engine's batcher streams."""
+    from tensorflow_examples_torch.core import distributed
+
+    reqs = _sharded_requests()
+    layers = SHARDED_MODEL["num_layers"]
+    steps = sum(r.max_new_tokens - 1 for r in reqs)
+    one_pages = {kv: [_prefill_export(_sharded_engine_on(
+        "cuda", None, dict(HANDOFF_KW, kv_dtype=kv, role="prefill"), cuda_graphs=False), r)
+        for r in reqs] for kv in ("", "int8")}
+    ranks = distributed.run_world(_handoff_and_fsdp_on_one_card, 2, one_pages, device="cuda",
+                                  timeout_s=300, store_dir=str(tmp_path))
+    for kv in ("", "int8"):
+        mixed = _sharded_engine_on("cuda", None, dict(HANDOFF_KW, kv_dtype=kv),
+                                   cuda_graphs=False)
+        want = []
+        for r in reqs:
+            slot = mixed.pool.alloc()
+            first, _ = mixed.prefill(slot, r.prompt, seed=r.seed, temperature=r.temperature,
+                                     top_k=r.top_k)
+            want.append(_decode_on(mixed, slot, first, r))
+        assert ranks[0][(kv, "decode")] == want, kv
+        one_dec = _sharded_engine_on("cuda", None, dict(HANDOFF_KW, kv_dtype=kv, role="decode"),
+                                     cuda_graphs=False)
+        assert [_import_decode(one_dec, r, p) for r, p in
+                zip(reqs, ranks[0][(kv, "prefill")])] == want, kv
+        for role in ("prefill", "decode"):
+            assert ranks[0][(kv, role, "host_state")] == ranks[1][(kv, role, "host_state")]
+            assert all(r[(kv, role, "paged")] == (layers * steps if role == "decode" else 0)
+                       for r in ranks), (kv, role)
+    one = _sharded_engine_on("cuda", None, HANDOFF_KW, cuda_graphs=False)
+    one.warmup()
+    assert ranks[0]["fsdp"] == _serve_streams(one)
+    assert ranks[0]["fsdp_host_state"] == ranks[1]["fsdp_host_state"]

@@ -29,9 +29,15 @@ the same model:
   ``torchrun --nproc_per_node 2``, served as one replica on one process
   with the reference's stderr line, an explicit config that does not fit
   raising, ``off`` serving one replica;
-* refusals: a hand-off role, and the page export, of a sharded engine;
-  a follower whose replayed call ends otherwise than rank 0's brings
-  its world down.
+* a follower whose replayed call ends otherwise than rank 0's brings
+  its world down;
+* the port's ``Router`` hands requests from that workdir served as a
+  ``--role prefill`` replica by ``torchrun --nproc_per_node 2`` to a
+  one-rank ``--role decode`` replica, the routed streams the JAX mixed
+  engine's.
+
+The sharded engine in the KV-page hand-off and on ``fsdp`` meshes is
+``tests/test_torch_sharded_handoff.py``'s.
 
 The card's refusal of CUDA graphs over host-staged collectives is a
 ``cuda`` test (``tests/test_torch_cuda.py``).
@@ -250,19 +256,6 @@ def _two_rank_worker(rank: int, case: dict, workdir: str) -> dict:
         engine = _sharded_engine(case["smoke_tree"], case["sharding"], **kw)
         out["routes"][name] = _serve_on_mesh(rank, engine, [six_requests(), prefix_requests()])
         out["routes"][name]["prefix_hits"] = getattr(engine.pool, "prefix_hits", None)
-    refusals = {}
-    for what, make in (
-        ("role", lambda: _sharded_engine(case["smoke_tree"], case["sharding"], kv_block_size=8,
-                                         role="prefill")),
-        ("export", lambda: _sharded_engine(case["smoke_tree"], case["sharding"],
-                                           kv_block_size=8).export_kv_pages(0, [1, 2, 3])),
-    ):
-        try:
-            make()
-            refusals[what] = None
-        except NotImplementedError as e:
-            refusals[what] = str(e)
-    out["refusals"] = refusals
     _train_model2(rank, workdir)
     return out
 
@@ -328,6 +321,23 @@ def one_rank_engine(tree, **kw):
     return InferenceEngine(transformer.TransformerConfig(**SMOKE), tree,
                            cfg=ServeConfig(**SERVE, **kw), registry=MetricsRegistry(),
                            device="cpu")
+
+
+def jax_engine_on(model_cfg, tree, sharding=None, **kw):
+    """The JAX engine of the port's ``model_cfg`` widths on ``tree``."""
+    import jax
+    import jax.numpy as jnp
+
+    from tensorflow_examples_tpu.models import transformer as jax_transformer
+    from tensorflow_examples_tpu.serving import engine as jax_engine_mod
+    from tensorflow_examples_tpu.telemetry.registry import MetricsRegistry as JaxRegistry
+
+    cfg = jax_transformer.TransformerConfig(
+        **{f: getattr(model_cfg, f) for f in ("vocab_size", "max_len", "num_layers", "num_heads",
+                                              "d_model")}, dropout=0.0, attention="xla")
+    return jax_engine_mod.InferenceEngine(cfg, jax.tree.map(jnp.asarray, tree),
+                                          cfg=jax_engine_mod.ServeConfig(**kw),
+                                          registry=JaxRegistry(), sharding=sharding)
 
 
 def jax_engine(tree, sharding=None, **kw):
@@ -429,13 +439,6 @@ def test_sharded_routes_match_one_rank_engine(case, worlds, name):
         assert lead["digest"] == theirs.param_sharding_digest
 
 
-@pytest.mark.timeout(300)
-def test_sharded_engine_refuses_the_handoff(worlds):
-    for r in worlds["2"]:
-        assert "hand-off" in r["refusals"]["role"] and "A7b.3b" in r["refusals"]["role"]
-        assert "hand-off" in r["refusals"]["export"]
-
-
 @pytest.mark.timeout(120)
 def test_a_diverging_follower_brings_the_world_down(tmp_path):
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed") as info:
@@ -484,13 +487,18 @@ def post(url: str, body: dict) -> dict:
         return json.loads(r.read())
 
 
+def start_in_process(workdir: str, *extra):
+    """The CLI's start in this process (one rank): its frontend."""
+    from tensorflow_examples_torch import serve
+
+    return serve._start(serve.build_parser().parse_args(cli_args(workdir, "--port", "0",
+                                                                 *extra)))
+
+
 def serve_in_process(workdir: str, *extra):
     """The CLI's start in this process (one rank): its /generate tokens
     and /health, the frontend closed after."""
-    from tensorflow_examples_torch import serve
-
-    frontend = serve._start(serve.build_parser().parse_args(cli_args(workdir, "--port", "0",
-                                                                     *extra)))
+    frontend = start_in_process(workdir, *extra)
     try:
         tokens = post(frontend.url(), {"prompt": CLI_PROMPT, "max_new_tokens": CLI_NEW})["tokens"]
         with urllib.request.urlopen(frontend.url("/health"), timeout=30) as r:
@@ -515,6 +523,35 @@ def test_serve_cli_on_one_process(worlds, capsys):
         serve_in_process(workdir, "--serve_sharding_config", os.path.join(workdir, "sharding.json"))
 
 
+def torchrun_serve(workdir: str, port: int, *extra) -> subprocess.Popen:
+    """``torchrun --nproc_per_node 2`` of the serve CLI on ``workdir``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+           "2", "--master_addr", "127.0.0.1", "--master_port", str(free_port()), "-m",
+           "tensorflow_examples_torch.serve", *cli_args(workdir, "--port", str(port)), *extra]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+
+def wait_healthy(proc: subprocess.Popen, base: str, timeout_s: float = 180) -> dict:
+    deadline = time.monotonic() + timeout_s
+    while True:
+        assert proc.poll() is None, proc.communicate()[1][-4000:]
+        assert time.monotonic() < deadline, "the torchrun server did not come up"
+        try:
+            with urllib.request.urlopen(base + "/health", timeout=5) as r:
+                return json.loads(r.read())
+        except OSError:
+            time.sleep(0.5)
+
+
+def stop_torchrun(proc: subprocess.Popen) -> tuple[str, str]:
+    """SIGTERM to rank 0 drains it, and its stop ends rank 1's replay."""
+    rank0 = worker_pid(proc.pid, rank=0)
+    os.kill(rank0, signal.SIGTERM) if rank0 else os.killpg(proc.pid, signal.SIGKILL)
+    return proc.communicate(timeout=120)
+
+
 @pytest.mark.timeout(300)
 def test_serve_cli_under_torchrun_serves_the_model2_run_sharded(worlds, tmp_path):
     from tensorflow_examples_torch.telemetry.schema import validate_line
@@ -523,32 +560,14 @@ def test_serve_cli_under_torchrun_serves_the_model2_run_sharded(worlds, tmp_path
     want, _ = serve_in_process(workdir, "--serve_sharding_config", "off")
     port = free_port()
     stats = tmp_path / "stats"
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
-           "2", "--master_addr", "127.0.0.1", "--master_port", str(free_port()), "-m",
-           "tensorflow_examples_torch.serve", *cli_args(workdir, "--port", str(port)),
-           "--stats_every", "0.5", "--stats_dir", str(stats)]
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    proc = torchrun_serve(workdir, port, "--stats_every", "0.5", "--stats_dir", str(stats))
     try:
         base = f"http://127.0.0.1:{port}"
-        deadline = time.monotonic() + 180
-        health = None
-        while health is None:
-            assert proc.poll() is None, proc.communicate()[1][-4000:]
-            assert time.monotonic() < deadline, "the torchrun server did not come up"
-            try:
-                with urllib.request.urlopen(base + "/health", timeout=5) as r:
-                    health = json.loads(r.read())
-            except OSError:
-                time.sleep(0.5)
+        health = wait_healthy(proc, base)
         got = post(base + "/generate", {"prompt": CLI_PROMPT, "max_new_tokens": CLI_NEW})
         time.sleep(1.5)  # a serving line or two
     finally:
-        # SIGTERM to rank 0 drains it, and its stop ends rank 1's replay.
-        rank0 = worker_pid(proc.pid, rank=0)
-        os.kill(rank0, signal.SIGTERM) if rank0 else os.killpg(proc.pid, signal.SIGKILL)
-        out, err = proc.communicate(timeout=120)
+        out, err = stop_torchrun(proc)
     assert proc.returncode == 0, err[-4000:]
     assert got["tokens"] == want
     assert health["mesh_shape"]["model"] == 2 and health["mesh_shape"]["data"] == 1
@@ -560,3 +579,71 @@ def test_serve_cli_under_torchrun_serves_the_model2_run_sharded(worlds, tmp_path
     assert lines and all(not validate_line(x) for x in lines)
     assert lines[-1]["param_sharding_digest"] == health["param_sharding_digest"]
     assert lines[-1]["mesh_shape"] == health["mesh_shape"]
+
+
+# Disaggregated serving from the {model: 2} run: block 16, paged_flash.
+HANDOFF_FLAGS = ("--kv_block_size", "16", "--kv_bucket_floor", "32", "--attention",
+                 "paged_flash")
+HANDOFF_BODIES = ({"prompt": CLI_PROMPT, "max_new_tokens": CLI_NEW},
+                  {"prompt": list(range(3, 23)), "max_new_tokens": CLI_NEW, "seed": 7,
+                   "temperature": 0.8, "top_k": 20})
+
+
+@pytest.mark.timeout(300)
+def test_router_hands_off_from_a_torchrun_prefill_replica(worlds):
+    """The ``{model: 2}`` run served as a prefill replica by two ranks
+    under torchrun, a one-rank decode replica in this process, the port's
+    Router in front: each routed stream is the JAX mixed engine's."""
+    from tensorflow_examples_torch.generate import restore_model
+    from tensorflow_examples_torch.serving.router import Router
+
+    workdir = worlds["workdir"]
+    model_cfg = transformer.TransformerConfig(
+        vocab_size=TRAIN["vocab_size"], max_len=TRAIN["seq_len"],
+        num_layers=TRAIN["num_layers"], num_heads=TRAIN["num_heads"], d_model=TRAIN["d_model"])
+    params, _ = restore_model(model_cfg, workdir, "cpu")
+    theirs = jax_engine_on(model_cfg, convert.to_param_tree(params), kv_block_size=16,
+                           kv_bucket_floor=32)
+    want = []
+    for body in HANDOFF_BODIES:
+        sampling = {k: body.get(k, 0) for k in ("seed", "temperature", "top_k")}
+        slot = theirs.pool.alloc()
+        toks = [int(theirs.prefill(slot, body["prompt"], **sampling)[0])]
+        while len(toks) < CLI_NEW:
+            toks.append(int(theirs.decode([(slot, toks[-1], sampling["seed"],
+                                            float(sampling["temperature"]),
+                                            sampling["top_k"])])[slot]))
+        theirs.pool.free(slot)
+        want.append(toks)
+    port = free_port()
+    proc = torchrun_serve(workdir, port, "--role", "prefill", *HANDOFF_FLAGS)
+    decode = router = None
+    try:
+        base = f"http://127.0.0.1:{port}"
+        health = wait_healthy(proc, base)
+        decode = start_in_process(workdir, "--serve_sharding_config", "off", "--role", "decode",
+                                  *HANDOFF_FLAGS)
+        # The in-process replica counts into the process's default registry.
+        before = decode.batcher.engine.registry.counter_values()
+        router = Router([base, decode.url("")])
+        router.probe_once()
+        got = [router.handle(dict(body), kind="generate") for body in HANDOFF_BODIES]
+        counters = router.registry.counter_values()
+    finally:
+        if router is not None:
+            router.close()
+        if decode is not None:
+            decode.close()
+            decode.batcher.close()
+        out, err = stop_torchrun(proc)
+    assert proc.returncode == 0, err[-4000:]
+    assert health["role"] == "prefill" and health["mesh_shape"]["model"] == 2
+    assert [status for status, _ in got] == [200, 200], got
+    assert [reply["tokens"] for _, reply in got] == want
+    assert counters["router/handoffs_total"] == len(HANDOFF_BODIES)
+    assert counters.get("router/handoff_fallbacks_total", 0) == 0
+    assert "role prefill, attention paged_flash, mesh" in err
+    after = decode.batcher.engine.registry.counter_values()
+    moved = {k: after.get(k, 0) - before.get(k, 0) for k in
+             ("serving/kv_pages_imported", "serving/prefill_tokens")}
+    assert moved == {"serving/kv_pages_imported": 1 + 2, "serving/prefill_tokens": 0}
