@@ -305,8 +305,7 @@ non-zero:
    every collective staged through pinned host memory): a world of 2
    runs ``{data: 2}``, ``{data: 2}`` with ZeRO-1, ``{fsdp: 2}``,
    ``{model: 2}`` with ``tp_vocab``, ``{context: 2}`` over the zigzag
-   ring and over Ulysses, and a world of 4 runs ``{data: 2, model: 2}``:
-   each layout's 4-step f32 trajectory (dropout 0) within rtol 3e-3 of
+   ring and over Ulysses: each layout's 4-step f32 trajectory (dropout 0) within rtol 3e-3 of
    the one-rank run of the same config, ZeRO-1 within 1e-6 of ``{data:
    2}`` with fewer optimizer bytes a rank, the ranks' losses equal, the
    second of 2 bf16 steps timed per rank, and the launches of flash forward, dK/dV, dQ and
@@ -326,7 +325,18 @@ non-zero:
    launches of each pipeline layout are held to its schedule's count
    rank by rank; ``train.cli`` under torchrun on ``{data: 1, pipe: 2}``
    for 4 steps, resumed to 6 on ``{pipe: 2}`` with
-   ``--pipe_interleave 1``;
+   ``--pipe_interleave 1``. The other workloads, in the world of 2:
+   ResNet-50 at 224 px and 1000 classes on ``{data: 2}`` (each
+   BatchNorm's moments summed over the ranks, forward and backward; 4
+   f32 steps at 2 x 32, cuDNN deterministic, against one rank at 64: the
+   losses within rtol 3e-3, the ranks' running statistics bitwise equal
+   and each element within rtol 3e-3, atol 1e-5 of one rank's;
+   2 bf16 steps at 2 x 128, the second timed, with the peak memory a
+   rank, beside phase_imagenet's one rank at 256) and BERT-base GLUE
+   with the flash kernels on ``{model: 2}`` (6 heads a rank, the key
+   bias; 4 f32 steps at 32 x 128 against one rank, 12 launches of each
+   flash kernel a step on every rank; 2 bf16 steps, the second timed,
+   against one rank's);
 6. the ``{"group_row_sum": {...}}`` line (not the port of a TPU kernel),
    the ``{"phase_seconds": {...}}`` line (each phase also prints
    ``phase <name>: S s`` as it ends), the ``{"kernels": [...]}`` line,
@@ -4523,6 +4533,18 @@ def phase_bert_glue(torch, counters, smi: str, tmp: str) -> dict:
     return run
 
 
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN deterministic, its autotuner off (bitwise reruns), then as
+    it was."""
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
 def write_cifar_batches(root: str, seed: int = 0) -> str:
     """CIFAR-10's python-pickle distribution at its real size (5 training
     batches and a test batch of 10 000 images each) with seeded uint8
@@ -4575,16 +4597,12 @@ def phase_cifar10(torch, counters, smi: str, tmp: str) -> dict:
                        telemetry_sinks="")
     data = lambda start: train_iterator(train_ds, cfg.global_batch_size, seed=cfg.seed,
                                         start_step=start, augment=cifar10.train_augment(cfg))
-    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
+    with cudnn_deterministic(torch):
         runs = {}
         for k in (1, 4):
             trainer = Trainer(cifar10.make_task(cfg), cfg.replace(steps_per_launch=k))
             trainer.fit(data, num_steps=4)
             runs[k] = trainer
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     vec = lambda t, part: torch.cat([x.float().reshape(-1) for x in
                                      (t.state.params.values() if part == "params" else
                                       t.state.model_state["batch_stats"].values())])
@@ -4920,10 +4938,8 @@ def imagenet_shards(torch, counters, smi: str, tmp: str, here: str, base, probes
     # run resumed from its step-7 checkpoint in a fresh workdir.
     argv = ["--global_batch_size", str(IMAGENET_BATCH), "--warmup_steps", "5",
             "--data_dir", root, "--input_workers", str(IMAGENET_WORKERS)]
-    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     first_span = len(spans.default_tracer().chrome_trace()["traceEvents"])
-    try:
+    with cudnn_deterministic(torch):
         workdir = os.path.join(tmp, "imagenet-fed")
         p_start, p_num = IMAGENET_FED_PROFILE
         run = cli_train(torch, counters, "imagenet",
@@ -4939,8 +4955,6 @@ def imagenet_shards(torch, counters, smi: str, tmp: str, here: str, base, probes
                            str(IMAGENET_FED_STEPS), "--workdir", resumed_dir,
                            "--telemetry_sinks", "jsonl", "--log_every", "1",
                            "--eval_every", "0"])
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     if any(run["launches"].values()):
         fail(f"imagenet (b): ResNet-50 launched a port kernel: {run['launches']}")
     losses = window_metric(workdir, "train/loss")
@@ -5174,8 +5188,9 @@ MESH_LAYOUTS_2 += (
     ("pipe interleaved", {"pipe": 2}, {"num_layers": MESH_PIPE_LAYERS, "pipe_interleave": 2,
                                        "ref": "pipe 1f1b 4 layers"}),
 )
-MESH_LAYOUTS_4 = (("data+model", {"data": 2, "model": 2}, {}),
-                  ("data+pipe", {"data": 2, "pipe": 2}, {}),
+# The dense {data: 2, model: 2} layout is left to "data+model moe ep",
+# whose h_0 is a dense tensor-parallel block on the same mesh.
+MESH_LAYOUTS_4 = (("data+pipe", {"data": 2, "pipe": 2}, {}),
                   ("model+pipe flash", {"model": 2, "pipe": 2}, {"attention": "flash"}),
                   ("data+model moe ep", {"data": 2, "model": 2},
                    {"moe_experts": 8, "moe_top_k": 2, "capacity": MESH_EP_CAPACITY,
@@ -5183,6 +5198,7 @@ MESH_LAYOUTS_4 = (("data+model", {"data": 2, "model": 2}, {}),
 MESH_PIPE_LAYOUTS = ("pipe 1f1b", "pipe gpipe", "pipe 1f1b 4 layers", "pipe interleaved",
                      "data+pipe", "model+pipe flash")
 MESH_RTOL = 3e-3        # mesh against one device, f32 (tests/test_sharding.py:306-321)
+MESH_ATOL = 1e-5        # beside MESH_RTOL for the running statistics (the CPU tests')
 MESH_ZERO1_RTOL = 1e-6  # ZeRO-1 against data parallelism (tests/test_sharding.py:352)
 MESH_INTERLEAVE_RTOL = 1e-5  # interleaved against plain 1F1B (tests/test_train_gpt2.py:352)
 MESH_WORKER_KEYS = ("bf16", "capacity", "ref")
@@ -5265,15 +5281,121 @@ def mesh_counters():
             "ce_bwd": cross_entropy.ce_bwd}
 
 
+# BERT-base and ResNet-50 on the world of 2: f32 trajectories
+# against one rank, then bf16 steps a rank, the second timed.
+WORKLOAD_STEPS = 4        # f32 steps of each against its one-rank run
+WORKLOAD_BF16_STEPS = 2
+RESNET_MESH_BATCH = 64    # ResNet-50's f32 global batch: 2 x 32 on {data: 2}
+RESNET_MESH_BF16_BATCH = 256  # 2 x 128, against phase_imagenet's one-rank 256
+BERT_MESH_LAYOUT = {"model": 2}
+RESNET_MESH_LAYOUT = {"data": 2}
+
+
+def resnet_mesh_config(precision: str, batch: int):
+    """ResNet-50 at the recipe's widths (224 px, 1000 classes), its
+    learning rate scaled to the batch as the recipe scales it (0.1 x
+    batch / 256), warmup 2, no files."""
+    from tensorflow_examples_torch.workloads import imagenet
+
+    return imagenet.ImagenetConfig(global_batch_size=batch, precision=precision, warmup_steps=2,
+                                   learning_rate=0.1 * batch / 256,
+                                   train_steps=WORKLOAD_STEPS, log_every=WORKLOAD_STEPS,
+                                   eval_every=0, checkpoint_every=0, watchdog_secs=0,
+                                   telemetry_sinks="")
+
+
+def resnet_batches(cfg, n: int) -> list:
+    """``n`` seeded global batches of normalized-scale images and labels."""
+    rng = np.random.default_rng(0)
+    shape = (cfg.global_batch_size, cfg.image_size, cfg.image_size, 3)
+    return [{"image": rng.standard_normal(shape, dtype=np.float32),
+             "label": rng.integers(0, cfg.num_classes, cfg.global_batch_size).astype(np.int32)}
+            for _ in range(n)]
+
+
+def bert_mesh_config(precision: str):
+    """BERT-base GLUE sst2 at the recipe's batch 32 x 128, flash attention,
+    dropout 0, warmup 2, no files."""
+    from tensorflow_examples_torch.workloads import bert_glue
+
+    return bert_glue.BertGlueConfig(attention="flash", dropout=0.0, precision=precision,
+                                    warmup_steps=2, train_steps=WORKLOAD_STEPS,
+                                    log_every=WORKLOAD_STEPS, eval_every=0, checkpoint_every=0,
+                                    watchdog_secs=0, telemetry_sinks="")
+
+
+def bert_batches(cfg, n: int) -> list:
+    from tensorflow_examples_torch.data import memory
+    from tensorflow_examples_torch.workloads import bert_glue
+
+    it = memory.train_iterator(bert_glue.datasets(cfg)[0], cfg.global_batch_size, seed=0)
+    return [next(it) for _ in range(n)]
+
+
+def workload_runs(torch, device, *, on_mesh: bool, resnet_bf16: bool = True) -> dict:
+    """ResNet-50 on ``RESNET_MESH_LAYOUT`` and BERT-base flash on
+    ``BERT_MESH_LAYOUT`` (or, ``on_mesh`` False, one rank): each one's f32
+    losses over ``WORKLOAD_STEPS`` (ResNet-50's final ``batch_stats``, cuDNN
+    deterministic; BERT's flash launches counted from 0 around them),
+    then ``WORKLOAD_BF16_STEPS`` bf16 steps, the second timed, with the
+    peak memory a rank (one rank: BERT's alone; ResNet-50's is
+    phase_imagenet's at 256)."""
+    from tensorflow_examples_torch.sharding import ShardingConfig
+    from tensorflow_examples_torch.train.loop import Trainer
+    from tensorflow_examples_torch.workloads import bert_glue, imagenet
+
+    out = {}
+    for name, layout, module, make_cfg, make_batches, runs in (
+            ("resnet50", RESNET_MESH_LAYOUT, imagenet,
+             lambda p: resnet_mesh_config(p, RESNET_MESH_BATCH if p == "f32" else
+                                          RESNET_MESH_BF16_BATCH), resnet_batches,
+             ("f32", "bf16") if resnet_bf16 else ("f32",)),
+            ("bert", BERT_MESH_LAYOUT, bert_glue, bert_mesh_config, bert_batches,
+             ("f32", "bf16"))):
+        sc = ShardingConfig(mesh=layout if on_mesh else {"data": 1})
+        mesh = sc.build_mesh(device=device)
+        counters = mesh_counters()
+        res = {}
+        for precision in runs:
+            cfg = make_cfg(precision)
+            t0 = time.perf_counter()
+            trainer = Trainer(module.make_task(cfg, mesh=mesh), cfg, mesh=mesh, sharding=sc)
+            batches = make_batches(cfg, WORKLOAD_STEPS if precision == "f32"
+                                   else WORKLOAD_BF16_STEPS)
+            reset_counts(counters)
+            torch.cuda.reset_peak_memory_stats(device)
+            with cudnn_deterministic(torch) if name == "resnet50" else contextlib.nullcontext():
+                losses, ms = mesh_steps(torch, trainer, batches)
+            if precision == "f32":
+                res.update(losses=losses, launches={k: c.launches for k, c in counters.items()
+                                                    if k.startswith("flash")})
+                if name == "resnet50":
+                    res["batch_stats"] = {k: v.cpu().numpy() for k, v in
+                                          trainer.state.model_state["batch_stats"].items()}
+                else:
+                    res["qkv_local"] = tuple(trainer.state.params[
+                        "bert.layer_0.attn_qkv.kernel"].shape)
+            else:
+                res.update(bf16_step_ms=ms[-1], bf16_losses=losses,
+                           bf16_peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+            res[f"{precision}_wall_s"] = time.perf_counter() - t0
+            del trainer, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[name] = res
+    return out
+
+
 def mesh_worker(rank: int, layouts, restore_dir: str | None, restore_argv,
-                recorded=None) -> dict:
+                recorded=None, workloads: bool = False) -> dict:
     """One rank of a world on the card: each layout's f32 trajectory (its
     launches of kernels 1-5 counted from 0 around it) and bf16 step
     times, then, with ``restore_dir``, the checkpoint there restored on
     ``{model: 2}`` and gathered back: rank 0 reports whether every param
     equals the saved one bit for bit. ``recorded``: the one-rank MoE
     run's routing, which an expert-parallel layout's f32 run replays on
-    this rank's tokens (:class:`rank_routing`)."""
+    this rank's tokens (:class:`rank_routing`). ``workloads``: then
+    ResNet-50 and BERT-base on their layouts (:func:`workload_runs`)."""
     import torch
 
     from tensorflow_examples_torch.core import distributed
@@ -5295,6 +5417,7 @@ def mesh_worker(rank: int, layouts, restore_dir: str | None, restore_argv,
         mesh = sc.build_mesh(device=device)
         batches = mesh_batches(cfg, MESH_STEPS)
         res = {}
+        t_layout = time.perf_counter()
         for precision in ("f32", "bf16") if kw.get("bf16", True) else ("f32",):
             run_cfg = cfg.replace(precision=precision)
             trainer = Trainer(gpt2.make_task(run_cfg, mesh=mesh, **overrides), run_cfg,
@@ -5333,7 +5456,10 @@ def mesh_worker(rank: int, layouts, restore_dir: str | None, restore_argv,
             del trainer
             gc.collect()
             torch.cuda.empty_cache()
+        res["wall_s"] = time.perf_counter() - t_layout
         out["layouts"][name] = res
+    if workloads:
+        out["workloads"] = workload_runs(torch, device, on_mesh=True)
     if restore_dir:
         from tensorflow_examples_torch.train import cli
 
@@ -5385,7 +5511,72 @@ def torchrun_result(argv: list, p, wall: float) -> dict:
     return {"result": results[0], "wall_s": wall, "notes": notes}
 
 
-def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
+def workload_checks(one: dict, ranks: list, imagenet_a: dict, smi: str) -> dict:
+    """ResNet-50 on ``{data: 2}`` and BERT-base on ``{model: 2}`` held to
+    their one-rank runs: the ranks' losses (and ResNet-50's statistics,
+    bitwise) equal, the f32 losses within ``MESH_RTOL`` and each running
+    statistic within ``MESH_RTOL`` and ``MESH_ATOL`` elementwise,
+    BERT's 12 launches of each flash kernel a step on every rank at 6
+    heads a rank; the bf16 step a rank beside one rank's. Each row is
+    printed before any of its checks fails."""
+    out, problems = {}, []
+    for name, layout in (("resnet50", RESNET_MESH_LAYOUT), ("bert", BERT_MESH_LAYOUT)):
+        per_rank, ref = [r[name] for r in ranks], one[name]
+        losses = per_rank[0]["losses"]
+        if any(r["losses"] != losses for r in per_rank):
+            fail(f"mesh {name}: ranks disagree on the loss: {[r['losses'] for r in per_rank]}")
+        rel = float(np.max(np.abs(np.array(losses) - ref["losses"]) / np.abs(ref["losses"])))
+        if not rel <= MESH_RTOL:
+            problems.append(f"mesh {name} {layout}: f32 losses {losses} vs one rank "
+                            f"{ref['losses']}: rel {rel:.3e} > {MESH_RTOL}")
+        bf16 = [r["bf16_losses"] for r in per_rank]
+        if not np.all(np.isfinite(bf16)) or any(b != bf16[0] for b in bf16):
+            problems.append(f"mesh {name}: bf16 losses {bf16}")
+        row = out[name] = {
+            "mesh": layout, "f32_losses": losses, "one_rank_f32_losses": ref["losses"],
+            "rel_vs_one_rank": rel, "bf16_losses": bf16[0],
+            "bf16_step_ms_per_rank": [r["bf16_step_ms"] for r in per_rank],
+            "bf16_peak_mem_gib_per_rank": [r["bf16_peak_mem_gib"] for r in per_rank],
+            "wall_s_per_rank": [r["f32_wall_s"] + r["bf16_wall_s"] for r in per_rank]}
+        if name == "resnet50":
+            stats, want = per_rank[0]["batch_stats"], ref["batch_stats"]
+            if any(not np.array_equal(v, stats[k]) for r in per_rank[1:]
+                   for k, v in r["batch_stats"].items()):
+                problems.append("mesh resnet50: the ranks' batch_stats differ")
+            # Each element's error over its bound, MESH_ATOL + MESH_RTOL x one rank's.
+            ratio = {k: float(np.max(np.abs(v - want[k]) /
+                                     (MESH_ATOL + MESH_RTOL * np.abs(want[k]))))
+                     for k, v in stats.items() if k in want}
+            worst = max(ratio, key=ratio.get)
+            row.update(batch_stats_max_abs_err=max(float(np.max(np.abs(v - want[k])))
+                                                   for k, v in stats.items() if k in want),
+                       batch_stats_worst_err_over_bound=ratio[worst], batch_stats_worst=worst)
+            if ratio[worst] > 1.0 or stats.keys() != want.keys():
+                problems.append(f"mesh resnet50: {worst} off one rank's by {ratio[worst]:.3e} "
+                                f"of its bound (rtol {MESH_RTOL}, atol {MESH_ATOL})")
+            row.update(global_batch_f32=RESNET_MESH_BATCH, global_batch_bf16=RESNET_MESH_BF16_BATCH,
+                       one_rank_bf16_step_ms_at_256=imagenet_a["repeated_batch_step_ms_p50"],
+                       one_rank_bf16_peak_mem_gib_at_256=imagenet_a["peak_mem_gib"],
+                       batch_stats_bitwise_across_ranks=True)
+        else:
+            want = {k: 12 * WORKLOAD_STEPS for k in FLASH_KERNELS}
+            launches = [r["launches"] for r in per_rank]
+            if launches != [want] * len(per_rank) or ref["launches"] != want:
+                problems.append(f"mesh bert: flash launches per rank {launches} (one rank "
+                                f"{ref['launches']}), want 12 a step: {want}")
+            heads = [r["qkv_local"] for r in per_rank]
+            if heads != [(768, 3, 6, 64)] * len(per_rank):
+                problems.append(f"mesh bert: attn_qkv.kernel a rank {heads}, want [768, 3, 6, 64]")
+            row.update(launches_per_rank=launches, qkv_local=heads[0],
+                       one_rank_bf16_step_ms=ref["bf16_step_ms"],
+                       one_rank_bf16_peak_mem_gib=ref["bf16_peak_mem_gib"])
+        log(f"mesh {name} {layout}: {json.dumps(row)}; {smi}")
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+def phase_mesh(torch, here: str, smi: str, tmp: str, imagenet_a: dict) -> dict:
     """GPT-2 training on meshes of ranks sharing the one card (gloo,
     collectives staged through host memory): each layout's f32 4-step
     trajectory against its reference (the one-rank run of the same
@@ -5396,7 +5587,9 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
     schedule's count); then ``train.cli`` under torchrun on ``{data: 2}``
     and a resume on ``{model: 2}``, the checkpoint restored on ``{model:
     2}`` bit for bit, and on ``{data: 1, pipe: 2}`` resumed on ``{pipe:
-    2}``."""
+    2}``; in the world of 2, ResNet-50 on ``{data: 2}`` and BERT-base
+    flash on ``{model: 2}`` against their one-rank runs
+    (:func:`workload_checks`)."""
     from tensorflow_examples_torch.core import distributed
     from tensorflow_examples_torch.parallel import moe as moe_mod
     from tensorflow_examples_torch.train.loop import Trainer
@@ -5434,6 +5627,10 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+    one = workload_runs(torch, distributed.local_device("cuda"), on_mesh=False, resnet_bf16=False)
+    log(f"mesh: one rank, ResNet-50 f32 losses {one['resnet50']['losses']} (batch "
+        f"{RESNET_MESH_BATCH}), BERT-base f32 losses {one['bert']['losses']}, bf16 step "
+        f"{one['bert']['bf16_step_ms']:.2f} ms; {smi}")
 
     # train.cli under torchrun on {data: 2} (the checkpoint the world below
     # restores) and, beside it, on {data: 1, pipe: 2} to step 4.
@@ -5451,7 +5648,7 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
     for n, layouts, restore in worlds:
         t0 = time.perf_counter()
         ranks_out[n] = distributed.run_world(mesh_worker, n, layouts, restore,
-                                             [*run_argv, "--mesh_model", "2"], recorded,
+                                             [*run_argv, "--mesh_model", "2"], recorded, n == 2,
                                              device="cuda", timeout_s=900)
         log(f"mesh: world of {n} ranks on one card, backend {ranks_out[n][0]['backend']} "
             f"(host-staged collectives), {time.perf_counter() - t0:.1f} s")
@@ -5510,7 +5707,8 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
             row = out["layouts"][name] = {
                 "mesh": mesh_kw, **kw, "f32_losses": losses, "ref": ref_name,
                 "rel_vs_ref": rel, "launches_per_rank": [r["launches"] for r in per_rank],
-                "opt_bytes_per_device": per_rank[0]["opt_bytes_per_device"]}
+                "opt_bytes_per_device": per_rank[0]["opt_bytes_per_device"],
+                "wall_s_per_rank": [r["wall_s"] for r in per_rank]}
             if "bf16_step_ms_p50" in per_rank[0]:
                 row["bf16_step_ms_p50_per_rank"] = [r["bf16_step_ms_p50"] for r in per_rank]
             if "bf16_1f1b" in per_rank[0]:
@@ -5528,7 +5726,8 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
                 if not all(gap < NEAR_TIE for _, gap in flips):
                     fail(f"mesh {name}: a replayed routing decision was no near-tie: {flips}")
             log(f"mesh {name} {mesh_kw}: f32 losses {losses} rel {rel:.3e} vs {ref_name}; bf16 "
-                f"step p50 ms per rank {row.get('bf16_step_ms_p50_per_rank')}; launches per "
+                f"step p50 ms per rank {row.get('bf16_step_ms_p50_per_rank')}; wall s per rank "
+                f"{row['wall_s_per_rank']}; launches per "
                 f"rank {row['launches_per_rank']}"
                 + (f"; 1F1B ticks, idle ticks, wall and hop seconds of the last bf16 step per "
                    f"rank {row['bf16_1f1b_per_rank']}" if "bf16_1f1b_per_rank" in row else "")
@@ -5546,6 +5745,10 @@ def phase_mesh(torch, here: str, smi: str, tmp: str) -> dict:
     idle = [k for k, per in launches.items() if any(v == 0 for v in per[:2])]
     if idle:
         fail(f"mesh: kernels {idle} not launched on every rank: {launches}")
+    out["workloads"] = workload_checks(one, [r["workloads"] for r in ranks_out[2]], imagenet_a,
+                                       smi)
+    out["bert_launches_per_rank"] = {
+        k: [r["workloads"]["bert"]["launches"][k] for r in ranks_out[2]] for k in FLASH_KERNELS}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"mesh: launches of kernels 1-5 per rank over every layout {json.dumps(launches)}, "
         f"over the pipeline layouts {json.dumps(pipe_launches)}; zero1 vs data rel "
@@ -5602,7 +5805,7 @@ def main() -> int:
         bert = timed("bert_glue", phase_bert_glue, torch, counters, smi, tmp)
         timed("cifar10", phase_cifar10, torch, counters, smi, tmp)
         timed("mnist", phase_mnist, torch, counters, smi, tmp)
-        timed("imagenet", phase_imagenet, torch, counters, smi, tmp, here)
+        imagenet = timed("imagenet", phase_imagenet, torch, counters, smi, tmp, here)
 
     model_cfg = transformer.gpt2_124m()
     t0 = time.perf_counter()
@@ -5616,7 +5819,7 @@ def main() -> int:
                     paged_decode, precision, smi, here)
     del model
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        mesh = timed("mesh", phase_mesh, torch, here, smi, tmp)
+        mesh = timed("mesh", phase_mesh, torch, here, smi, tmp, imagenet["a"])
 
     for name in TRAIN_KERNELS:
         # The mesh path: every layout's launches, rank by rank.
@@ -5624,6 +5827,8 @@ def main() -> int:
         rows[name]["pipe_launches_per_rank"] = mesh["pipe_launches_per_rank"][name]
     for name in FLASH_KERNELS:
         rows[name]["tensor_core_launches"] = training["launches"][f"{name}_tensor_core"]
+        # BERT-base on {model: 2}: each rank's launches over its f32 steps.
+        rows[name]["bert_mesh_launches_per_rank"] = mesh["bert_launches_per_rank"][name]
         # BERT's path: its own count (20 steps, and 8 eval batches for the forward).
         rows[name]["bert_glue"] = {**bert_rows[name], "launches": bert["launches"][name],
                                    "launches_per_step": bert["launches_per_step"][name]}
@@ -5687,6 +5892,7 @@ def main() -> int:
                                    "head_dim_sweep_max_abs_err", "tensor_core_launches",
                                    "simt_launches", "split_launches", "bert_glue",
                                    "mesh_launches_per_rank", "pipe_launches_per_rank",
+                                   "bert_mesh_launches_per_rank",
                                    "sharded_launches_per_rank", "sharded_rank_shape")
                if k in row},
         })

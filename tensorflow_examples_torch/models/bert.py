@@ -20,12 +20,21 @@ and ``NEG_INF`` where it is padding. ``attention="xla"`` is the plain
 path: f32 scores plus the bias, softmax in f32, probabilities cast to the
 compute dtype (``ops/attention.attention_reference``);
 ``attention="flash"`` runs the flash kernels non-causal with the bias as
-their key bias (``ops/attention.flash_attention``), on the tensor cores
-in bf16. The reference's ``mesh_attention`` wrapper waits for the
-parallel layer. Under ``train=True`` dropout runs at the reference's
+their key bias (``ops/attention.flash_attention``, reached through
+``parallel/attention.mesh_attention`` on one device and on a mesh), on
+the tensor cores in bf16. Under ``train=True`` dropout runs at the reference's
 sites (embeddings; each layer's attention and FFN outputs; the pooled
 output) with masks from the step's ``core/rng.StepNoise``, as the GPT-2
 forward's (``models/transformer.Dropout``).
+
+Meshes (``encode``/``forward`` with ``mesh=``, per-rank code): the
+parameters are this rank's shards under :data:`BERT_RULES`, the
+reference's table (FSDP pieces already gathered by the trainer). On a
+``model`` > 1 mesh a layer is Megatron's, as the GPT-2 block
+(``models/transformer.py``): qkv ``[d, 3, H, hd]`` split by heads and
+``ffn_in`` by columns take their input through ``collectives.copy_to``,
+``attn_proj`` and ``ffn_out`` split by rows are summed with ``psum``
+before their replicated bias, and attention runs on the rank's heads.
 """
 
 from __future__ import annotations
@@ -36,10 +45,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensorflow_examples_torch.core import collectives as coll
 from tensorflow_examples_torch.core import rng as rng_mod
+from tensorflow_examples_torch.core.mesh import AxisNames
+from tensorflow_examples_torch.core.sharding import ShardingRules
 from tensorflow_examples_torch.models.mlp import Dense
 from tensorflow_examples_torch.models.transformer import Dropout, Embed, LayerNorm, _layer_norm
-from tensorflow_examples_torch.ops.attention import attention_reference, flash_attention
+from tensorflow_examples_torch.ops.attention import attention_reference
+from tensorflow_examples_torch.parallel.attention import mesh_attention
 
 NEG_INF = -1e30
 ATTENTION_IMPLS = ("xla", "flash")
@@ -69,6 +82,20 @@ class BertConfig:
 
 def bert_base(**overrides) -> BertConfig:
     return BertConfig(**overrides)
+
+
+# The reference's BERT_RULES (core/sharding.py): the GPT-2 table's
+# layout, qkv split by heads over ``model``, the projections
+# row-parallel, the kernels' other dim over ``fsdp``.
+_M, _F = AxisNames.MODEL, AxisNames.FSDP
+BERT_RULES = ShardingRules([
+    (r"attn_qkv/kernel", (_F, None, _M, None)),
+    (r"attn_qkv/bias", (None, _M, None)),
+    (r"attn_proj/kernel", (_M, None, _F)),
+    (r"ffn_in/kernel", (_F, _M)),
+    (r"ffn_in/bias", (_M,)),
+    (r"ffn_out/kernel", (_M, _F)),
+])
 
 
 class BertLayer(nn.Module):
@@ -123,12 +150,12 @@ def key_bias(attention_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(attention_mask > 0, zero, NEG_INF)
 
 
-def _attend(q, k, v, bias, impl: str):
+def _attend(q, k, v, bias, impl: str, mesh=None):
     """Bidirectional attention of [B, S, H, hd] operands under the key
-    bias."""
+    bias; ``mesh``: the operands are this rank's heads."""
     swap = lambda t: t.transpose(1, 2)  # [B,S,H,D] <-> [B,H,S,D]
     if impl == "flash":
-        out = flash_attention(swap(q), swap(k), swap(v), causal=False, key_bias=bias)
+        out = mesh_attention(swap(q), swap(k), swap(v), mesh=mesh, causal=False, key_bias=bias)
     else:
         out = attention_reference(swap(q), swap(k), swap(v), causal=False, key_bias=bias)
     return swap(out)
@@ -138,25 +165,37 @@ def _dense(x, dense):
     return x @ dense.kernel + dense.bias
 
 
-def _layer(x, p, bias, cfg: BertConfig, drop: Dropout, layer: int):
-    """One post-LN layer over ``p``, the layer's parameters."""
+def _layer(x, p, bias, cfg: BertConfig, drop: Dropout, layer: int, mesh=None):
+    """One post-LN layer over ``p``, the layer's parameters (this rank's
+    heads and FFN columns on a ``model`` mesh)."""
+    enter = reduce = lambda t: t
+    if mesh is not None and mesh.axis_size(AxisNames.MODEL) > 1:
+        enter = lambda t: coll.copy_to(t, AxisNames.MODEL, mesh=mesh)
+        reduce = lambda t: coll.psum(t, AxisNames.MODEL, mesh=mesh)
     w = p.attn_qkv.kernel  # [d, 3, H, hd]
-    qkv = (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:]) + p.attn_qkv.bias
-    ctx = _attend(qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :], bias, cfg.attention)
+    qkv = (enter(x) @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    qkv = qkv + p.attn_qkv.bias
+    ctx = _attend(qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :], bias, cfg.attention,
+                  mesh)
     proj = p.attn_proj.kernel  # [H, hd, d]
-    attn_out = ctx.reshape(*ctx.shape[:-2], -1) @ proj.reshape(-1, proj.shape[-1])
+    attn_out = reduce(ctx.reshape(*ctx.shape[:-2], -1) @ proj.reshape(-1, proj.shape[-1]))
     attn_out = attn_out + p.attn_proj.bias
     x = _layer_norm(x + drop(attn_out, 2 * layer + 1), p.attn_ln, cfg.layer_norm_eps)
-    y = _dense(F.gelu(_dense(x, p.ffn_in)), p.ffn_out)  # exact erf gelu
+    h = F.gelu(_dense(enter(x), p.ffn_in))  # exact erf gelu
+    y = reduce(h @ p.ffn_out.kernel) + p.ffn_out.bias
     return _layer_norm(x + drop(y, 2 * layer + 2), p.ffn_ln, cfg.layer_norm_eps)
 
 
 def encode(cfg: BertConfig, params, tokens: torch.Tensor, attention_mask=None,
            token_type_ids=None, *, train: bool = False,
-           noise: rng_mod.StepNoise | None = None, drop: Dropout | None = None):
+           noise: rng_mod.StepNoise | None = None, drop: Dropout | None = None, mesh=None):
     """(sequence output [B, S, d], pooled [B, d]) in the parameters'
     dtype; ``params`` is a :class:`BertClassifier` or a
-    :class:`~tensorflow_examples_torch.models.transformer.ParamView`."""
+    :class:`~tensorflow_examples_torch.models.transformer.ParamView`.
+    ``mesh``: ``tokens`` are this rank's rows and ``params`` its shards
+    under :data:`BERT_RULES` (see the module docstring)."""
+    if mesh is not None and mesh.trivial:
+        mesh = None
     if attention_mask is None:
         attention_mask = torch.ones_like(tokens)
     if token_type_ids is None:
@@ -176,18 +215,19 @@ def encode(cfg: BertConfig, params, tokens: torch.Tensor, attention_mask=None,
     x = drop(_layer_norm(emb, enc.embeddings_ln, cfg.layer_norm_eps), 0)
     bias = key_bias(attention_mask)
     for i in range(cfg.num_layers):
-        x = _layer(x, getattr(enc, f"layer_{i}"), bias, cfg, drop, i)
+        x = _layer(x, getattr(enc, f"layer_{i}"), bias, cfg, drop, i, mesh)
     return x, torch.tanh(_dense(x[:, 0], enc.pooler))
 
 
 def forward(cfg: BertConfig, params, tokens: torch.Tensor, attention_mask=None,
             token_type_ids=None, *, train: bool = False,
-            noise: rng_mod.StepNoise | None = None) -> torch.Tensor:
+            noise: rng_mod.StepNoise | None = None, mesh=None) -> torch.Tensor:
     """The classifier's f32 logits [B, num_labels]: the encoder, dropout
-    on the pooled output, then the head in f32."""
+    on the pooled output, then the head in f32 (``mesh``: see
+    :func:`encode`)."""
     drop = Dropout(cfg.dropout, noise if train else None)
     _, pooled = encode(cfg, params, tokens, attention_mask, token_type_ids, train=train,
-                       drop=drop)
+                       drop=drop, mesh=mesh)
     pooled = drop(pooled, 2 * cfg.num_layers + 1)
     head = params.classifier
     return pooled.float() @ head.kernel.float() + head.bias.float()

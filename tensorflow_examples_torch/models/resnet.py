@@ -28,6 +28,21 @@ The math is the reference's, where torch's own layers differ:
 * The global average pool stays in the compute dtype; the head runs in
   f32 on the f32-cast pooled features.
 
+Meshes (``apply(..., mesh=)``, per-rank code): in training the
+BatchNorm moments are the global batch's, as the reference's sync-BN is
+(one logical array under ``jit``; XLA all-reduces the moments). Each
+rank sums ``Σx``, ``Σx²`` and its row count in f32 over its rows, the
+mesh's batch axes (``data`` and ``fsdp`` where their size is above 1;
+the trainer refuses a ``batch_axes`` that splits the batch otherwise)
+sum them in one all-reduce a layer, and mean and variance follow from
+the sums as on one rank; every rank then holds the same running
+statistics. That all-reduce is summed in the
+backward too (``collectives.copy_to`` over ``psum``): each rank's loss
+covers its own rows only, so the moments' cotangent differs from rank
+to rank, and the trainer's gradient mean over the batch axes is then
+the global batch's gradient. In eval, or where the batch axes are of
+size 1, nothing crosses ranks.
+
 Convolutions, pooling and the elementwise ops are ``torch.nn.functional``
 calls (cuDNN on the card): the reference computes them in XLA, outside
 any Pallas kernel.
@@ -42,6 +57,9 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tensorflow_examples_torch.core import collectives as coll
+from tensorflow_examples_torch.core.mesh import AxisNames
 
 BN_EPS = 1e-5
 
@@ -217,13 +235,19 @@ def conv(x, kernel, stride: int = 1):
 
 
 def batch_norm(x, params: Mapping, stats: Mapping, name: str, *, train: bool,
-               momentum: float, new_stats: dict):
+               momentum: float, new_stats: dict, mesh=None, axes: tuple = ()):
     """flax ``BatchNorm`` over NCHW ``x`` (see the module docstring);
-    in training, the updated running statistics go to ``new_stats``."""
+    in training, the updated running statistics go to ``new_stats``.
+    ``axes``: the mesh axes whose ranks hold the rest of the batch."""
     xf = x.float()
     if train:
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        c, dims = xf.shape[1], (0, 2, 3)
+        rows = xf.new_full((1,), xf.numel() // c)
+        sums = torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), rows])
+        if axes:
+            sums = coll.copy_to(coll.psum(sums, axes, mesh=mesh), axes, mesh=mesh)
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
         with torch.no_grad():
             new_stats[f"{name}.mean"] = momentum * stats[f"{name}.mean"] + (1 - momentum) * mean
             new_stats[f"{name}.var"] = momentum * stats[f"{name}.var"] + (1 - momentum) * var
@@ -235,9 +259,7 @@ def batch_norm(x, params: Mapping, stats: Mapping, name: str, *, train: bool,
     return y.to(x.dtype)
 
 
-def _block(cfg: ResNetConfig, params, stats, new_stats, x, prefix: str, strides: int, train: bool):
-    bn = lambda y, name: batch_norm(y, params, stats, f"{prefix}.{name}", train=train,
-                                    momentum=cfg.bn_momentum, new_stats=new_stats)
+def _block(cfg: ResNetConfig, x, prefix: str, strides: int, params, bn):
     # The conv strides in order: the stride sits on the block's 3x3 conv.
     conv_strides = (1, strides, 1) if cfg.block == "bottleneck" else (strides, 1)
     y = x
@@ -252,14 +274,19 @@ def _block(cfg: ResNetConfig, params, stats, new_stats, x, prefix: str, strides:
 
 
 def apply(cfg: ResNetConfig, params: Mapping[str, torch.Tensor],
-          batch_stats: Mapping[str, torch.Tensor], x: torch.Tensor, *, train: bool = False):
+          batch_stats: Mapping[str, torch.Tensor], x: torch.Tensor, *, train: bool = False,
+          mesh=None):
     """(f32 logits [B, num_classes], batch_stats after the step) of NHWC
     images ``x`` in the compute dtype. ``params`` and ``batch_stats`` are
     flat ``{name: tensor}`` dicts; in eval (``train=False``) the running
-    statistics normalize and come back unchanged."""
+    statistics normalize and come back unchanged. ``mesh``: ``x`` is this
+    rank's rows of a batch split over the mesh's batch axes (see the
+    module docstring)."""
     new_stats: dict = {}
+    axes = mesh.axes(AxisNames.BATCH_AXES) if mesh is not None else ()
     bn = lambda y, name: batch_norm(y, params, batch_stats, name, train=train,
-                                    momentum=cfg.bn_momentum, new_stats=new_stats)
+                                    momentum=cfg.bn_momentum, new_stats=new_stats, mesh=mesh,
+                                    axes=axes)
     x = x.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
     if cfg.stem == "cifar":
         x = torch.relu(bn(conv(x, params["stem_conv.kernel"]), "stem_bn"))
@@ -270,8 +297,9 @@ def apply(cfg: ResNetConfig, params: Mapping[str, torch.Tensor],
     for stage, n_blocks in enumerate(cfg.stage_sizes):
         for b in range(n_blocks):
             strides = 2 if stage > 0 and b == 0 else 1
-            x = _block(cfg, params, batch_stats, new_stats, x, f"stage{stage}_block{b}", strides,
-                       train)
+            prefix = f"stage{stage}_block{b}"
+            x = _block(cfg, x, prefix, strides, params,
+                       lambda y, name, p=prefix: bn(y, f"{p}.{name}"))
     pooled = x.mean(dim=(2, 3))  # global average pool
     logits = pooled.float() @ params["head.kernel"].float() + params["head.bias"].float()
     # In the input's key order: a CUDA graph copies state back leaf by leaf.

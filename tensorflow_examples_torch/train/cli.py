@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import inspect
 import json
 import logging
 
@@ -121,6 +120,15 @@ def iterators(module, cfg):
             lambda: eval_batches(eval_ds, eval_bs))
 
 
+def build_trainer(module, cfg) -> Trainer:
+    """The trainer of a workload on the mesh its flags (or
+    ``--sharding_config``) shape, the task made for that mesh."""
+    sharding = (ShardingConfig.load(cfg.sharding_config) if cfg.sharding_config
+                else ShardingConfig.from_train_config(cfg))
+    mesh = sharding.build_mesh(device=distributed.local_device(cfg.device))
+    return Trainer(module.make_task(cfg, mesh=mesh), cfg, mesh=mesh, sharding=sharding)
+
+
 def main(argv=None) -> int:
     _, args, module, cfg = parse_config(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
@@ -128,17 +136,13 @@ def main(argv=None) -> int:
     configure_io_retry(cfg.io_retries, cfg.io_backoff_secs)
     distributed.initialize(device=cfg.device)
     try:
-        sharding = (ShardingConfig.load(cfg.sharding_config) if cfg.sharding_config
-                    else ShardingConfig.from_train_config(cfg))
-        mesh = sharding.build_mesh(device=distributed.local_device(cfg.device))
         train_fn, eval_fn = iterators(module, cfg)
-        takes_mesh = "mesh" in inspect.signature(module.make_task).parameters
-        task = module.make_task(cfg, mesh=mesh) if takes_mesh else module.make_task(cfg)
-        trainer = Trainer(task, cfg, mesh=mesh, sharding=sharding)
+        trainer = build_trainer(module, cfg)
         metrics = trainer.fit(train_fn, eval_iter_fn=eval_fn)
         if distributed.is_primary():
             print(json.dumps({"workload": args.workload, "device": str(trainer.device),
-                              "mesh": dict(mesh.shape), "steps": trainer.state.step, **metrics}))
+                              "mesh": dict(trainer.mesh.shape), "steps": trainer.state.step,
+                              **metrics}))
     finally:
         distributed.shutdown()
     return 0

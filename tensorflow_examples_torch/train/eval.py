@@ -10,6 +10,10 @@ restored step, as one JSON line. It reads only the eval split: the
 workload's ``make_eval_iter`` stream where it has one (ImageNet), else
 its ``eval_dataset``. Without ``--workdir`` it is a usage
 error (exit code 2); a workdir without a checkpoint exits non-zero.
+Under ``torchrun`` with the ``--mesh_*`` flags (or
+``--sharding_config``) it evaluates on that mesh, as ``train.cli``
+trains: the task made for the mesh, the checkpoint cut into each rank's
+pieces, the totals summed over the batch axes; rank 0 prints the line.
 """
 
 from __future__ import annotations
@@ -17,10 +21,10 @@ from __future__ import annotations
 import json
 import logging
 
+from tensorflow_examples_torch.core import distributed
 from tensorflow_examples_torch.data.memory import eval_batches
 from tensorflow_examples_torch.train.checkpoint import CheckpointManager
-from tensorflow_examples_torch.train.cli import parse_config
-from tensorflow_examples_torch.train.loop import Trainer
+from tensorflow_examples_torch.train.cli import build_trainer, parse_config
 
 
 def main(argv=None) -> int:
@@ -28,19 +32,25 @@ def main(argv=None) -> int:
     if not cfg.workdir:
         parser.error("--workdir is required for eval")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    trainer = Trainer(module.make_task(cfg), cfg)
-    restored = CheckpointManager(cfg.workdir).restore_latest(trainer.state)
-    if restored is None:
-        raise SystemExit(f"no checkpoint under {cfg.workdir}")
-    trainer.state = restored[0]
-    if hasattr(module, "make_eval_iter"):
-        batches = module.make_eval_iter(cfg)
-    else:
-        batches = eval_batches(module.eval_dataset(cfg),
-                               cfg.eval_batch_size or cfg.global_batch_size)
-    metrics = trainer.evaluate(batches)
-    print(json.dumps({"workload": args.workload, "device": str(trainer.device),
-                      "step": restored[1], **{f"eval_{k}": v for k, v in metrics.items()}}))
+    distributed.initialize(device=cfg.device)
+    try:
+        trainer = build_trainer(module, cfg)
+        restored = CheckpointManager(cfg.workdir, layout=trainer.layout,
+                                     primary=distributed.is_primary()).restore_latest(trainer.state)
+        if restored is None:
+            raise SystemExit(f"no checkpoint under {cfg.workdir}")
+        trainer.state = restored[0]
+        if hasattr(module, "make_eval_iter"):
+            batches = module.make_eval_iter(cfg)
+        else:
+            batches = eval_batches(module.eval_dataset(cfg),
+                                   cfg.eval_batch_size or cfg.global_batch_size)
+        metrics = trainer.evaluate(batches)
+        if distributed.is_primary():
+            print(json.dumps({"workload": args.workload, "device": str(trainer.device),
+                              "step": restored[1], **{f"eval_{k}": v for k, v in metrics.items()}}))
+    finally:
+        distributed.shutdown()
     return 0
 
 

@@ -56,7 +56,13 @@ step reads its rows of the global batch (the order of the reference's
 the batch and context axes, and under ``zero1`` reduce-scatters them,
 updates its piece of the moments and all-gathers the parameters. Loss,
 metrics and the gradient norm are global, so every rank's bad-step
-guard and log window agree. ``fit`` allgathers the placement digest,
+guard and log window agree. Non-trainable state (``model_state``: the
+ResNets' BatchNorm statistics, which the task computes from the global
+batch's moments) is whole and equal on every rank: the guard keeps or
+replaces it as it does the parameters, and checkpoints hold it once.
+Such a task's moments are summed over the mesh's ``data`` and ``fsdp``
+axes, so a ``batch_axes`` that splits the batch otherwise raises.
+``fit`` allgathers the placement digest,
 checks and refreshes ``workdir/sharding.json`` (a drifted rules table
 raises :class:`~..sharding.ShardingMismatchError`), checkpoints whole
 tensors from the primary rank and restores onto any mesh shape; only the
@@ -96,6 +102,7 @@ import torch
 
 from tensorflow_examples_torch.core import collectives as coll
 from tensorflow_examples_torch.core import distributed, nans, rng
+from tensorflow_examples_torch.core.mesh import AxisNames
 from tensorflow_examples_torch.core.precision import PrecisionPolicy
 from tensorflow_examples_torch.core.sharding import ShardingRules, batch_rows
 from tensorflow_examples_torch.data.prefetch import bundle_batches, device_prefetch, put_batch
@@ -129,8 +136,9 @@ class Trainer:
     (nested dicts of arrays, or ``/``-joined flat keys) that replaces the
     task's random init, e.g. weights carried over from the JAX package.
     ``mesh`` (``core/mesh.Mesh``) and ``sharding``: see the module
-    docstring; a task whose model splits over ``model`` or ``context``
-    must be made for the same mesh (``gpt2.make_task(cfg, mesh=mesh)``).
+    docstring; a task must be made for the same mesh
+    (``make_task(cfg, mesh=mesh)``): its model splits over ``model`` or
+    ``context``, or sums BatchNorm moments over the batch axes.
     """
 
     def __init__(self, task: Task, config: TrainConfig, *, init_params: Mapping | None = None,
@@ -139,8 +147,10 @@ class Trainer:
         self.config = config
         self.device = distributed.local_device(config.device)
         if self.device.type == "cuda":
-            # f32 means f32: TF32 matmuls keep ~3 decimal digits.
+            # f32 means f32: TF32 matmuls and convolutions keep ~3 decimal
+            # digits (cuDNN's convolutions default to TF32).
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         if sharding is None:
             path = getattr(config, "sharding_config", "")
             sharding = (ShardingConfig.load(path) if path else
@@ -197,10 +207,14 @@ class Trainer:
         layout = self.layout = StateLayout(self.mesh, self._rules, params, tx,
                                            zero1=self.sharding.zero1,
                                            batch_axes=self.sharding.batch_axes)
-        if variables and layout.n_grad > 1:
+        if variables and set(layout.batch_axes) != set(self.mesh.axes(AxisNames.BATCH_AXES)):
+            # The model sums its running statistics' moments over the
+            # mesh's batch axes: other rows per rank would make them local.
             raise NotImplementedError(
-                f"{self.task.name} keeps running statistics ({sorted(variables)}), which a "
-                "batch split over ranks would need to reduce across them: not ported yet")
+                f"{self.task.name} keeps running statistics ({sorted(variables)}) summed over "
+                f"the mesh's {AxisNames.BATCH_AXES} axes; batch_axes="
+                f"{list(self.sharding.batch_axes)} splits the batch over "
+                f"{list(layout.batch_axes)}")
         params = layout.shard_params(params)
         return TrainState(step=0, params=params, opt_state=tx.init(layout.opt_view(params)),
                           model_state=variables, tx=tx)

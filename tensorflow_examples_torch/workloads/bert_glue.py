@@ -14,7 +14,9 @@ weighted means, and ``eval_finalize`` turns them into the task's score:
 MCC for CoLA, F1 for MRPC and QQP (from confusion rates), Pearson for
 STS-B (from moments) (``ops/glue_metrics.py``). ``pretrained`` names a
 local HF BERT directory (``models/hf_import.import_bert``); its head is
-kept only when its shape fits the task's.
+kept only when its shape fits the task's. On a mesh the layers are cut
+by ``bert.BERT_RULES`` (qkv by heads and the FFN by columns over
+``model``, the kernels' other dim over ``fsdp``), as the reference's.
 """
 
 from __future__ import annotations
@@ -65,7 +67,12 @@ def model_config(cfg: BertGlueConfig) -> bert.BertConfig:
                            dropout=cfg.dropout, attention=cfg.attention)
 
 
-def make_task(cfg: BertGlueConfig) -> Task:
+def make_task(cfg: BertGlueConfig, mesh=None) -> Task:
+    """The task; ``mesh``: the ``core/mesh.Mesh`` the trainer runs on
+    (None: one device), whose ``model`` and ``fsdp`` axes cut the layers
+    under ``bert.BERT_RULES``."""
+    if mesh is not None and mesh.trivial:
+        mesh = None
     num_labels = GLUE_NUM_LABELS[cfg.task]
     regression = num_labels == 1
     mcfg = model_config(cfg)
@@ -90,7 +97,8 @@ def make_task(cfg: BertGlueConfig) -> Task:
 
     def forward(params, batch, *, rng, train):
         return bert.forward(mcfg, ParamView(params), batch["tokens"], batch["attention_mask"],
-                            batch["token_type_ids"], train=train, noise=rng if train else None)
+                            batch["token_type_ids"], train=train, noise=rng if train else None,
+                            mesh=mesh)
 
     def loss_fn(params, model_state, batch, *, rng, train):
         logits = forward(params, batch, rng=rng, train=train)
@@ -134,7 +142,7 @@ def make_task(cfg: BertGlueConfig) -> Task:
 
     return Task(name=f"bert_glue_{cfg.task}", init_fn=init_fn, loss_fn=loss_fn,
                 make_optimizer=optimizers.adamw_linear, eval_fn=eval_fn,
-                eval_finalize=eval_finalize)
+                eval_finalize=eval_finalize, sharding_rules=bert.BERT_RULES)
 
 
 def datasets(cfg: BertGlueConfig):

@@ -8,7 +8,10 @@ statistics and head, and crop/flip augmentation on the host
 (``data/augment.cifar_augment``: real data stays uint8 so the crop,
 flip and normalize run fused in the native library). The BatchNorm
 running statistics are ``TrainState.model_state["batch_stats"]``: a
-training step returns them updated, eval normalizes with them.
+training step returns them updated, eval normalizes with them. On a
+mesh the parameters are replicated (``REPLICATED``, the reference's
+rules) and the batch's rows split over the batch axes, whose ranks sum
+each BatchNorm's moments.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from tensorflow_examples_torch.data.augment import cifar_augment
 from tensorflow_examples_torch.data.sources import load_cifar10
+from tensorflow_examples_torch.core.sharding import REPLICATED
 from tensorflow_examples_torch.models import resnet
 from tensorflow_examples_torch.ops.losses import accuracy_metrics, softmax_cross_entropy
 from tensorflow_examples_torch.train import optimizers
@@ -38,7 +42,11 @@ class Cifar10Config(TrainConfig):
     augment: bool = True
 
 
-def make_task(cfg: Cifar10Config) -> Task:
+def make_task(cfg: Cifar10Config, mesh=None) -> Task:
+    """The task; ``mesh``: the ``core/mesh.Mesh`` the trainer runs on
+    (None: one device). The parameters are replicated on it, and a
+    training step's BatchNorm moments are summed over its batch axes
+    (``models/resnet.py``)."""
     mcfg = resnet.resnet20(num_classes=10)
 
     def init_fn(seed: int, device: torch.device):
@@ -46,7 +54,7 @@ def make_task(cfg: Cifar10Config) -> Task:
 
     def loss_fn(params, model_state, batch, *, rng, train):
         logits, stats = resnet.apply(mcfg, params, model_state["batch_stats"], batch["image"],
-                                     train=train)
+                                     train=train, mesh=mesh)
         loss = softmax_cross_entropy(logits, batch["label"])
         return loss, accuracy_metrics(logits, batch["label"]), {"batch_stats": stats}
 
@@ -57,7 +65,8 @@ def make_task(cfg: Cifar10Config) -> Task:
         return m
 
     return Task(name="cifar10_resnet20", init_fn=init_fn, loss_fn=loss_fn,
-                make_optimizer=optimizers.sgd_momentum_cosine, eval_fn=eval_fn)
+                make_optimizer=optimizers.sgd_momentum_cosine, eval_fn=eval_fn,
+                sharding_rules=REPLICATED)
 
 
 def datasets(cfg: Cifar10Config):

@@ -7,7 +7,8 @@
 label smoothing 0.1, bf16 compute with f32 BatchNorm statistics and
 head; ``optimizer="lars"`` takes LARS for large batches. Eval reports
 ``accuracy``, ``top5_accuracy`` and the unsmoothed loss under the
-batch's ``mask``.
+batch's ``mask``. On a mesh the parameters are replicated and the
+batch axes' ranks sum each BatchNorm's moments (``models/resnet.py``).
 
 The workload streams its data (the protocol ``train/cli.py`` reads):
 ``make_train_iter(cfg, start)`` and ``make_eval_iter(cfg)`` read
@@ -24,6 +25,7 @@ import dataclasses
 import torch
 
 from tensorflow_examples_torch.data import imagenet as imagenet_data
+from tensorflow_examples_torch.core.sharding import REPLICATED
 from tensorflow_examples_torch.models import resnet
 from tensorflow_examples_torch.ops.losses import accuracy_metrics, softmax_cross_entropy
 from tensorflow_examples_torch.train import optimizers
@@ -53,7 +55,11 @@ class ImagenetConfig(TrainConfig):
     deterministic_input: bool = True
 
 
-def make_task(cfg: ImagenetConfig) -> Task:
+def make_task(cfg: ImagenetConfig, mesh=None) -> Task:
+    """The task; ``mesh``: the ``core/mesh.Mesh`` the trainer runs on
+    (None: one device). The parameters are replicated on it, and a
+    training step's BatchNorm moments are summed over its batch axes
+    (``models/resnet.py``)."""
     depth = getattr(resnet, cfg.model, None)
     if depth is None:
         raise ValueError(f"unknown --model={cfg.model}; one of resnet18/34/50/101/152")
@@ -64,7 +70,7 @@ def make_task(cfg: ImagenetConfig) -> Task:
 
     def loss_fn(params, model_state, batch, *, rng, train):
         logits, stats = resnet.apply(mcfg, params, model_state["batch_stats"], batch["image"],
-                                     train=train)
+                                     train=train, mesh=mesh)
         loss = softmax_cross_entropy(logits, batch["label"],
                                      label_smoothing=cfg.label_smoothing)
         return loss, accuracy_metrics(logits, batch["label"]), {"batch_stats": stats}
@@ -78,7 +84,7 @@ def make_task(cfg: ImagenetConfig) -> Task:
     return Task(name=f"imagenet_{cfg.model}", init_fn=init_fn, loss_fn=loss_fn,
                 make_optimizer=(optimizers.lars if cfg.optimizer == "lars"
                                 else optimizers.sgd_momentum_cosine),
-                eval_fn=eval_fn)
+                eval_fn=eval_fn, sharding_rules=REPLICATED)
 
 
 def train_iter_is_per_host(cfg: ImagenetConfig) -> bool:

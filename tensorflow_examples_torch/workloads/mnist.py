@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from tensorflow_examples_torch.core.sharding import REPLICATED
 from tensorflow_examples_torch.data.sources import load_mnist
 from tensorflow_examples_torch.models import mlp
 from tensorflow_examples_torch.models.transformer import ParamView
@@ -36,7 +37,10 @@ def model_config(cfg: MnistConfig) -> mlp.MLPConfig:
                          num_classes=10, dropout_rate=cfg.dropout)
 
 
-def make_task(cfg: MnistConfig) -> Task:
+def make_task(cfg: MnistConfig, mesh=None) -> Task:
+    """The task; on a mesh (``mesh``) the MLP is replicated and its
+    batch rows split over the batch axes, which the trainer does alone."""
+    del mesh
     mcfg = model_config(cfg)
 
     def init_fn(seed: int, device: torch.device):
@@ -56,7 +60,7 @@ def make_task(cfg: MnistConfig) -> Task:
         return m
 
     return Task(name="mnist_mlp", init_fn=init_fn, loss_fn=loss_fn,
-                make_optimizer=optimizers.adam, eval_fn=eval_fn)
+                make_optimizer=optimizers.adam, eval_fn=eval_fn, sharding_rules=REPLICATED)
 
 
 def datasets(cfg: MnistConfig):

@@ -626,6 +626,74 @@ def test_two_rank_expert_parallel_moe_on_one_card_matches_moe_ffn(dev, tmp_path)
             errs
 
 
+def _workload_configs() -> dict:
+    """ResNet-20 (CIFAR-10, batch 16) and a narrow BERT (2 layers, 4
+    heads of 32, seq 64, batch 8, flash attention), f32, dropout 0, with
+    3 seeded batches each."""
+    from tensorflow_examples_torch.workloads import bert_glue, cifar10
+
+    common = dict(precision="f32", train_steps=3, warmup_steps=1, log_every=1, eval_every=0,
+                  checkpoint_every=0, telemetry_sinks="", watchdog_secs=0)
+    rng = np.random.default_rng(5)
+    resnet = cifar10.Cifar10Config(global_batch_size=16, augment=False, **common)
+    images = [{"image": rng.standard_normal((16, 32, 32, 3), dtype=np.float32),
+               "label": rng.integers(0, 10, 16).astype(np.int32)} for _ in range(3)]
+    bert = bert_glue.BertGlueConfig(seq_len=64, vocab_size=120, num_layers=2, num_heads=4,
+                                    d_model=128, d_ff=256, dropout=0.0, attention="flash",
+                                    global_batch_size=8, learning_rate=1e-3, **common)
+    lengths = rng.integers(8, 65, 8)
+    mask = (np.arange(64)[None] < lengths[:, None]).astype(np.int32)
+    texts = [{"tokens": rng.integers(100, 120, (8, 64)).astype(np.int32) * mask,
+              "attention_mask": mask, "token_type_ids": np.zeros((8, 64), np.int32),
+              "label": rng.integers(0, 2, 8).astype(np.int32)} for _ in range(3)]
+    return {"resnet20": (cifar10, resnet, {"data": 2}, images),
+            "bert": (bert_glue, bert, {"model": 2}, texts)}
+
+
+def _workload_steps(module, cfg, mesh_kw, batches) -> dict:
+    from tensorflow_examples_torch.sharding import ShardingConfig
+    from tensorflow_examples_torch.train.loop import Trainer
+
+    sc = ShardingConfig(mesh=mesh_kw)
+    mesh = sc.build_mesh()
+    trainer = Trainer(module.make_task(cfg, mesh=mesh), cfg, mesh=mesh, sharding=sc)
+    before = [f.launches for f in FLASH_KERNELS]
+    losses = [float(trainer.train_step(b)["loss"]) for b in batches]
+    stats = trainer.state.model_state.get("batch_stats", {})
+    return {"losses": losses, "launched": [f.launches - b for f, b in zip(FLASH_KERNELS, before)],
+            "batch_stats": {k: v.cpu().numpy() for k, v in stats.items()}}
+
+
+def _workloads_on_one_card(rank: int) -> dict:
+    return {name: _workload_steps(*spec) for name, spec in _workload_configs().items()}
+
+
+def test_resnet_data2_and_bert_flash_model2_on_one_card_match_one_rank(dev, tmp_path):
+    """Two ranks share the card over gloo: ResNet-20 on ``{data: 2}``
+    (each BatchNorm's moments summed over the ranks, forward and
+    backward) and BERT with the flash kernels on ``{model: 2}`` (2 heads
+    a rank, the key bias of a ragged padding mask), 3 f32 steps each
+    against the same steps on one rank from the same seeded init: losses
+    rtol 1e-4, ResNet-20's statistics equal on the ranks and within rtol
+    1e-4 (atol 1e-6) of one rank's, each flash kernel launched once a
+    layer a step on every rank."""
+    from tensorflow_examples_torch.core import distributed
+
+    ranks = distributed.run_world(_workloads_on_one_card, 2, device="cuda", timeout_s=240,
+                                  store_dir=str(tmp_path))
+    for name, (module, cfg, _, batches) in _workload_configs().items():
+        one = _workload_steps(module, cfg, {"data": 1}, batches)
+        got = [r[name] for r in ranks]
+        assert got[0]["losses"] == got[1]["losses"], name
+        np.testing.assert_allclose(got[0]["losses"], one["losses"], rtol=1e-4, err_msg=name)
+        for k, v in one["batch_stats"].items():
+            np.testing.assert_array_equal(got[1]["batch_stats"][k], got[0]["batch_stats"][k])
+            np.testing.assert_allclose(got[0]["batch_stats"][k], v, rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+        want = [cfg.num_layers * 3] * 3 if name == "bert" else [0, 0, 0]
+        assert all(r["launched"] == want for r in got) and one["launched"] == want, name
+
+
 def test_flash_kernels_refuse_what_they_cannot_launch(dev):
     q = torch.zeros(2, 16, UNSUPPORTED_HEAD_DIM, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
